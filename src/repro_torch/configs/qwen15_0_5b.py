@@ -1,0 +1,15 @@
+"""qwen1.5-0.5b [dense] — hf:Qwen/Qwen1.5-0.5B. QKV bias, tied embeddings."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen1.5-0.5b", family="dense",
+    num_layers=24, d_model=1024, num_heads=16, num_kv_heads=16,
+    d_ff=2816, vocab_size=151936, qkv_bias=True, tie_embeddings=True,
+    rope_theta=1e6,
+)
+
+SMOKE = CONFIG.with_(
+    name="qwen1.5-0.5b-smoke", num_layers=2, d_model=64, num_heads=4,
+    num_kv_heads=4, d_ff=128, vocab_size=512,
+    param_dtype="float32", activation_dtype="float32", attn_q_chunk=32,
+)

@@ -1,0 +1,100 @@
+"""Basic neural-net layers as plain functions on tensors (torch port of
+``repro.models.layers``).
+
+Parameters keep the reference's shapes and names; a layer's parameters are
+a dict of tensors. ``init_*`` functions draw from an explicit
+``torch.Generator`` and take a ``lead`` shape so that per-layer weights can
+be created stacked, ``(L, ...)``, as the reference stacks them. Weights are
+stored in ``cfg.param_dtype``; compute upcasts where the reference does
+(norm variance, RoPE, softmax).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return DTYPES[name]
+
+
+def param(gen: torch.Generator, shape, dtype, scale: float | None = None) -> torch.Tensor:
+    """N(0, scale^2) drawn in float32 on the generator's device, then cast."""
+    if scale is None:
+        scale = 0.02
+    if scale == 0.0:
+        return torch.zeros(shape, dtype=dtype, device=gen.device)
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+    return (x * scale).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm in the reference's order: square in the compute dtype, sum in
+    float32, rsqrt cast back to the compute dtype."""
+    t = x * x
+    var = t.sum(dim=-1, keepdim=True, dtype=torch.float32) / x.shape[-1]
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * weight.to(x.dtype)
+
+
+def init_rms_norm(d: int, dtype, device, lead=()) -> dict:
+    return {"w": torch.ones((*lead, d), dtype=dtype, device=device)}
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def init_mlp(gen: torch.Generator, cfg, lead=()) -> dict:
+    """Sorted keys: the reference's pytree flatten order."""
+    d, f = cfg.d_model, cfg.d_ff
+    dt = dtype_of(cfg.param_dtype)
+    p = {}
+    if cfg.mlp == "swiglu":
+        p["wg"] = param(gen, (*lead, d, f), dt)
+    p["wi"] = param(gen, (*lead, d, f), dt)
+    p["wo"] = param(gen, (*lead, f, d), dt, scale=0.02 / math.sqrt(2 * cfg.num_layers))
+    return p
+
+
+def apply_mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    h = x @ p["wi"]
+    if "wg" in p:
+        h = silu(x @ p["wg"]) * h
+    else:
+        h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
+    return h @ p["wo"]
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
+    """positions: int (...,) -> (cos, sin) float32 of shape (..., head_dim//2)."""
+    half = head_dim // 2
+    ar = torch.arange(half, dtype=torch.float32, device=positions.device)
+    freqs = torch.exp(-math.log(theta) * ar / half)
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, hd); cos/sin: (S, hd//2) or (B, S, hd//2)."""
+    half = x.shape[-1] // 2
+    if cos.dim() == 2:  # (S, half) -> broadcast over batch and heads
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:  # (B, S, half)
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    xf = x.to(torch.float32)
+    x1f, x2f = xf[..., :half], xf[..., half:]
+    out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def init_embedding(gen: torch.Generator, cfg) -> dict:
+    return {"tok": param(gen, (cfg.vocab_size, cfg.d_model), dtype_of(cfg.param_dtype))}
+
+
+def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens, p["tok"])

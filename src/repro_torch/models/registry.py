@@ -1,0 +1,31 @@
+"""Model registry of the port (torch counterpart of ``repro.models.registry``)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+
+
+def build(cfg: ModelConfig, *, device: torch.device, seed: int = 0,
+          params: dict | None = None) -> transformer.TransformerLM:
+    """The model for ``cfg`` on ``device``: weights drawn from a
+    ``torch.Generator`` seeded with ``seed``, or the given parameter tree
+    (e.g. ``repro_torch.interop.params_from_jax``), moved to ``device``."""
+    if params is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        params = transformer.init_lm(cfg, gen)
+    else:
+        params = _to_device(params, device)
+    return transformer.TransformerLM(cfg, params)
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def param_count(model: torch.nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())
