@@ -7,16 +7,23 @@ Phases (each prints on its own lines; any failure raises, exit code != 0):
 
 1. Card facts: the device name, ``nvidia-smi``'s name and power limit, and
    the TF32 switches (both set off: float32 products stay float32).
-2. Build: compile every kernel of the port from ``src/repro_torch/csrc``.
+2. Build: compile every kernel of the port from ``src/repro_torch/csrc``;
+   per library, the registers and spills ptxas reports and, from
+   ``cuobjdump -sass``, how many of its instructions are IMAD forms (integer
+   work the FMA pipe executes; see the rate note in phase 6).
 3. Kernel parity on the card: K1 (``fpisa_encode_align``) and K2
    (``fpisa_decode_fused``) against their plain PyTorch versions on the
    same CUDA tensors, over the CPU suite's sweep plus +-0, denormals,
    +-inf, NaN and the wire dtypes' extreme values, and at the main path's
    largest leaf; then a 4-worker aggregation on one card (K1 on 4 gradient
    tensors, MAX of block exponents, residual shift and wire cast, integer
-   sum, K2) per wire width. Tolerance: none, outputs are compared as
-   integers (bit patterns), and ``max_abs_err`` is the largest absolute
-   difference of those integers.
+   sum, K2) per wire width. Then K3 (``fpisa_extract``), K4
+   (``fpisa_align``, preshift 0/2), K5 (``fpisa_decode``, preshift 0/2) and
+   K6 (``fpisa_accum``, W in {1, 2, 4, 8} x ``fpisa_a``/``full``, with
+   inputs that make FPISA-A overwrite, shift left into the headroom and
+   wrap the int32 register) over the same sweep and the largest leaf.
+   Tolerance: none, outputs are compared as integers (bit patterns), and
+   ``max_abs_err`` is the largest absolute difference of those integers.
 4. Training (the main path): qwen1.5-0.5b at full width (24 layers,
    d_model 1024, vocab 151936; bf16 weights from a seed), 3 steps of global
    batch 8 x seq 512 through ``train_loop`` with FPISA aggregation on the
@@ -28,14 +35,36 @@ Phases (each prints on its own lines; any failure raises, exit code != 0):
    config must agree between the two backends.
    A breakdown of one step by layer (forward+backward, aggregation,
    optimizer) follows, on CUDA events.
-5. Timing at the main path's shapes (the 14 gradient leaves of one step,
+5. Training with switch-arrival aggregation (the ``fpisa_seq`` path): the
+   same model, batch and group, 3 steps with ``strategy="fpisa_seq"`` on
+   the ``auto`` backend. K6's launch count is zeroed just before and read
+   just after: one launch per gradient leaf per step. Then the cuda and the
+   plain ``fpisa_seq`` aggregation of the trained model's gradients must
+   give the same bits, and the step's breakdown follows.
+6. Timing at the main path's shapes (the 14 gradient leaves of one step,
    1,812,452 rows of 256, and the largest leaf alone): CUDA events, median
    of 25 timed runs after warm-up, for each kernel, its plain version, and
-   a ``dst.copy_(src)`` of the same bytes (the bandwidth this card reaches).
-   The bound is the larger of the bytes over 3.35 TB/s and the integer
-   operations over 33.5 TOP/s (H100 SXM data sheet; 64 INT32 lanes per SM,
-   half the FP32 rate). No single PyTorch call computes FPISA encode or
-   decode, so ``library_ms`` is null.
+   a ``copy_`` of the same bytes (the bandwidth this card reaches). The
+   bound is the larger of the bytes over 3.35 TB/s (H100 SXM data sheet)
+   and the integer operations over the card's instruction issue rate,
+   33.45 TOP/s (``PEAK_INT_OPS_PER_S`` below says how it is derived); the time
+   of the operations at the INT32 pipe's own rate, 16.7 TOP/s, is logged
+   beside it. No single PyTorch call computes FPISA encode, decode or the
+   switch-arrival sum, so ``library_ms`` is null.
+7. The two-pass pipeline at those shapes: ``ops.decode(ops.align(
+   *ops.extract(x), p), p)`` over the 14 leaves must equal the fused
+   ``ops.decode_fused(arshift(ops.encode_align(x), p), p)`` bit for bit at
+   preshift p = 0 and 2 (the residual shift on the fused side); K3, K4 and
+   K5's launch counts are zeroed just before that run and read just after
+   (one extract per leaf, one align and one decode per leaf and preshift).
+   Then K3, K4 and K5 are timed as above at preshift 0.
+8. K6 at the ``fpisa_seq`` step's shape (W = 1, the 14 leaves) and at the
+   accuracy shape (W = 8 stacked gradients of the embedding leaf's shape,
+   both variants, each held against its plain version).
+9. ``switch_emu`` at smoke size (its numpy dataplane is a per-packet loop on
+   the host): 3 smoke steps of ``switch_emu`` and of ``fpisa_seq`` give the
+   same losses (rtol 1e-6: the card's float backward sums in a varying
+   order), and one leaf through both aggregators gives the same bits.
 
 The line before the last is ``{"kernels": [...]}`` with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -56,13 +85,36 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
-INT32_OPS_PER_S = 33.5e12     # 132 SMs x 64 INT32 lanes x 2 x ~1.98 GHz boost
-# integer operations per element, counted from csrc/fpisa_fused.cuh
-OPS_PER_ELEM = {"fused_encode_align": 16, "fused_decode": 34}
+# Integer operations. Each SM has 4 warp schedulers, each issuing at most one
+# warp instruction (32 lanes) per clock: 128 lane-operations per clock per
+# SM, 132 SMs x 128 x 1.98 GHz (SXM boost) = 33.45 TOP/s, the most any
+# instruction mix can reach. The INT32 pipe alone has 64 lanes per SM (16.7
+# TOP/s); integer work reaches past it because the FMA pipe executes the IMAD
+# forms (IMAD, IMAD.MOV, IMAD.SHL, IMAD.IADD, ...), which ptxas emits for
+# moves, constant shifts and adds (Nsight Compute's kernel profiling guide,
+# pipelines "fma" and "alu"; the build phase counts them in each library).
+# The bound takes the issue rate, so it stays a floor; the INT32-pipe time
+# is logged beside it.
+PEAK_INT_OPS_PER_S = 132 * 128 * 1.98e9
+INT32_PIPE_OPS_PER_S = 132 * 64 * 1.98e9
+# integer operations per element, counted from csrc/fpisa_fused.cuh (encode
+# 13, row max 1, arshift with its clamp 4, renormalize 34, one FPISA-A add
+# with its shifts about 15)
+OPS_PER_ELEM = {"fused_encode_align": 16, "fused_decode": 34, "fpisa_extract": 14,
+                "fpisa_align": 5, "fpisa_decode": 34}
+KERNELS = ("fused_encode_align", "fused_decode", "fpisa_extract", "fpisa_align",
+           "fpisa_decode", "fpisa_accum")
+
 SWEEP = [(1, 256), (8, 128), (256, 256), (300, 512), (513, 128), (64, 512)]
 EMBED_ROWS = 607744           # the embedding gradient: 151936 x 1024 / 256
 FMTS = ("fp32", "fp16", "bf16")
 STEPS, GLOBAL_BATCH, SEQ_LEN = 3, 8, 512
+ACCUM_WORKERS = (1, 2, 4, 8)
+
+
+def accum_ops_per_elem(workers: int) -> int:
+    """K6: encode + one add per worker, one renormalize at the end."""
+    return 28 * workers + 34
 
 
 def log(*parts):
@@ -96,14 +148,21 @@ def build_kernels():
     libs = _build.build_all()
     log(f"[build] {len(libs)} librar{'y' if len(libs) == 1 else 'ies'} in "
         f"{time.perf_counter() - t0:.1f} s: " + ", ".join(p.name for p in libs.values()))
-    for lib in libs.values():
+    cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
+    for stem, lib in libs.items():
         report = lib.with_name(lib.name + ".log")
         if report.is_file():  # nvcc -Xptxas -v of this build
             text = report.read_text()
             regs = [int(w) for w in re.findall(r"Used (\d+) registers", text)]
             spills = sum(int(w) for w in re.findall(r"(\d+) bytes spill stores", text))
-            log(f"[build] ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} registers "
-                f"per thread, {spills} bytes of spill stores")
+            log(f"[build] {stem} ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} "
+                f"registers per thread, {spills} bytes of spill stores")
+        sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+        opcodes = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", sass)
+        imad = sum(op.startswith("IMAD") for op in opcodes)
+        log(f"[build] {stem} sass: {len(opcodes)} instructions, {imad} IMAD forms "
+            f"({100 * imad / max(len(opcodes), 1):.1f} %, integer work on the FMA pipe)")
 
 
 class Parity:
@@ -111,8 +170,8 @@ class Parity:
 
     def __init__(self, torch):
         self.torch = torch
-        self.err = {"fused_encode_align": 0, "fused_decode": 0}
-        self.cases = {"fused_encode_align": 0, "fused_decode": 0}
+        self.err = dict.fromkeys(KERNELS, 0)
+        self.cases = dict.fromkeys(KERNELS, 0)
 
     def check(self, kernel, got, want, what):
         torch = self.torch
@@ -155,13 +214,12 @@ def wire_sample(torch, shape, wire, seed, dev):
     return m
 
 
-def kernel_parity(torch, dev):
+def kernel_parity(torch, dev, par):
     from repro_torch.core import fpisa
     from repro_torch.core import numerics as nx
     from repro_torch.core.allreduce import _wire_shift
     from repro_torch.kernels import ops, ref
 
-    par = Parity(torch)
     for shape in SWEEP:
         for fmt in FMTS:
             f = fpisa.FORMATS[fmt]
@@ -213,12 +271,83 @@ def kernel_parity(torch, dev):
         f"{par.cases['fused_encode_align']} cases, fused_decode "
         f"{par.cases['fused_decode']} cases (sweep {SWEEP} x {FMTS}, wires i8/i16/i32, "
         f"preshift 0/2, the embedding leaf, 4-worker composition at wire 32/16/8)")
-    return par.err
+
+
+def accum_sample(torch, workers, shape, fmt, seed, dev):
+    """(W, R, B) gradient-like stack; row 0 forces FPISA-A's edges: columns
+    0..4 hold the largest mantissa at exponent = headroom from every worker
+    (each is shifted left by the full headroom into the exponent-0
+    accumulator, and the second one wraps the int32 register), column 4
+    from worker 1 at headroom + 1 (it overwrites the accumulator)."""
+    from repro_torch.core import fpisa
+
+    f = fpisa.FORMATS[fmt]
+    x = torch.stack([sample(torch, shape, fmt, seed + i, dev) for i in range(workers)])
+    bits = x.view(torch.int32 if fmt == "fp32" else torch.int16)
+    bits[:, 0, :5] = (f.headroom << f.man_bits) | f.man_mask
+    bits[1:2, 0, 4] = ((f.headroom + 1) << f.man_bits) | f.man_mask
+    return x
+
+
+def two_pass_accum_parity(torch, dev, par):
+    """K3, K4, K5 and K6 against their plain versions on the card."""
+    from repro_torch.core import fpisa
+    from repro_torch.kernels import ops, ref
+
+    events = {"overwrite": 0, "overflow": 0}
+    for shape in SWEEP:
+        for fmt in FMTS:
+            f = fpisa.FORMATS[fmt]
+            x = sample(torch, shape, fmt, 7 * shape[0] + shape[1], dev)
+            want = ref.extract_ref(x, f)
+            for got, w, what in zip(ops.extract(x, fmt), want, ("exp", "man", "bmax")):
+                par.check("fpisa_extract", got, w, f"{fmt} {shape} {what}")
+            exp, man, bmax = want
+            for preshift in (0, 2):
+                gen = torch.Generator(device=dev).manual_seed(shape[0] + preshift)
+                be = bmax + torch.randint(0, 40, bmax.shape, generator=gen, device=dev,
+                                          dtype=torch.int32)
+                par.check("fpisa_align", ops.align(exp, man, be, preshift),
+                          ref.align_ref(exp, man, be, preshift), f"{fmt} {shape} p{preshift}")
+                m = wire_sample(torch, shape, torch.int32, shape[1] + preshift, dev)
+                be = torch.randint(0, f.exp_mask + 2, (shape[0],), generator=gen,
+                                   device=dev, dtype=torch.int32)
+                par.check("fpisa_decode", ops.decode(m, be, preshift, fmt),
+                          ref.decode_ref(m, be, preshift, f), f"{fmt} {shape} p{preshift}")
+            for workers in ACCUM_WORKERS:
+                xs = accum_sample(torch, workers, shape, fmt, shape[0] + workers, dev)
+                for variant in ("fpisa_a", "full"):
+                    plain, st = fpisa.fpisa_sum_sequential(xs, f, variant, return_stats=True)
+                    par.check("fpisa_accum", ops.accum(xs, variant, fmt),
+                              plain.to(torch.float32), f"{fmt} {shape} W{workers} {variant}")
+                    for k in events:
+                        events[k] += int(st[k])
+    if not (events["overwrite"] and events["overflow"]):
+        raise AssertionError(f"the K6 inputs hit no FPISA-A overwrite/overflow: {events}")
+    # the main path's largest leaf, the embedding gradient
+    x = sample(torch, (EMBED_ROWS, 256), "fp32", 2, dev)
+    exp, man, bmax = ops.extract(x, "fp32")
+    for got, w, what in zip((exp, man, bmax), ref.extract_ref(x, fpisa.FP32),
+                            ("exp", "man", "bmax")):
+        par.check("fpisa_extract", got, w, f"embedding leaf {what}")
+    aligned = ops.align(exp, man, bmax, 0)
+    par.check("fpisa_align", aligned, ref.align_ref(exp, man, bmax, 0), "embedding leaf")
+    par.check("fpisa_decode", ops.decode(aligned, bmax, 0, "fp32"),
+              ref.decode_ref(aligned, bmax, 0, fpisa.FP32), "embedding leaf")
+    del x, exp, man, bmax, aligned
+    torch.cuda.synchronize()
+    log(f"[parity] bit-equal to the plain versions: fpisa_extract "
+        f"{par.cases['fpisa_extract']} cases, fpisa_align {par.cases['fpisa_align']}, "
+        f"fpisa_decode {par.cases['fpisa_decode']}, fpisa_accum {par.cases['fpisa_accum']} "
+        f"(sweep x {FMTS}, preshift 0/2, W {ACCUM_WORKERS} x fpisa_a/full with "
+        f"{events['overwrite']} overwrites and {events['overflow']} register overflows, "
+        f"the embedding leaf)")
 
 
 def train_main_path(torch, dev):
     """The main path, with the launch counts zeroed just before and read
-    just after. Returns the launch counts, the losses and the model."""
+    just after. Returns the launch counts, the model and its optimizer
+    state."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
@@ -254,11 +383,44 @@ def train_main_path(torch, dev):
     return launches, model, opt_state
 
 
-def step_breakdown(torch, dev, model, opt_state):
+def train_seq_path(torch, dev):
+    """The fpisa_seq path, with K6's launch count zeroed just before and
+    read just after. Returns the launch count, the model and its optimizer
+    state."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.agg import AggConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_loop
+
+    cfg = get_config("qwen1.5-0.5b")
+    ops.accum.launches = 0
+    t0 = time.perf_counter()
+    model, opt_state, losses = train_loop(
+        cfg, steps=STEPS, global_batch=GLOBAL_BATCH, seq_len=SEQ_LEN,
+        agg=AggConfig(strategy="fpisa_seq", backend="auto"), device=dev, log_every=1)
+    torch.cuda.synchronize()
+    launches = ops.accum.launches
+    leaves = len(list(model.parameters()))
+    log(f"[train] fpisa_seq: {STEPS} steps of {cfg.name} in {time.perf_counter() - t0:.2f} s "
+        f"(init included); peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(json.dumps({"fpisa_seq_launches_per_step": {"fpisa_accum": launches / STEPS},
+                    "gradient_leaves": leaves}))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite fpisa_seq loss: {losses}")
+    if launches != leaves * STEPS:
+        raise AssertionError(f"fpisa_accum launched {launches} times in {STEPS} steps, "
+                             f"expected {leaves} per step (one per gradient leaf)")
+    if not all(torch.isfinite(p).all() for p in model.parameters()):
+        raise AssertionError("non-finite parameter after fpisa_seq training")
+    return launches, model, opt_state
+
+
+def step_breakdown(torch, dev, model, opt_state, strategy="fpisa"):
     """Where a full-width training step's time goes, by layer: forward +
-    backward, the FPISA aggregation of the 14 gradient leaves (K1, K2 and
-    the plain-torch glue between them), and the AdamW update; CUDA events,
-    median of 5 runs each after one warm-up, on the same tokens."""
+    backward, the aggregation of the 14 gradient leaves (for fpisa K1, K2
+    and the plain-torch glue between them; for fpisa_seq the all-gather,
+    K6 and its casts), and the AdamW update; CUDA events, median of 5 runs
+    each after one warm-up, on the same tokens."""
     from repro_torch.core.agg import AggConfig, Aggregator
     from repro_torch.data.pipeline import ShardedLoader, SyntheticCorpus
     from repro_torch.optim import optimizers
@@ -268,7 +430,7 @@ def step_breakdown(torch, dev, model, opt_state):
                                             SEQ_LEN).batch_at(STEPS)["tokens"]).to(dev)
     params = list(model.parameters())
     opt_cfg = optimizers.OptConfig(name=cfg.optimizer, lr=cfg.learning_rate)
-    aggregator = Aggregator(AggConfig(strategy="fpisa"))
+    aggregator = Aggregator(AggConfig(strategy=strategy))
     held = {}
 
     def grads():
@@ -284,10 +446,32 @@ def step_breakdown(torch, dev, model, opt_state):
              for name, fn in (("forward+backward", grads), ("aggregation", aggregate),
                               ("optimizer", update))}
     total = sum(parts.values())
-    log("[breakdown] one step, " + ", ".join(
+    log(f"[breakdown] {strategy}: one step, " + ", ".join(
         f"{k} {v:.2f} ms ({100 * v / total:.1f}%)" for k, v in parts.items())
         + f"; sum {total:.2f} ms = {GLOBAL_BATCH * SEQ_LEN / total * 1e3:,.0f} tok/s")
     return parts
+
+
+def check_grads_cuda_equals_plain(torch, dev, model, strategy):
+    """On the trained full-width model's gradients, the cuda aggregation
+    of ``strategy`` equals the plain one bit for bit, all finite."""
+    from repro_torch.core.agg import AggConfig, Aggregator
+    from repro_torch.data.pipeline import ShardedLoader, SyntheticCorpus
+
+    tokens = ShardedLoader(SyntheticCorpus(model.cfg.vocab_size, 0), GLOBAL_BATCH,
+                           SEQ_LEN).batch_at(STEPS)["tokens"]
+    names, params = zip(*model.named_parameters())
+    grads = torch.autograd.grad(model.loss(torch.from_numpy(tokens).to(dev)), params)
+    kern, plain = (Aggregator(AggConfig(strategy=strategy, backend=b))
+                   for b in ("cuda", "torch"))
+    for name, g in zip(names, grads):
+        a, b = kern.allreduce(g), plain.allreduce(g)
+        if not (torch.equal(a.view(torch.int16), b.view(torch.int16))
+                and torch.isfinite(a).all()):
+            raise AssertionError(f"{strategy}: aggregated gradient {name}: cuda != torch "
+                                 f"backend")
+    log(f"[check] {strategy}, full-width gradients ({len(names)} leaves, bf16): cuda "
+        f"aggregation bit-equal to the plain aggregation, all finite")
 
 
 def check_against_plain(torch, dev, model):
@@ -296,23 +480,10 @@ def check_against_plain(torch, dev, model):
     bit; on the smoke config, training through the kernels and through the
     plain versions gives the same losses."""
     from repro_torch.configs import get_smoke_config
-    from repro_torch.core.agg import AggConfig, Aggregator
-    from repro_torch.data.pipeline import ShardedLoader, SyntheticCorpus
+    from repro_torch.core.agg import AggConfig
     from repro_torch.launch.train import train_loop
 
-    tokens = ShardedLoader(SyntheticCorpus(model.cfg.vocab_size, 0), GLOBAL_BATCH,
-                           SEQ_LEN).batch_at(STEPS)["tokens"]
-    names, params = zip(*model.named_parameters())
-    grads = torch.autograd.grad(model.loss(torch.from_numpy(tokens).to(dev)), params)
-    kern, plain = (Aggregator(AggConfig(backend=b)) for b in ("cuda", "torch"))
-    for name, g in zip(names, grads):
-        a, b = kern.allreduce(g), plain.allreduce(g)
-        if not (torch.equal(a.view(torch.int16), b.view(torch.int16))
-                and torch.isfinite(a).all()):
-            raise AssertionError(f"aggregated gradient {name}: cuda != torch backend")
-    del grads
-    log(f"[check] full-width gradients ({len(names)} leaves, bf16): cuda aggregation "
-        f"bit-equal to the plain aggregation, all finite")
+    check_grads_cuda_equals_plain(torch, dev, model, "fpisa")
     smoke = get_smoke_config("qwen1.5-0.5b")
     runs = {b: train_loop(smoke, steps=STEPS, global_batch=4, seq_len=64, device=dev,
                           agg=AggConfig(backend=b), log_every=STEPS)[2]
@@ -320,6 +491,38 @@ def check_against_plain(torch, dev, model):
     if max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"], runs["torch"])) > 1e-6:
         raise AssertionError(f"smoke losses differ between backends: {runs}")
     log(f"[check] smoke losses, cuda vs plain aggregation (rtol 1e-6): {runs}")
+
+
+def copy_ms(torch, dev, bytes_per_leaf):
+    """A ``copy_`` that moves the given bytes per leaf (half read, half
+    written): the bandwidth this card reaches on the same traffic."""
+    bufs = [(torch.empty(n // 2, dtype=torch.uint8, device=dev),
+             torch.empty(n // 2, dtype=torch.uint8, device=dev)) for n in bytes_per_leaf]
+    for d, s in bufs:
+        s.zero_()
+    return median_ms(torch, lambda: [d.copy_(s) for d, s in bufs])
+
+
+def time_kernel(torch, name, kernel, plain, bytes_, ops_, copy, what, plain_reps=20):
+    """kernel, plain, kernel on CUDA events (drift shows), against the
+    bound: bytes over the memory rate, integer operations over the issue
+    rate, whichever is larger (the operations at the INT32 pipe's rate are
+    logged beside it)."""
+    k1 = median_ms(torch, kernel)
+    p = median_ms(torch, plain, reps=plain_reps, warmup=1)
+    k2 = median_ms(torch, kernel)
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops_ / PEAK_INT_OPS_PER_S * 1e3
+    pipe_ms = ops_ / INT32_PIPE_OPS_PER_S * 1e3
+    out = {"ms": min(k1, k2), "ms_runs": [k1, k2], "plain_ms": p,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "bytes_ms": bytes_ms, "ops_ms": ops_ms, "int32_pipe_ms": pipe_ms, "copy_ms": copy}
+    log(f"[time] {name}: {what}: kernel {k1:.4f} / {k2:.4f} ms, plain {p:.3f} ms, bound "
+        f"{out['bound_ms']:.4f} ms (bytes {bytes_ms:.4f}, {ops_ / 1e9:.3f} G int ops at the "
+        f"issue rate {ops_ms:.4f}, at the INT32 pipe's rate {pipe_ms:.4f}), copy_ of "
+        f"the same bytes {copy:.4f} ms; {bytes_ / (min(k1, k2) * 1e-3) / 1e12:.3f} TB/s")
+    return out
 
 
 def median_ms(torch, fn, reps=25, warmup=3):
@@ -336,57 +539,180 @@ def median_ms(torch, fn, reps=25, warmup=3):
     return statistics.median(times)
 
 
+def step_leaves(torch, dev, leaf_sizes):
+    """The main path's gradient leaves as (R, 256) fp32 planes, finite."""
+    rows = [-(-n // 256) for n in leaf_sizes]
+    xs = [sample(torch, (r, 256), "fp32", i, dev) for i, r in enumerate(rows)]
+    return [torch.nan_to_num(x, posinf=1.0, neginf=-1.0) for x in xs]
+
+
 def timing(torch, dev, leaf_sizes):
-    """Per-step times of each kernel, its plain version and a copy of the
+    """Per-step times of K1 and K2, their plain versions and a copy of the
     same bytes, over the main path's leaf shapes; then the largest leaf."""
     from repro_torch.core import fpisa
     from repro_torch.kernels import ops, ref
 
-    rows = [-(-n // 256) for n in leaf_sizes]
-    xs = [sample(torch, (r, 256), "fp32", i, dev) for i, r in enumerate(rows)]
-    xs = [torch.nan_to_num(x, posinf=1.0, neginf=-1.0) for x in xs]
+    xs = step_leaves(torch, dev, leaf_sizes)
     planes = [ops.encode_align(x, "fp32") for x in xs]
-    dsts = [torch.empty_like(x) for x in xs]
     fmt = fpisa.FP32
-    total_rows = sum(rows)
+    total_rows = sum(x.shape[0] for x in xs)
     elems = total_rows * 256
-    bytes_ = {"fused_encode_align": elems * 8 + total_rows * 4,
-              "fused_decode": elems * 8 + total_rows * 4}
-    sets = {
-        "fused_encode_align": (lambda: [ops.encode_align(x, "fp32") for x in xs],
-                               lambda: [ref.fused_encode_align_ref(x, fmt) for x in xs]),
-        "fused_decode": (lambda: [ops.decode_fused(m, b, 0, "fp32") for m, b in planes],
-                         lambda: [ref.fused_decode_ref(m, b, 0, fmt) for m, b in planes]),
+    copy = copy_ms(torch, dev, [x.numel() * 8 for x in xs])
+    what = f"one step = {len(xs)} leaves, {total_rows} rows x 256 fp32"
+    out = {
+        "fused_encode_align": time_kernel(
+            torch, "fused_encode_align", lambda: [ops.encode_align(x, "fp32") for x in xs],
+            lambda: [ref.fused_encode_align_ref(x, fmt) for x in xs],
+            elems * 8 + total_rows * 4, elems * OPS_PER_ELEM["fused_encode_align"], copy, what),
+        "fused_decode": time_kernel(
+            torch, "fused_decode", lambda: [ops.decode_fused(m, b, 0, "fp32") for m, b in planes],
+            lambda: [ref.fused_decode_ref(m, b, 0, fmt) for m, b in planes],
+            elems * 8 + total_rows * 4, elems * OPS_PER_ELEM["fused_decode"], copy, what),
     }
-    copy_ms = median_ms(torch, lambda: [d.copy_(x) for d, x in zip(dsts, xs)])
-    out = {}
-    for name, (kernel, plain) in sets.items():
-        k1 = median_ms(torch, kernel)
-        p = median_ms(torch, plain, reps=20)
-        k2 = median_ms(torch, kernel)  # kernel, plain, kernel: drift shows
-        bytes_ms = bytes_[name] / HBM_BYTES_PER_S * 1e3
-        ops_ms = elems * OPS_PER_ELEM[name] / INT32_OPS_PER_S * 1e3
-        out[name] = {"ms": min(k1, k2), "ms_runs": [k1, k2], "plain_ms": p,
-                     "bound_ms": max(bytes_ms, ops_ms),
-                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                     "bytes_ms": bytes_ms, "ops_ms": ops_ms, "copy_ms": copy_ms}
-        log(f"[time] {name}: one step = {len(xs)} leaves, {total_rows} rows x 256 fp32: "
-            f"kernel {k1:.4f} / {k2:.4f} ms, plain {p:.3f} ms, bound {max(bytes_ms, ops_ms):.4f} "
-            f"ms (bytes {bytes_ms:.4f}, int32 ops {ops_ms:.4f}), copy_ of the same bytes "
-            f"{copy_ms:.4f} ms; {bytes_[name] / (min(k1, k2) * 1e-3) / 1e12:.3f} TB/s")
     # the largest leaf alone (the embedding, 607,744 rows)
-    big = max(range(len(xs)), key=lambda i: rows[i])
-    x, (m, b), d = xs[big], planes[big], dsts[big]
+    big = max(range(len(xs)), key=lambda i: xs[i].shape[0])
+    x, (m, b) = xs[big], planes[big]
+    d = torch.empty_like(x)
     for name, fn, pfn in (
             ("fused_encode_align", lambda: ops.encode_align(x, "fp32"),
              lambda: ref.fused_encode_align_ref(x, fmt)),
             ("fused_decode", lambda: ops.decode_fused(m, b, 0, "fp32"),
              lambda: ref.fused_decode_ref(m, b, 0, fmt))):
-        log(f"[time] {name}: largest leaf {rows[big]} x 256: kernel "
+        log(f"[time] {name}: largest leaf {x.shape[0]} x 256: kernel "
             f"{median_ms(torch, fn):.4f} ms, plain {median_ms(torch, pfn, reps=20):.3f} ms, "
-            f"bound {rows[big] * 256 * 8 / HBM_BYTES_PER_S * 1e3:.4f} ms, copy_ "
+            f"bound {x.numel() * 8 / HBM_BYTES_PER_S * 1e3:.4f} ms, copy_ "
             f"{median_ms(torch, lambda: d.copy_(x)):.4f} ms")
     return out
+
+
+def two_pass_pipeline(torch, dev, leaf_sizes, par):
+    """decode(align(extract(x), p), p) over the main path's 14 leaves at
+    preshift p = 0 and 2, with K3, K4 and K5's launch counts zeroed just
+    before and read just after; it must equal the fused
+    decode_fused(arshift(encode_align(x), p), p) bit for bit. Then K3, K4
+    and K5 are timed at those shapes (p = 0). Returns (launches, times)."""
+    from repro_torch.core import fpisa
+    from repro_torch.core import numerics as nx
+    from repro_torch.kernels import ops, ref
+
+    xs = step_leaves(torch, dev, leaf_sizes)
+    preshifts = (0, 2)
+    for fn in (ops.extract, ops.align, ops.decode):
+        fn.launches = 0
+    planes = [ops.extract(x, "fp32") for x in xs]
+    aligned = {p: [ops.align(e, m, b, p) for e, m, b in planes] for p in preshifts}
+    two_pass = {p: [ops.decode(a, b, p, "fp32") for a, (_, _, b) in zip(aligned[p], planes)]
+                for p in preshifts}
+    torch.cuda.synchronize()
+    launches = {"fpisa_extract": ops.extract.launches, "fpisa_align": ops.align.launches,
+                "fpisa_decode": ops.decode.launches}
+    log(json.dumps({"two_pass_launches": launches, "leaves": len(xs),
+                    "preshifts": list(preshifts)}))
+    want = {"fpisa_extract": len(xs), "fpisa_align": len(xs) * len(preshifts),
+            "fpisa_decode": len(xs) * len(preshifts)}
+    if launches != want:
+        raise AssertionError(f"two-pass pipeline: expected {want} launches, got {launches}")
+    for i, (x, (_, _, b)) in enumerate(zip(xs, planes)):
+        man, bmax = ops.encode_align(x, "fp32")
+        if not torch.equal(b, bmax):
+            raise AssertionError("two-pass block exponents differ from the fused encode_align")
+        for p in preshifts:
+            fused = nx.arshift(man, p)  # the residual shift
+            if not torch.equal(aligned[p][i], fused):
+                raise AssertionError(f"two-pass align differs from the fused encode_align "
+                                     f"at preshift {p}")
+            par.check("fpisa_decode", two_pass[p][i], ops.decode_fused(fused, bmax, p, "fp32"),
+                      f"two-pass vs fused, leaf {tuple(x.shape)}, preshift {p}")
+        del man, bmax, fused
+    aligned = aligned[0]
+    del two_pass
+    log(f"[two-pass] decode(align(extract(x), p), p) bit-equal to "
+        f"decode_fused(arshift(encode_align(x), p), p) on the {len(xs)} leaves of one step, "
+        f"p in {preshifts}")
+    fmt = fpisa.FP32
+    total_rows = sum(x.shape[0] for x in xs)
+    elems = total_rows * 256
+    what = f"one step = {len(xs)} leaves, {total_rows} rows x 256 fp32"
+    copy12 = copy_ms(torch, dev, [x.numel() * 12 for x in xs])
+    copy8 = copy_ms(torch, dev, [x.numel() * 8 for x in xs])
+    times = {
+        "fpisa_extract": time_kernel(
+            torch, "fpisa_extract", lambda: [ops.extract(x, "fp32") for x in xs],
+            lambda: [ref.extract_ref(x, fmt) for x in xs],
+            elems * 12 + total_rows * 4, elems * OPS_PER_ELEM["fpisa_extract"], copy12, what),
+        "fpisa_align": time_kernel(
+            torch, "fpisa_align", lambda: [ops.align(e, m, b, 0) for e, m, b in planes],
+            lambda: [ref.align_ref(e, m, b, 0) for e, m, b in planes],
+            elems * 12 + total_rows * 4, elems * OPS_PER_ELEM["fpisa_align"], copy12, what),
+        "fpisa_decode": time_kernel(
+            torch, "fpisa_decode",
+            lambda: [ops.decode(a, b, 0, "fp32") for a, (_, _, b) in zip(aligned, planes)],
+            lambda: [ref.decode_ref(a, b, 0, fmt) for a, (_, _, b) in zip(aligned, planes)],
+            elems * 8 + total_rows * 4, elems * OPS_PER_ELEM["fpisa_decode"], copy8, what,
+            plain_reps=5),
+    }
+    return launches, times
+
+
+def accum_timing(torch, dev, leaf_sizes, par):
+    """K6 at the fpisa_seq step's shape (W = 1 over the 14 leaves) and at
+    the accuracy shape (W = 8 stacks of the embedding leaf's shape, both
+    variants, each also held against its plain version). Returns the step
+    shape's times."""
+    from repro_torch.core import fpisa
+    from repro_torch.kernels import ops, ref
+
+    fmt = fpisa.FP32
+    xs = [x[None] for x in step_leaves(torch, dev, leaf_sizes)]
+    elems = sum(x.numel() for x in xs)
+    out = time_kernel(
+        torch, "fpisa_accum", lambda: [ops.accum(x, "fpisa_a", "fp32") for x in xs],
+        lambda: [ref.accum_ref(x, "fpisa_a", fmt) for x in xs],
+        elems * 8, elems * accum_ops_per_elem(1), copy_ms(torch, dev, [x.numel() * 8 for x in xs]),
+        f"fpisa_seq step, W = 1 over {len(xs)} leaves, {elems // 256} rows x 256 fp32",
+        plain_reps=5)
+    del xs
+    workers = ACCUM_WORKERS[-1]
+    x = torch.stack([torch.nan_to_num(sample(torch, (EMBED_ROWS, 256), "fp32", 60 + i, dev),
+                                      posinf=1.0, neginf=-1.0) for i in range(workers)])
+    elems = EMBED_ROWS * 256
+    copy = copy_ms(torch, dev, [elems * (workers + 1) * 4])
+    accuracy = {}
+    for variant in ("fpisa_a", "full"):
+        par.check("fpisa_accum", ops.accum(x, variant, "fp32"),
+                  ref.accum_ref(x, variant, fmt), f"embedding leaf W{workers} {variant}")
+        accuracy[variant] = time_kernel(
+            torch, "fpisa_accum", lambda: ops.accum(x, variant, "fp32"),
+            lambda: ref.accum_ref(x, variant, fmt), elems * (workers + 1) * 4,
+            elems * accum_ops_per_elem(workers), copy,
+            f"accuracy shape, {variant}, W = {workers} x {EMBED_ROWS} x 256 fp32", plain_reps=3)
+    out["accuracy_shape"] = accuracy
+    return out
+
+
+def switch_emu_smoke(torch, dev):
+    """switch_emu at smoke size: the same losses as fpisa_seq over 3 steps,
+    and one leaf through both aggregators with the same bits."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.agg import AggConfig, Aggregator
+    from repro_torch.launch.train import train_loop
+
+    smoke = get_smoke_config("qwen1.5-0.5b")
+    runs = {s: train_loop(smoke, steps=STEPS, global_batch=4, seq_len=64, device=dev,
+                          agg=AggConfig(strategy=s), log_every=STEPS)[2]
+            for s in ("switch_emu", "fpisa_seq")}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["switch_emu"], runs["fpisa_seq"]))
+    if rel > 1e-6:
+        raise AssertionError(f"smoke losses differ between switch_emu and fpisa_seq: {runs}")
+    log(f"[switch_emu] smoke losses, switch_emu vs fpisa_seq (rtol 1e-6, largest {rel:.2e}): "
+        f"{runs}")
+    x = torch.nan_to_num(sample(torch, (1024, 256), "fp32", 77, dev), posinf=1.0, neginf=-1.0)
+    a = Aggregator(AggConfig(strategy="switch_emu")).allreduce(x)
+    b = Aggregator(AggConfig(strategy="fpisa_seq")).allreduce(x)
+    if not (torch.equal(a.view(torch.int32), b.view(torch.int32)) and a.is_cuda):
+        raise AssertionError("one leaf: switch_emu != fpisa_seq")
+    log(f"[switch_emu] one {tuple(x.shape)} leaf: switch_emu (numpy dataplane on the host) "
+        f"bit-equal to fpisa_seq (K6 on the card)")
 
 
 def main() -> int:
@@ -407,7 +733,9 @@ def main() -> int:
     torch.cuda.set_device(dev)
     kind = card_facts(torch)
     build_kernels()
-    errs = kernel_parity(torch, dev)
+    par = Parity(torch)
+    kernel_parity(torch, dev, par)
+    two_pass_accum_parity(torch, dev, par)
 
     tmpdir = ROOT / "build" / "chip_smoke"
     tmpdir.mkdir(parents=True, exist_ok=True)
@@ -418,24 +746,44 @@ def main() -> int:
     try:
         launches, model, opt_state = train_main_path(torch, dev)
         check_against_plain(torch, dev, model)
-        step_breakdown(torch, dev, model, opt_state)
-        del opt_state
+        step_breakdown(torch, dev, model, opt_state, "fpisa")
         leaf_sizes = [p.numel() for p in model.parameters()]
-        del model
+        del model, opt_state
+        torch.cuda.empty_cache()
+        launches["fpisa_accum"], model, opt_state = train_seq_path(torch, dev)
+        check_grads_cuda_equals_plain(torch, dev, model, "fpisa_seq")
+        step_breakdown(torch, dev, model, opt_state, "fpisa_seq")
+        del model, opt_state
         torch.cuda.empty_cache()
         times = timing(torch, dev, leaf_sizes)
+        two_pass_launches, two_pass_times = two_pass_pipeline(torch, dev, leaf_sizes, par)
+        launches.update(two_pass_launches)
+        times.update(two_pass_times)
+        torch.cuda.empty_cache()
+        times["fpisa_accum"] = accum_timing(torch, dev, leaf_sizes, par)
+        torch.cuda.empty_cache()
+        switch_emu_smoke(torch, dev)
     finally:
         dist.destroy_process_group()
 
-    source = "src/repro_torch/csrc/fpisa_fused.cu"
+    sources = {"fused_encode_align": "src/repro_torch/csrc/fpisa_fused.cu",
+               "fused_decode": "src/repro_torch/csrc/fpisa_fused.cu",
+               "fpisa_extract": "src/repro_torch/csrc/fpisa_encode.cu",
+               "fpisa_align": "src/repro_torch/csrc/fpisa_encode.cu",
+               "fpisa_decode": "src/repro_torch/csrc/fpisa_fused.cu",
+               "fpisa_accum": "src/repro_torch/csrc/fpisa_accum.cu"}
     replaces = {"fused_encode_align": "src/repro/kernels/fpisa_fused.py:66",
-                "fused_decode": "src/repro/kernels/fpisa_fused.py:96"}
-    kernels = [{"name": name, "route": "cuda", "source": source,
+                "fused_decode": "src/repro/kernels/fpisa_fused.py:96",
+                "fpisa_extract": "src/repro/kernels/fpisa_encode.py:47",
+                "fpisa_align": "src/repro/kernels/fpisa_encode.py:73",
+                "fpisa_decode": "src/repro/kernels/fpisa_decode.py:28",
+                "fpisa_accum": "src/repro/kernels/fpisa_accum.py:41"}
+    kernels = [{"name": name, "route": "cuda", "source": sources[name],
                 "replaces": replaces[name], "launches": launches[name],
-                "max_abs_err": float(errs[name]), "ms": times[name]["ms"],
+                "max_abs_err": float(par.err[name]), "ms": times[name]["ms"],
                 "plain_ms": times[name]["plain_ms"], "bound_ms": times[name]["bound_ms"],
                 "bound_by": times[name]["bound_by"], "library_ms": None}
-               for name in ("fused_encode_align", "fused_decode")]
+               for name in KERNELS]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

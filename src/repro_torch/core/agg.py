@@ -10,22 +10,24 @@
                           ``agg.allreduce_tree(tree)``. All capability checks
                           happen at construction.
 * :func:`register_strategy` — the registry; the built-in strategies
-                          (``native``, ``switchml``, ``fpisa``) live in
+                          (``native``, ``switchml``, ``fpisa``,
+                          ``fpisa_seq``, ``switch_emu``) live in
                           ``repro_torch.core.allreduce``.
 * :func:`add_agg_args` / :meth:`AggConfig.from_args` — the ``--agg-*`` flags.
 
-Backends (``AggConfig.backend``) choose where the FPISA encode/decode run:
+Backends (``AggConfig.backend``) choose where the FPISA encode/decode (and
+``fpisa_seq``'s sequential sum) run:
 
 ``"torch"`` : the plain reference formulation (``fpisa.encode`` /
-              ``block_decode``), on any device.
+              ``block_decode`` / ``fpisa_sum_sequential``), on any device.
 ``"cuda"``  : the hand-written Hopper kernels (``kernels/ops.py``); a CPU
               tensor raises.
 ``"auto"``  : ``"cuda"`` for a CUDA tensor, ``"torch"`` for a CPU tensor.
 
 Not ported yet, and refused at construction with :class:`NotPortedError`:
 stacked (logical-worker) aggregation, hierarchical (two-group) layouts,
-``chunk_elems`` streaming, ``bucket_bytes`` bucketing and the ``fpisa_seq``
-/ ``switch_emu`` strategies (ROADMAP.md).
+``chunk_elems`` streaming, ``bucket_bytes`` bucketing and the multi-tenant
+``switch_shared`` dataplane of ``switch_emu`` (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -42,10 +44,6 @@ from repro_torch import NotPortedError
 DEFAULT_BLOCK = 256
 
 BACKENDS = ("auto", "torch", "cuda")
-
-# strategies of the reference that wait for a later slice
-_NOT_PORTED = {"fpisa_seq": "the fpisa_seq strategy (switch-arrival FPISA-A)",
-               "switch_emu": "the switch_emu strategy (switch-dataplane emulator)"}
 
 
 def _did_you_mean(name: str, options: Sequence[str]) -> str:
@@ -115,7 +113,8 @@ class AggConfig:
     @classmethod
     def from_args(cls, ns: argparse.Namespace) -> "AggConfig":
         """Build the config from a namespace produced by a parser that went
-        through :func:`add_agg_args`; validates strategy and backend now."""
+        through :func:`add_agg_args`; validates strategy, backend and the
+        strategy's own checks now."""
         bucket_bytes = getattr(ns, "bucket_bytes", 0)
         if isinstance(bucket_bytes, str):
             raise NotPortedError("--bucket-bytes auto (the cost-model autotuner)")
@@ -129,8 +128,10 @@ class AggConfig:
             bucket_bytes=bucket_bytes,
             block=getattr(ns, "agg_block", None) or DEFAULT_BLOCK,
         )
-        get_strategy(cfg.strategy)
+        spec = get_strategy(cfg.strategy)
         _refuse_unported(cfg)
+        if spec.validate is not None:
+            spec.validate(cfg)
         return cfg
 
 
@@ -190,18 +191,22 @@ def add_agg_args(parser: argparse.ArgumentParser, *,
 
 @dataclasses.dataclass(frozen=True)
 class StrategySpec:
-    """One registered aggregation strategy: ``fn(x, group, cfg)``."""
+    """One registered aggregation strategy: ``fn(x, group, cfg)``, and an
+    optional ``validate(cfg)`` run when an Aggregator is built with it."""
 
     name: str
     fn: Callable
     description: str = ""
+    validate: Callable | None = None
 
 
 _REGISTRY: dict[str, StrategySpec] = {}
 
 
-def register_strategy(name: str, *, description: str = "", overwrite: bool = False):
-    """Decorator registering ``fn(x, group, cfg)`` as strategy ``name``.
+def register_strategy(name: str, *, description: str = "", validate: Callable | None = None,
+                      overwrite: bool = False):
+    """Decorator registering ``fn(x, group, cfg)`` as strategy ``name``, with
+    an optional config check ``validate(cfg)`` (raises on what it refuses).
     Re-registering an existing name requires ``overwrite=True``."""
 
     def deco(fn: Callable) -> Callable:
@@ -211,7 +216,8 @@ def register_strategy(name: str, *, description: str = "", overwrite: bool = Fal
                 f"(pass overwrite=True to replace it)")
         _REGISTRY[name] = StrategySpec(
             name=name, fn=fn,
-            description=description or (fn.__doc__ or "").split("\n")[0])
+            description=description or (fn.__doc__ or "").split("\n")[0],
+            validate=validate)
         return fn
 
     return deco
@@ -231,12 +237,10 @@ def available_strategies() -> tuple[str, ...]:
 
 def get_strategy(name: str) -> StrategySpec:
     """Look up a strategy; unknown names fail with the registered options and
-    the nearest match, the reference's unported ones with NotPortedError."""
+    the nearest match."""
     _ensure_builtin()
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in _NOT_PORTED:
-        raise NotPortedError(_NOT_PORTED[name])
     raise ValueError(
         f"unknown aggregation strategy {name!r}; registered strategies: "
         f"{', '.join(sorted(_REGISTRY))}{_did_you_mean(name, sorted(_REGISTRY))}")
@@ -270,6 +274,9 @@ def _refuse_unported(cfg: AggConfig) -> None:
         raise NotPortedError(f"chunk_elems={cfg.chunk_elems} (chunked streaming)")
     if cfg.bucket_bytes:
         raise NotPortedError(f"bucket_bytes={cfg.bucket_bytes} (bucketing)")
+    if cfg.switch_shared is not None:
+        raise NotPortedError(f"switch_shared={cfg.switch_shared!r} (the multi-tenant "
+                             f"switch dataplane)")
 
 
 class Aggregator:
@@ -295,6 +302,8 @@ class Aggregator:
         self.cfg = cfg
         self.group = group
         self.spec = get_strategy(cfg.strategy)
+        if self.spec.validate is not None:
+            self.spec.validate(cfg)
 
     def allreduce(self, x: torch.Tensor) -> torch.Tensor:
         """Aggregate one tensor over the group (a new tensor; x is not

@@ -11,6 +11,21 @@ fpisa    : the paper's technique: block-exponent planes, mantissas aligned
            mantissas, delayed renormalization after the collective.
            Bit-reproducible for any reduction order (integer add is
            associative and commutative).
+fpisa_seq : bit-faithful switch-arrival semantics: the leaf is all-gathered
+           in rank order and summed with sequential FPISA-A over the worker
+           axis, worker 0 first (``fpisa.fpisa_sum_sequential``). Used by
+           accuracy experiments; not a production path (W x bytes on the
+           wire). The reference runs its sum as a jnp scan; the port runs
+           it as the Hopper kernel K6 (``ops.accum``) on the ``cuda``
+           backend and as ``fpisa_sum_sequential`` on ``torch``, which give
+           the same bits.
+switch_emu : validation strategy: the all-gathered per-worker gradients go
+           to the host as numpy and through the switch-dataplane emulator
+           (``repro_torch.switchsim``: slot pool, worker bitmaps, streaming
+           window, packetization) on a lossless fabric, as the reference's
+           host callback sends them. Bit-identical to ``fpisa_seq`` (the
+           zero-drop arrival order is worker-major per chunk). The host trip
+           is the strategy's semantics, not a fallback; never a hot path.
 
 The encode->align before the SUM and the decode after it run as the Hopper
 kernels of ``kernels/fpisa_fused.py`` on the ``cuda`` backend, and as the
@@ -24,7 +39,7 @@ wire shift guarantees every partial sum fits int16), so the result is
 bit-identical to the reference's int16 psum, at twice the bytes.
 
 Not ported yet: hierarchical, stacked, chunked and bucketed aggregation and
-the fpisa_seq / switch_emu strategies (ROADMAP.md).
+the multi-tenant ``switch_shared`` dataplane (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -37,6 +52,7 @@ from repro_torch.core import fpisa
 from repro_torch.core import numerics as nx
 from repro_torch.core.agg import AggConfig, register_strategy, resolve_backend, world_size
 from repro_torch.kernels import ops
+from repro_torch.switchsim import DataplaneConfig, NumpyDataplane, run_aggregation
 
 # ---------------------------------------------------------------------------
 # collectives (a world of one, with no process group, reduces to identity)
@@ -48,6 +64,15 @@ def _all_reduce_(t: torch.Tensor, op, group) -> torch.Tensor:
     if dist.is_available() and dist.is_initialized():
         dist.all_reduce(t, op=op, group=group)
     return t
+
+
+def _all_gather_rows(flat: torch.Tensor, group) -> torch.Tensor:
+    """(N,) -> (W, N): every rank's tensor, in rank order (worker 0 first)."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return flat[None]
+    rows = flat.new_empty((dist.get_world_size(group), flat.shape[0]))
+    dist.all_gather(list(rows.unbind(0)), flat, group=group)
+    return rows
 
 
 def _pmax(t: torch.Tensor, group) -> torch.Tensor:
@@ -217,6 +242,54 @@ def fpisa_allreduce(x: torch.Tensor, group, cfg: AggConfig) -> torch.Tensor:
     return _unflatten(out, pad, orig_shape, orig_dtype)
 
 
+# ---------------------------------------------------------------------------
+# bit-faithful sequential variant (accuracy experiments) and its emulation
+# ---------------------------------------------------------------------------
+
+
+def fpisa_seq_allreduce(x: torch.Tensor, group, cfg: AggConfig) -> torch.Tensor:
+    """bit-faithful sequential switch-arrival FPISA-A
+
+    The (W, N) stack of all ranks' leaves, cast to the format's packed dtype,
+    summed worker 0 first; the result is cast back to the leaf's dtype. On
+    the cuda backend the stack goes through K6 as one (W, 1, N) row, since
+    the sum is elementwise (float32 out, the format's value exactly), on
+    torch through ``fpisa_sum_sequential`` (the format's dtype): the same
+    values."""
+    backend = resolve_backend(cfg.backend, x.device)
+    packed = fpisa.PACKED_DTYPE[cfg.fmt_name]
+    stacked = _all_gather_rows(x.to(torch.float32).reshape(-1), group).to(packed)
+    if backend == "cuda":
+        out = ops.accum(stacked[:, None], "fpisa_a", cfg.fmt_name)
+    else:
+        out = fpisa.fpisa_sum_sequential(stacked, cfg.fmt, variant="fpisa_a")
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def _validate_switch_emu(cfg: AggConfig) -> None:
+    if cfg.fmt_name != "fp32":
+        raise ValueError(
+            "switch_emu runs on the numpy dataplane, which is fp32-only; got "
+            f"fmt_name={cfg.fmt_name!r}")
+
+
+def switch_emu_allreduce(x: torch.Tensor, group, cfg: AggConfig) -> torch.Tensor:
+    """validation via the switch-dataplane emulator
+
+    All-gather the ranks' leaves, take them to the host as numpy (as the
+    reference's host callback does) and run them through ``NumpyDataplane``
+    on a lossless fabric: real slot pool, worker bitmaps, streaming window
+    and packetization. Bit-identical to ``fpisa_seq``. fp32 only (checked
+    when the Aggregator is built)."""
+    stacked = _all_gather_rows(x.to(torch.float32).reshape(-1), group)
+    dp = NumpyDataplane(DataplaneConfig(num_workers=stacked.shape[0], fmt_name="fp32",
+                                        variant="fpisa_a"))
+    out = run_aggregation(dp, stacked.cpu().numpy())  # float32
+    return torch.from_numpy(out).to(x.device).reshape(x.shape).to(x.dtype)
+
+
 register_strategy("native")(native_allreduce)
 register_strategy("switchml")(switchml_allreduce)
 register_strategy("fpisa")(fpisa_allreduce)
+register_strategy("fpisa_seq")(fpisa_seq_allreduce)
+register_strategy("switch_emu", validate=_validate_switch_emu)(switch_emu_allreduce)

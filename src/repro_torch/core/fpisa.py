@@ -7,13 +7,19 @@ aggregation runs:
                         "integer plane" representation (Fig. 3).
 * ``renormalize``     — delayed renormalization: CLZ + shift + exponent fixup
                         + pack (Sec. 3.2 "Renormalize and Assemble").
+* ``fpisa_add_full`` / ``fpisa_a_add`` — one accumulator update, with the
+                        full (RSAW) or the Tofino-deployable FPISA-A shift
+                        rule (Sec. 3.2, 4.3), and their ``AddStats``.
+* ``fpisa_sum_sequential`` — switch-arrival accumulation over a worker axis
+                        (worker 0 first), the ``fpisa_seq`` strategy's sum.
 * ``block_encode`` / ``block_decode`` / ``block_max_exponent`` — the
                         block-floating-point planes of the integer-domain
                         all-reduce (core/allreduce.py).
 
-The FPISA-A and full adds and ``fpisa_sum_sequential`` (switch-arrival
-accumulation) are not ported yet; they come with the switch-emulation slice.
-Every result is bit-identical to the reference (tests/test_torch_numerics.py).
+The register adds wrap like int32 registers: they are taken on int64 and
+wrapped back (``numerics.wrap_int32``), since the reference relies on the
+wrap and ``_overflowed`` only detects it. Every result is bit-identical to
+the reference (tests/test_torch_numerics.py, tests/test_torch_switch.py).
 """
 from __future__ import annotations
 
@@ -26,7 +32,8 @@ from repro_torch.core.numerics import BF16, FORMATS, FP16, FP32, FpFormat
 
 __all__ = [
     "FP32", "FP16", "BF16", "FORMATS", "FpFormat", "Planes", "PACKED_DTYPE",
-    "encode", "renormalize",
+    "encode", "renormalize", "AddStats", "fpisa_add_full", "fpisa_a_add",
+    "fpisa_sum_sequential",
     "block_encode", "block_decode", "block_max_exponent",
 ]
 
@@ -122,6 +129,92 @@ def renormalize(planes: Planes, fmt: FpFormat = FP32) -> torch.Tensor:
     bits = torch.where(neg, sign_bit, 0) | (exp_out << fmt.man_bits) | man_out
     bits = torch.where(zero, 0, bits).to(torch.int32)
     return _from_bits(bits, fmt)
+
+
+# ---------------------------------------------------------------------------
+# Accumulator updates
+# ---------------------------------------------------------------------------
+
+
+class AddStats(NamedTuple):
+    overwrite: torch.Tensor  # bool: FPISA-A dropped the old accumulator value
+    overflow: torch.Tensor  # bool: int32 register overflow (headroom exceeded)
+
+
+def _add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int32 register add with two's-complement wrap."""
+    return nx.wrap_int32(a.to(torch.int64) + b.to(torch.int64))
+
+
+def _overflowed(a: torch.Tensor, b: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Signed-add overflow detect for s = a + b (int32, two's complement)."""
+    return ((a ^ s) & (b ^ s)) < 0
+
+
+def fpisa_add_full(acc: Planes, inp: Planes, fmt: FpFormat = FP32):
+    """Full FPISA addition (needs the RSAW extension on a switch).
+
+    Whichever operand has the smaller exponent gets right-shifted; the result
+    keeps the larger exponent (paper Sec. 3.2, Fig. 4). Returns (Planes,
+    AddStats)."""
+    d = inp.exp - acc.exp
+    le = d <= 0
+    # d <= 0: shift the incoming mantissa right; d > 0: the stored one (RSAW)
+    shifted_in = torch.where(le, nx.arshift(inp.man, -d), inp.man)
+    shifted_acc = torch.where(le, acc.man, nx.arshift(acc.man, d))
+    new_m = _add(shifted_acc, shifted_in)
+    new_e = torch.where(le, acc.exp, inp.exp)
+    overflow = _overflowed(shifted_acc, shifted_in, new_m)
+    stats = AddStats(overwrite=torch.zeros_like(overflow), overflow=overflow)
+    return Planes(exp=new_e, man=new_m), stats
+
+
+def fpisa_a_add(acc: Planes, inp: Planes, fmt: FpFormat = FP32):
+    """FPISA-A addition: deployable on unmodified Tofino (paper Sec. 4.3).
+
+    Only the incoming mantissa is ever shifted:
+      * d <= 0            : right-shift incoming (identical to full FPISA);
+      * 0 < d <= headroom : left-shift incoming into the headroom bits (a
+                            register shift: it wraps), accumulator exponent
+                            unchanged (denormalized);
+      * d > headroom      : overwrite the accumulator with the incoming value
+                            ("overwrite" error, bounded; rare for gradients).
+    """
+    d = inp.exp - acc.exp
+    h = fmt.headroom
+    use_right = d <= 0
+    use_over = d > h
+    shifted_in = torch.where(use_right, nx.arshift(inp.man, -d), nx.lshift(inp.man, d))
+    summed = _add(acc.man, shifted_in)
+    new_m = torch.where(use_over, inp.man, summed)
+    new_e = torch.where(use_over, inp.exp, acc.exp)
+    overflow = ~use_over & _overflowed(acc.man, shifted_in, summed)
+    # Overwriting a zero accumulator is the normal "first write", not an error.
+    overwrite = use_over & (acc.man != 0)
+    return Planes(exp=new_e, man=new_m), AddStats(overwrite=overwrite, overflow=overflow)
+
+
+def fpisa_sum_sequential(values: torch.Tensor, fmt: FpFormat = FP32,
+                         variant: str = "fpisa_a", return_stats: bool = False):
+    """Aggregate ``values`` along axis 0 with switch-arrival semantics.
+
+    ``values``: (num_workers, ...) packed FP tensor. Worker 0 arrives first.
+    This is the paper's software-library equivalent used for its accuracy /
+    convergence experiments (Sec. 5.2.1-5.2.2). Returns the packed FP result
+    in the format's dtype (and the summed event counts, as int64 scalar
+    tensors, when ``return_stats``)."""
+    add = fpisa_a_add if variant == "fpisa_a" else fpisa_add_full
+    zero = torch.zeros(values.shape[1:], dtype=torch.int32, device=values.device)
+    acc = Planes(exp=zero, man=zero)
+    n_over = n_ovf = torch.zeros((), dtype=torch.int64, device=values.device)
+    for w in range(values.shape[0]):  # one worker's planes at a time
+        acc, st = add(acc, encode(values[w], fmt), fmt)
+        n_over = n_over + st.overwrite.sum()
+        n_ovf = n_ovf + st.overflow.sum()
+    out = renormalize(acc, fmt)
+    if return_stats:
+        return out, {"overwrite": n_over, "overflow": n_ovf}
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -104,10 +104,10 @@ def lshift(x: torch.Tensor, s) -> torch.Tensor:
     """Left shift of int32 ``x`` by a clamped distance, wrapping like the
     two's-complement register (taken on the 64-bit value, then wrapped)."""
     wide = torch.bitwise_left_shift(x.to(torch.int64), _distance(s, x).to(torch.int64))
-    return _wrap_int32(wide)
+    return wrap_int32(wide)
 
 
-def _wrap_int32(x: torch.Tensor) -> torch.Tensor:
+def wrap_int32(x: torch.Tensor) -> torch.Tensor:
     """Low 32 bits of an int64 tensor as a two's-complement int32 (explicit
     modular wrap: an out-of-range int64 -> int32 cast is not defined)."""
     return (((x & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000).to(torch.int32)

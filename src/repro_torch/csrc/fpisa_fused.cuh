@@ -1,4 +1,4 @@
-// Per-element FPISA arithmetic shared by the kernels in fpisa_fused.cu.
+// Per-element FPISA arithmetic shared by the kernels of csrc/*.cu.
 //
 // Plain C++ on 32-bit integers, callable from device code (and from host
 // code, so the arithmetic can be checked without a card). Every function is
@@ -7,8 +7,9 @@
 //
 // Shift distances are clamped to [0, 31] everywhere: shifting a 32-bit
 // integer by 32 or more is undefined behaviour in C++ and CUDA. Left shifts
-// are done on uint32_t and cast back, so negative mantissas wrap like a
-// two's-complement register instead of invoking undefined behaviour.
+// and the register adds are done on uint32_t and cast back, so they wrap like
+// a two's-complement register (the reference relies on the wrap; signed
+// overflow would be undefined behaviour).
 #pragma once
 
 #include <stdint.h>
@@ -29,6 +30,9 @@ struct Format {
   static constexpr int32_t exp_mask = (1 << EXP_BITS) - 1;
   static constexpr int32_t man_mask = (1 << MAN_BITS) - 1;
   static constexpr int32_t implied_one = 1 << MAN_BITS;
+  static constexpr int32_t bias = (1 << (EXP_BITS - 1)) - 1;
+  // bits above the mantissa magnitude, below the sign (FpFormat.headroom)
+  static constexpr int32_t headroom = 31 - (MAN_BITS + 1);
 };
 using Fp32 = Format<8, 23>;
 using Fp16 = Format<5, 10>;
@@ -101,5 +105,80 @@ FPISA_HD uint32_t renormalize(int32_t e, int32_t m) {
                         ((uint32_t)exp_out << F::man_bits) | (uint32_t)man_out;
   return zero ? 0u : bits;  // zero packs as +0
 }
+
+// Exact float32 bit pattern of a renormalize<F> result (zero, a normal
+// value or inf: renormalize flushes underflow and never makes a NaN, so the
+// denormal and NaN cases do not arise).
+template <class F>
+FPISA_HD uint32_t to_f32_bits(uint32_t bits) {
+  if constexpr (F::total_bits == 32) return bits;
+  const uint32_t sign = (bits >> (F::total_bits - 1)) & 1u;
+  const uint32_t exp = (bits >> F::man_bits) & (uint32_t)F::exp_mask;
+  const uint32_t man = bits & (uint32_t)F::man_mask;
+  const uint32_t e32 = exp == 0u ? 0u
+                       : (exp == (uint32_t)F::exp_mask ? 255u : exp - F::bias + 127u);
+  return (sign << 31) | (e32 << 23) | (man << (23 - F::man_bits));
+}
+
+// int32 register add, wrapping (fpisa._add).
+FPISA_HD int32_t wrap_add(int32_t a, int32_t b) {
+  return (int32_t)((uint32_t)a + (uint32_t)b);
+}
+
+// fpisa._overflowed: did s = a + b wrap?
+FPISA_HD bool overflowed(int32_t a, int32_t b, int32_t s) { return ((a ^ s) & (b ^ s)) < 0; }
+
+struct AddStats {
+  bool overwrite;  // FPISA-A dropped a non-zero accumulator
+  bool overflow;   // the int32 register add wrapped
+};
+
+// fpisa.fpisa_a_add: only the incoming mantissa is shifted; right when its
+// exponent is not larger, left into the headroom when it is larger by at most
+// the headroom, else it overwrites the accumulator.
+template <class F>
+FPISA_HD Plane fpisa_a_add(Plane acc, Plane in, AddStats* st) {
+  const int32_t d = in.exp - acc.exp;  // exponents are in [0, 255]
+  if (d > F::headroom) {
+    st->overwrite = acc.man != 0;
+    st->overflow = false;
+    return in;
+  }
+  const int32_t shifted = d <= 0 ? arshift(in.man, -d) : lshift(in.man, d);
+  const int32_t sum = wrap_add(acc.man, shifted);
+  st->overwrite = false;
+  st->overflow = overflowed(acc.man, shifted, sum);
+  return Plane{acc.exp, sum};
+}
+
+// fpisa.fpisa_add_full: the operand with the smaller exponent is shifted
+// right; the result keeps the larger exponent (RSAW).
+template <class F>
+FPISA_HD Plane fpisa_add_full(Plane acc, Plane in, AddStats* st) {
+  const int32_t d = in.exp - acc.exp;
+  const bool le = d <= 0;
+  const int32_t s_in = le ? arshift(in.man, -d) : in.man;
+  const int32_t s_acc = le ? acc.man : arshift(acc.man, d);
+  const int32_t sum = wrap_add(s_acc, s_in);
+  st->overwrite = false;
+  st->overflow = overflowed(s_acc, s_in, sum);
+  return Plane{le ? acc.exp : in.exp, sum};
+}
+
+#if defined(__CUDACC__)
+// Launch shape of the warp-per-row kernels (one row, one FPISA block, per
+// warp): 8 warps, so 8 rows, per thread block.
+constexpr int kWarpsPerBlock = 8;
+constexpr int kRowThreads = kWarpsPerBlock * 32;
+
+inline dim3 row_grid(int64_t rows) {
+  return dim3((unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock));
+}
+
+// This warp's row; warp-uniform, so whole warps leave past the last row.
+__device__ __forceinline__ int64_t warp_row() {
+  return (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+}
+#endif
 
 }  // namespace fpisa

@@ -46,10 +46,12 @@ def _lib() -> ctypes.CDLL:
     lib.fpisa_encode_align.restype = _I
     lib.fpisa_decode_fused.argtypes = [_I, _I, _P, _P, _P, _LL, _I, _I, _P]
     lib.fpisa_decode_fused.restype = _I
+    lib.fpisa_decode.argtypes = [_I, _P, _P, _P, _LL, _I, _I, _P]  # K5
+    lib.fpisa_decode.restype = _I
     return lib
 
 
-def _check_plane(t: torch.Tensor, what: str) -> None:
+def check_plane(t: torch.Tensor, what: str) -> None:
     if not t.is_cuda:
         raise ValueError(f"{what} must be a CUDA tensor, got device {t.device}")
     if t.dim() != 2 or t.shape[1] not in BLOCKS:
@@ -59,7 +61,16 @@ def _check_plane(t: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what} must be contiguous")
 
 
-def _raise_on(err: int, kernel: str) -> None:
+def check_row_vector(t: torch.Tensor, like: torch.Tensor, what: str) -> None:
+    """``t`` must be a contiguous (R,) int32 tensor on ``like``'s device."""
+    r = like.shape[0]
+    if t.shape != (r,) or t.dtype != torch.int32 or t.device != like.device \
+            or not t.is_contiguous():
+        raise ValueError(f"{what} must be a contiguous ({r},) int32 tensor on "
+                         f"{like.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def raise_on(err: int, kernel: str) -> None:
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
 
@@ -67,7 +78,7 @@ def _raise_on(err: int, kernel: str) -> None:
 def fused_encode_align(x: torch.Tensor, fmt_name: str = "fp32"):
     """x: (R, B) CUDA tensor in the format's dtype -> (man (R,B) int32
     aligned to the LOCAL block max, bmax (R,) int32)."""
-    _check_plane(x, "x")
+    check_plane(x, "x")
     if x.dtype != PACKED_DTYPE[fmt_name]:
         raise ValueError(f"x must be {PACKED_DTYPE[fmt_name]} for "
                          f"fmt_name={fmt_name!r}, got {x.dtype}")
@@ -75,7 +86,7 @@ def fused_encode_align(x: torch.Tensor, fmt_name: str = "fp32"):
     man = torch.empty((r, b), dtype=torch.int32, device=x.device)
     bmax = torch.empty((r,), dtype=torch.int32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    _raise_on(_lib().fpisa_encode_align(
+    raise_on(_lib().fpisa_encode_align(
         FMT_CODES[fmt_name], x.data_ptr(), man.data_ptr(), bmax.data_ptr(),
         r, b, stream), "fpisa_encode_align")
     return man, bmax
@@ -85,18 +96,14 @@ def fused_decode(man_sum: torch.Tensor, bmax: torch.Tensor, preshift: int = 0,
                  fmt_name: str = "fp32") -> torch.Tensor:
     """(R, B) int8/int16/int32 CUDA summed mantissas + (R,) int32 block
     exponents -> (R, B) packed FP in the format's dtype."""
-    _check_plane(man_sum, "man_sum")
+    check_plane(man_sum, "man_sum")
     if man_sum.dtype not in WIRE_DTYPES:
         raise ValueError(f"man_sum must be one of {WIRE_DTYPES}, got {man_sum.dtype}")
+    check_row_vector(bmax, man_sum, "bmax")
     r, b = man_sum.shape
-    if bmax.shape != (r,) or bmax.dtype != torch.int32 \
-            or bmax.device != man_sum.device or not bmax.is_contiguous():
-        raise ValueError(f"bmax must be a contiguous ({r},) int32 tensor on "
-                         f"{man_sum.device}, got {tuple(bmax.shape)} "
-                         f"{bmax.dtype} on {bmax.device}")
     out = torch.empty((r, b), dtype=PACKED_DTYPE[fmt_name], device=man_sum.device)
     stream = torch.cuda.current_stream(man_sum.device).cuda_stream
-    _raise_on(_lib().fpisa_decode_fused(
+    raise_on(_lib().fpisa_decode_fused(
         FMT_CODES[fmt_name], man_sum.element_size(), man_sum.data_ptr(),
         bmax.data_ptr(), out.data_ptr(), r, b, int(preshift), stream),
         "fpisa_decode_fused")

@@ -1,21 +1,26 @@
 """Public wrappers for the FPISA kernels: dispatch by tensor device.
 
-A CUDA tensor launches the Hopper kernel (``kernels/fpisa_fused.py``) or
-raises; a CPU tensor takes the kernel's plain version (``kernels/ref.py``),
-and only because it lies on the CPU. Nothing catches a failed build or
+A CUDA tensor launches the Hopper kernel (``kernels/fpisa_fused.py``,
+``fpisa_encode.py``, ``fpisa_decode.py``, ``fpisa_accum.py``) or raises; a
+CPU tensor takes the kernel's plain version (``kernels/ref.py``), and only
+because it lies on the CPU. Nothing catches a failed build or
 launch to fall back to the plain version.
 
 Each wrapper keeps a plain integer count of its kernel launches
-(``encode_align.launches``, ``decode_fused.launches``), incremented where
-the kernel is launched and nowhere else, so a run can show that it went
-through the kernels.
+(``encode_align.launches``, ``decode_fused.launches``, ``extract.launches``,
+...), incremented where the kernel is launched and nowhere else, so a run
+can show that it went through the kernels.
+
+The CPU path passes the format through to the plain version (the
+reference's ``use_pallas=False`` paths of ``decode`` / ``accum`` drop it);
+``accum`` returns float32 on both devices, as the TPU kernel does.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import fpisa
-from repro_torch.kernels import fpisa_fused, ref
+from repro_torch.kernels import fpisa_accum, fpisa_decode, fpisa_encode, fpisa_fused, ref
 
 
 def _check_format(x: torch.Tensor, fmt_name: str) -> None:
@@ -48,5 +53,55 @@ def decode_fused(man_sum: torch.Tensor, bmax: torch.Tensor, preshift: int = 0,
     return ref.fused_decode_ref(man_sum, bmax, preshift, fpisa.FORMATS[fmt_name])
 
 
+def extract(x: torch.Tensor, fmt_name: str = "fp32"):
+    """Two-pass encode, first pass (K3): x (R, B) packed FP -> (exp (R, B)
+    int32, man (R, B) int32, bmax (R,) int32)."""
+    _check_format(x, fmt_name)
+    if x.is_cuda:
+        out = fpisa_encode.fpisa_extract(x, fmt_name)
+        extract.launches += 1
+        return out
+    return ref.extract_ref(x, fpisa.FORMATS[fmt_name])
+
+
+def align(exp: torch.Tensor, man: torch.Tensor, bmax: torch.Tensor,
+          preshift: int = 0) -> torch.Tensor:
+    """Two-pass encode, second pass (K4): (R, B) int32 planes + (R,) block
+    exponents -> (R, B) int32 mantissas aligned to them, pre-shifted."""
+    if man.is_cuda:
+        out = fpisa_encode.fpisa_align(exp, man, bmax, preshift)
+        align.launches += 1
+        return out
+    return ref.align_ref(exp, man, bmax, preshift)
+
+
+def decode(man_sum: torch.Tensor, bmax: torch.Tensor, preshift: int = 0,
+           fmt_name: str = "fp32") -> torch.Tensor:
+    """Two-pass decode (K5): (R, B) int32 summed mantissas + (R,) block
+    exponents -> (R, B) packed FP in the format's dtype."""
+    if man_sum.is_cuda:
+        out = fpisa_decode.fpisa_decode(man_sum, bmax, preshift, fmt_name)
+        decode.launches += 1
+        return out
+    return ref.decode_ref(man_sum, bmax, preshift, fpisa.FORMATS[fmt_name])
+
+
+def accum(x: torch.Tensor, variant: str = "fpisa_a", fmt_name: str = "fp32") -> torch.Tensor:
+    """Switch-arrival accumulation (K6): x (W, R, B) packed FP, worker 0
+    first -> (R, B) float32 (the format's value, upcast exactly)."""
+    if x.dim() != 3 or x.dtype != fpisa.PACKED_DTYPE[fmt_name]:
+        raise ValueError(f"expected a (W, R, B) stack of {fpisa.PACKED_DTYPE[fmt_name]} "
+                         f"for fmt_name={fmt_name!r}, got {x.dtype}{tuple(x.shape)}")
+    if x.is_cuda:
+        out = fpisa_accum.fpisa_accum(x, variant, fmt_name)
+        accum.launches += 1
+        return out
+    return ref.accum_ref(x, variant, fpisa.FORMATS[fmt_name]).to(torch.float32)
+
+
 encode_align.launches = 0
 decode_fused.launches = 0
+extract.launches = 0
+align.launches = 0
+decode.launches = 0
+accum.launches = 0

@@ -1,10 +1,16 @@
 """Plain PyTorch versions of the Hopper kernels in this package.
 
-Port of ``repro.kernels.ref`` (the two oracles on the aggregation path).
-They are the ground truth the kernels are held against (on the card by
-``chip_smoke.py``), the CPU path of ``kernels/ops.py``, and they reuse
-``repro_torch.core.fpisa`` so the kernels must match the core semantics bit
-for bit.
+Port of ``repro.kernels.ref``. They are the ground truth the kernels are
+held against (on the card by ``chip_smoke.py``), the CPU path of
+``kernels/ops.py``, and they reuse ``repro_torch.core.fpisa`` so the kernels
+must match the core semantics bit for bit.
+
+Every function takes the format explicitly and honours it. (The reference's
+``ops.decode`` / ``ops.accum`` with ``use_pallas=False`` drop their
+``fmt_name`` and so always decode fp32; the port does not copy that.)
+``accum_ref`` returns the format's dtype, as the reference's does; the
+kernel K6 emits float32, and ``ops.accum`` upcasts the plain version to
+match it.
 """
 from __future__ import annotations
 
@@ -14,20 +20,49 @@ from repro_torch.core import fpisa
 from repro_torch.core import numerics as nx
 
 
+def extract_ref(x: torch.Tensor, fmt: fpisa.FpFormat = fpisa.FP32):
+    """Plain version of K3 ``fpisa_extract``: x (R,B) packed FP -> (exp (R,B)
+    int32, man (R,B) int32, bmax (R,) int32), bmax the per-row (= per-block)
+    max exponent, the quantity MAX-reduced across workers before alignment."""
+    planes = fpisa.encode(x, fmt)
+    return planes.exp, planes.man, planes.exp.amax(dim=-1)
+
+
+def align_ref(exp: torch.Tensor, man: torch.Tensor, bmax: torch.Tensor,
+              preshift: int, fmt: fpisa.FpFormat = fpisa.FP32):
+    """Plain version of K4 ``fpisa_align``: shift the mantissas to the shared
+    block exponent, (R,B) int32 -> (R,B) int32 (the format does not enter)."""
+    return nx.arshift(man, (bmax[:, None] - exp) + preshift)
+
+
+def decode_ref(man_sum: torch.Tensor, bmax: torch.Tensor, preshift: int,
+               fmt: fpisa.FpFormat = fpisa.FP32):
+    """Plain version of K5 ``fpisa_decode``: (R,B) int32 summed mantissas +
+    (R,) block exponents -> (R,B) packed FP in the format's dtype."""
+    e = (bmax[:, None] + preshift).expand(man_sum.shape)
+    return fpisa.renormalize(fpisa.Planes(exp=e, man=man_sum), fmt)
+
+
 def fused_encode_align_ref(x: torch.Tensor, fmt: fpisa.FpFormat = fpisa.FP32):
     """Plain version of ``fused_encode_align``: x (R,B) packed FP -> (man
     (R,B) int32 aligned to the LOCAL per-row max exponent, bmax (R,) int32).
 
     The residual cross-worker shift by ``(global_bmax - bmax) + preshift``
     composes exactly on top (arithmetic right shifts compose)."""
-    planes = fpisa.encode(x, fmt)
-    bmax = planes.exp.amax(dim=-1)
-    return nx.arshift(planes.man, bmax[:, None] - planes.exp), bmax
+    exp, man, bmax = extract_ref(x, fmt)
+    return align_ref(exp, man, bmax, 0, fmt), bmax
 
 
 def fused_decode_ref(man_sum: torch.Tensor, bmax: torch.Tensor, preshift: int,
                      fmt: fpisa.FpFormat = fpisa.FP32):
     """Plain version of ``fused_decode``: (R,B) summed mantissas of any wire
     dtype (int8/int16/int32) + (R,) block exponents -> (R,B) packed FP."""
-    e = (bmax[:, None] + preshift).expand(man_sum.shape)
-    return fpisa.renormalize(fpisa.Planes(exp=e, man=man_sum.to(torch.int32)), fmt)
+    return decode_ref(man_sum.to(torch.int32), bmax, preshift, fmt)
+
+
+def accum_ref(x: torch.Tensor, variant: str = "fpisa_a",
+              fmt: fpisa.FpFormat = fpisa.FP32):
+    """Plain version of K6 ``fpisa_accum``: sequential switch-order
+    accumulation, x (W,R,B) packed FP -> (R,B) packed FP in the format's
+    dtype (worker 0 first)."""
+    return fpisa.fpisa_sum_sequential(x, fmt, variant=variant)

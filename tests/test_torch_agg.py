@@ -11,6 +11,8 @@ share a port). All of them start together and write .npz files to tmp_path.
   reference formulation (backend "torch") and on the kernel path's
   composition (local-max align + residual shift + fused decode, the code the
   "cuda" backend runs, here through the plain versions on CPU tensors).
+  (fpisa_seq and switch_emu run through the same harness in
+  tests/test_torch_switch.py.)
 * native (a float SUM): the reduction order differs between gloo and XLA,
   so it is held to |torch - jax| <= 4 * 2^-23 * sum_i |x_i| elementwise (a
   few float32 roundings of the partial sums); at W <= 2 it is exact.
@@ -82,22 +84,23 @@ for s, w, fm in {combos!r}:
 # the cuda backend's composition (ops wrappers -> plain versions on CPU)
 allreduce.resolve_backend = lambda backend, device: "cuda"
 for s, w, fm in {combos!r}:
-    if s == "fpisa":
+    if s in ("fpisa", "fpisa_seq"):
         cfg = AggConfig(strategy=s, wire_bits=w, fmt_name=fm)
         for k, v in Aggregator(cfg).allreduce_tree(tree).items():
-            res[f"fused-w{{w}}-{{fm}}/{{k}}"] = v.numpy()
+            res[f"cuda-{{s}}-w{{w}}-{{fm}}/{{k}}"] = v.numpy()
 np.savez(os.environ["OUT"], **res)
 if W > 1:
     dist.destroy_process_group()
 """
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory, multi_device_runner):
-    """{W: (jax results, [torch results of each rank], inputs)}; every
-    process of every W runs concurrently."""
-    tmp = tmp_path_factory.mktemp("agg")
-    rng = np.random.default_rng(2024)
+def run_worlds(tmp, combos, multi_device_runner, seed):
+    """Every (strategy, wire_bits, fmt) of ``combos`` over W in WORLDS, on
+    the JAX Aggregator and on the port's (backend "torch", and the cuda
+    backend's composition as ``cuda-<strategy>-...`` for fpisa and
+    fpisa_seq). Returns {W: (jax results, [torch results of each rank],
+    inputs)}; every process of every W runs concurrently."""
+    rng = np.random.default_rng(seed)
     procs, jax_runs, plan = [], [], {}
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src") + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
@@ -110,10 +113,10 @@ def runs(tmp_path_factory, multi_device_runner):
         np.savez(ipath, **inp)
         jpath = str(tmp / f"jax{w}.npz")
         jax_runs.append(pool.submit(
-            multi_device_runner, JAX_CODE.format(w=w, combos=COMBOS, inp=ipath, out=jpath),
+            multi_device_runner, JAX_CODE.format(w=w, combos=combos, inp=ipath, out=jpath),
             n_devices=w, timeout=300))
         tpaths = [str(tmp / f"torch{w}_{r}.npz") for r in range(w)]
-        code = TORCH_CODE.format(init=f"file://{tmp}/pg{w}", inp=ipath, combos=COMBOS)
+        code = TORCH_CODE.format(init=f"file://{tmp}/pg{w}", inp=ipath, combos=combos)
         for r in range(w):
             procs.append(subprocess.Popen(
                 [sys.executable, "-c", code], cwd=REPO, stdout=subprocess.PIPE,
@@ -133,6 +136,11 @@ def runs(tmp_path_factory, multi_device_runner):
         pool.shutdown()
     return {w: (dict(np.load(j)), [dict(np.load(t)) for t in ts], inp)
             for w, (j, ts, inp) in plan.items()}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory, multi_device_runner):
+    return run_worlds(tmp_path_factory.mktemp("agg"), COMBOS, multi_device_runner, 2024)
 
 
 def _bits(a):
@@ -164,7 +172,7 @@ def test_kernel_path_composition_bit_identical(runs, world, wire, fmt):
     for res in torch_ranks:
         for leaf in LEAVES:
             np.testing.assert_array_equal(
-                _bits(res[f"fused-w{wire}-{fmt}/{leaf}"]),
+                _bits(res[f"cuda-fpisa-w{wire}-{fmt}/{leaf}"]),
                 _bits(jax_out[f"{_name('fpisa', wire, fmt)}/{leaf}"]))
 
 
@@ -223,9 +231,13 @@ def test_backend_names_and_cuda_on_cpu_refused():
 @pytest.mark.parametrize("kwargs", [
     dict(stacked=True), dict(group=(None, None)),
     dict(cfg=dict(chunk_elems=1024)), dict(cfg=dict(bucket_bytes=1 << 20)),
-    dict(cfg=dict(strategy="fpisa_seq")), dict(cfg=dict(strategy="switch_emu")),
+    dict(stacked=True, cfg=dict(strategy="fpisa_seq")),
+    dict(cfg=dict(strategy="switch_emu", switch_shared="pool", switch_jobs=2)),
 ], ids=["stacked", "hierarchical", "chunk", "bucket", "fpisa_seq", "switch_emu"])
 def test_unported_capabilities_refused_at_construction(kwargs):
+    """Stacked fpisa_seq (logical workers) and switch_emu on a shared
+    multi-tenant dataplane wait for later slices; the flat strategies are
+    ported (tests/test_torch_switch.py)."""
     cfg = tagg.AggConfig(**kwargs.pop("cfg", {}))
     with pytest.raises(NotPortedError, match="ROADMAP.md"):
         tagg.Aggregator(cfg, **kwargs)
@@ -234,7 +246,10 @@ def test_unported_capabilities_refused_at_construction(kwargs):
 def test_unknown_strategy_names_options():
     with pytest.raises(ValueError, match="did you mean 'fpisa'"):
         tagg.get_strategy("fpsa")
-    assert tagg.available_strategies() == ("fpisa", "native", "switchml")
+    with pytest.raises(ValueError, match="did you mean 'switch_emu'"):
+        tagg.get_strategy("switch_emo")
+    assert tagg.available_strategies() == (
+        "fpisa", "fpisa_seq", "native", "switch_emu", "switchml")
 
 
 def test_world_of_one_without_process_group():

@@ -1,7 +1,9 @@
-"""The port's CUDA kernels on the card: K1 (fpisa_encode_align) and K2
-(fpisa_decode_fused) against their plain PyTorch versions on the same CUDA
-tensors, bit for bit (integer views), over the CPU suite's sweep plus the
-special values. These tests need an NVIDIA GPU and nvcc; elsewhere they
+"""The port's CUDA kernels on the card: K1 (fpisa_encode_align), K2
+(fpisa_decode_fused), K3 (fpisa_extract), K4 (fpisa_align), K5
+(fpisa_decode) and K6 (fpisa_accum) against their plain PyTorch versions on
+the same CUDA tensors, bit for bit (integer views), over the CPU suite's
+sweep plus the special values; their launch counters; and the wrappers'
+refusals. These tests need an NVIDIA GPU and nvcc; elsewhere they
 skip. They import nothing of JAX, so the GPU machine runs them with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 """
@@ -14,6 +16,7 @@ from repro_torch.core import fpisa  # noqa: E402
 from repro_torch.core import numerics as nx  # noqa: E402
 from repro_torch.core.allreduce import _wire_shift  # noqa: E402
 from repro_torch.core.agg import AggConfig, Aggregator  # noqa: E402
+from repro_torch.kernels import fpisa_accum, fpisa_decode, fpisa_encode  # noqa: E402
 from repro_torch.kernels import fpisa_fused, ops, ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -116,4 +119,121 @@ def test_cuda_backend_aggregator_equals_torch_backend(dev, fmt):
     x = torch.nan_to_num(x, posinf=1.0, neginf=-1.0)
     got = Aggregator(AggConfig(backend="cuda", fmt_name=fmt)).allreduce(x)
     want = Aggregator(AggConfig(backend="torch", fmt_name=fmt)).allreduce(x)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# K3-K6
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("fmt", FMTS)
+def test_extract_kernel_equals_plain(dev, shape, fmt):
+    x = _x(shape, fmt, shape[1], dev)
+    got = ops.extract(x, fmt)
+    want = ref.extract_ref(x, fpisa.FORMATS[fmt])
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("preshift", [0, 2])
+def test_align_kernel_equals_plain(dev, shape, preshift):
+    exp, man, bmax = ref.extract_ref(_x(shape, "fp32", shape[0] + 5, dev), fpisa.FP32)
+    gen = torch.Generator(device=dev).manual_seed(shape[0])
+    bmax = bmax + torch.randint(0, 40, bmax.shape, generator=gen, device=dev,
+                                dtype=torch.int32)
+    got = ops.align(exp, man, bmax, preshift)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.align_ref(exp, man, bmax, preshift))
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("fmt", FMTS)
+@pytest.mark.parametrize("preshift", [0, 2])
+def test_two_pass_decode_kernel_equals_plain(dev, shape, fmt, preshift):
+    gen = torch.Generator(device=dev).manual_seed(shape[0] * 5 + preshift)
+    m = torch.randint(-2**31, 2**31 - 1, shape, generator=gen, device=dev, dtype=torch.int64)
+    m = m.to(torch.int32)
+    m.view(-1)[:4] = torch.tensor([-2**31, -1, 0, 2**31 - 1], dtype=torch.int32)[: m.numel()]
+    bmax = torch.randint(0, fpisa.FORMATS[fmt].exp_mask + 2, (shape[0],), generator=gen,
+                         device=dev, dtype=torch.int32)
+    out = ops.decode(m, bmax, preshift, fmt)
+    want = ref.decode_ref(m, bmax, preshift, fpisa.FORMATS[fmt])
+    torch.cuda.synchronize()
+    assert out.dtype == want.dtype == fpisa.PACKED_DTYPE[fmt]
+    assert torch.equal(out.view(INT_VIEW[fmt]), want.view(INT_VIEW[fmt]))
+
+
+def _stack(workers, fmt, dev, seed):
+    """(W, 64, 256) gradient-like values; row 0 forces the FPISA-A edges:
+    columns 0..4 the largest mantissa at exponent = headroom from every
+    worker (left shift by the full headroom; the register wraps), column 4
+    from worker 1 at headroom + 1 (overwrite)."""
+    f = fpisa.FORMATS[fmt]
+    x = torch.stack([_x((64, 256), fmt, seed + i, dev) for i in range(workers)])
+    bits = x.view(INT_VIEW[fmt])
+    bits[:, 0, :5] = (f.headroom << f.man_bits) | f.man_mask
+    bits[1:2, 0, 4] = ((f.headroom + 1) << f.man_bits) | f.man_mask
+    return x
+
+
+@pytest.mark.parametrize("workers", [1, 2, 4, 8])
+@pytest.mark.parametrize("variant", ["fpisa_a", "full"])
+@pytest.mark.parametrize("fmt", FMTS)
+def test_accum_kernel_equals_plain(dev, workers, variant, fmt):
+    x = _stack(workers, fmt, dev, seed=workers)
+    out = ops.accum(x, variant, fmt)
+    want = ref.accum_ref(x, variant, fpisa.FORMATS[fmt])
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == (64, 256)
+    assert torch.equal(out.view(torch.int32), want.to(torch.float32).view(torch.int32))
+
+
+def test_new_launch_counters_count_kernel_launches(dev):
+    before = [f.launches for f in (ops.extract, ops.align, ops.decode, ops.accum)]
+    exp, man, bmax = ops.extract(torch.ones((4, 256), device=dev), "fp32")
+    ops.decode(ops.align(exp, man, bmax, 0), bmax, 0, "fp32")
+    ops.accum(torch.ones((2, 4, 256), device=dev), "full", "fp32")
+    assert [f.launches for f in (ops.extract, ops.align, ops.decode, ops.accum)] == \
+        [b + 1 for b in before]
+
+
+def test_new_kernels_refuse_what_they_do_not_take(dev):
+    i32 = dict(dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="B in"):
+        fpisa_encode.fpisa_extract(torch.ones((4, 64), device=dev))
+    with pytest.raises(ValueError, match="must be torch.float16"):
+        fpisa_encode.fpisa_extract(torch.ones((4, 256), device=dev), "fp16")
+    with pytest.raises(ValueError, match="exp must be"):
+        fpisa_encode.fpisa_align(torch.zeros((4, 128), **i32), torch.zeros((4, 256), **i32),
+                                 torch.zeros(4, **i32))
+    with pytest.raises(ValueError, match="bmax must be"):
+        fpisa_encode.fpisa_align(torch.zeros((4, 256), **i32), torch.zeros((4, 256), **i32),
+                                 torch.zeros(5, **i32))
+    with pytest.raises(ValueError, match="man_sum must be int32"):
+        fpisa_decode.fpisa_decode(torch.zeros((4, 256), dtype=torch.int16, device=dev),
+                                  torch.zeros(4, **i32))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fpisa_decode.fpisa_decode(torch.zeros((4, 256), dtype=torch.int32),
+                                  torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError, match=r"\(W, R, B\)"):
+        fpisa_accum.fpisa_accum(torch.ones((4, 256), device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        fpisa_accum.fpisa_accum(torch.ones((256, 4, 2), device=dev).transpose(0, 2))
+    with pytest.raises(ValueError, match="variant"):
+        fpisa_accum.fpisa_accum(torch.ones((2, 4, 256), device=dev), "fpisa_b")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fpisa_accum.fpisa_accum(torch.ones((2, 4, 256)))
+
+
+@pytest.mark.parametrize("fmt", FMTS)
+def test_cuda_fpisa_seq_equals_torch_backend(dev, fmt):
+    """The fpisa_seq strategy on a ragged leaf: K6 over the (W, 1, N) stack
+    on the cuda backend, fpisa_sum_sequential on torch; same bits."""
+    x = torch.nan_to_num(_x((5, 1000), "fp32", 8, dev), posinf=1.0, neginf=-1.0)
+    got = Aggregator(AggConfig(strategy="fpisa_seq", backend="cuda", fmt_name=fmt)).allreduce(x)
+    want = Aggregator(AggConfig(strategy="fpisa_seq", backend="torch",
+                                fmt_name=fmt)).allreduce(x)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))

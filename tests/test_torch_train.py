@@ -11,10 +11,13 @@ repro_torch.interop.params_from_jax).
   where the port takes one softmax. Step 0 (same weights, same tokens) is
   held to 2e-6 relative; the later steps, whose weights have moved through
   the FPISA-quantized AdamW update, to 2e-5. The grad norm is held to 2e-5.
+* The same 3 steps with the switch-arrival ``fpisa_seq`` aggregation,
+  against the reference's step with ``fpisa_seq``, same tolerances.
 * When the reference's gradients are fed into both aggregators, the
   aggregated gradients are BIT-EXACT (integer views).
 * The CLI, ``python -m repro_torch.launch.train --device cpu --smoke``,
-  runs and prints its loss lines.
+  runs and prints its loss lines, with ``--agg fpisa``, ``fpisa_seq`` and
+  ``switch_emu``.
 """
 import os
 import re
@@ -51,10 +54,24 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH, STEPS, BATCH, SEQ = "qwen1.5-0.5b", 3, 4, 64
 
 
+def _jax_steps(model, params, mesh, agg, opt_cfg, loader):
+    """STEPS reference steps from ``params``: (losses, grad norms)."""
+    step = jax.jit(jax_make_train_step(model, mesh, agg, opt_cfg, BATCH))
+    opt_state = jax_opt.init(params, opt_cfg)
+    losses, gnorms = [], []
+    for i in range(STEPS):
+        params, opt_state, metrics = step(
+            params, opt_state, {"tokens": jnp.asarray(loader.batch_at(i)["tokens"])})
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+    return losses, gnorms
+
+
 @pytest.fixture(scope="module")
 def reference():
-    """The JAX run: initial weights (numpy), per-step loss / grad norm, and
-    the step-0 gradients before and after the FPISA aggregation."""
+    """The JAX run: initial weights (numpy), per-step loss / grad norm with
+    fpisa and with fpisa_seq aggregation, and the step-0 gradients before
+    and after the FPISA aggregation."""
     cfg = jax_smoke(ARCH)
     model = jax_build(cfg)
     params = jax.jit(model.init)(jax.random.PRNGKey(0))
@@ -62,7 +79,6 @@ def reference():
     mesh = make_mesh_for(jax.devices()[:1])
     agg = JaxAggConfig(strategy="fpisa", backend="jnp")
     opt_cfg = jax_opt.OptConfig(name=cfg.optimizer, lr=cfg.learning_rate)
-    step = jax.jit(jax_make_train_step(model, mesh, agg, opt_cfg, BATCH))
     loader = JaxLoader(JaxCorpus(cfg.vocab_size, 0), BATCH, SEQ)
     batch0 = {"tokens": jnp.asarray(loader.batch_at(0)["tokens"])}
 
@@ -72,14 +88,9 @@ def reference():
                                       out_specs=P(), axis_names={"data"}))
     agg_grads = agg_fn(grads)
 
-    opt_state = jax_opt.init(params, opt_cfg)
-    losses, gnorms = [], []
-    for i in range(STEPS):
-        params, opt_state, metrics = step(
-            params, opt_state, {"tokens": jnp.asarray(loader.batch_at(i)["tokens"])})
-        losses.append(float(metrics["loss"]))
-        gnorms.append(float(metrics["grad_norm"]))
-    return {"init": init, "losses": losses, "gnorms": gnorms,
+    losses, gnorms = _jax_steps(model, params, mesh, agg, opt_cfg, loader)
+    seq = _jax_steps(model, params, mesh, JaxAggConfig(strategy="fpisa_seq"), opt_cfg, loader)
+    return {"init": init, "losses": losses, "gnorms": gnorms, "seq": seq,
             "grads": jax.tree.map(np.asarray, grads),
             "agg_grads": jax.tree.map(np.asarray, agg_grads)}
 
@@ -102,11 +113,11 @@ def test_weights_carry_across_in_the_reference_layout(reference):
     assert len(ref_paths) == 14
 
 
-def test_loss_and_grad_norm_track_the_reference(reference):
+def _port_steps(reference, strategy):
     cfg = get_smoke_config(ARCH)
     model = _port_model(reference)
     opt_cfg = optimizers.OptConfig(name=cfg.optimizer, lr=cfg.learning_rate)
-    step = make_train_step(model, AggConfig(strategy="fpisa"), opt_cfg, BATCH)
+    step = make_train_step(model, AggConfig(strategy=strategy), opt_cfg, BATCH)
     opt_state = optimizers.init(list(model.parameters()), opt_cfg)
     loader = ShardedLoader(SyntheticCorpus(cfg.vocab_size, 0), BATCH, SEQ)
     losses, gnorms = [], []
@@ -114,9 +125,26 @@ def test_loss_and_grad_norm_track_the_reference(reference):
         opt_state, metrics = step(opt_state, torch.from_numpy(loader.batch_at(i)["tokens"]))
         losses.append(float(metrics["loss"]))
         gnorms.append(float(metrics["grad_norm"]))
+    return losses, gnorms
+
+
+def test_loss_and_grad_norm_track_the_reference(reference):
+    losses, gnorms = _port_steps(reference, "fpisa")
     np.testing.assert_allclose(losses[0], reference["losses"][0], rtol=2e-6)
     np.testing.assert_allclose(losses, reference["losses"], rtol=2e-5)
     np.testing.assert_allclose(gnorms, reference["gnorms"], rtol=2e-5)
+    assert losses[-1] < losses[0]
+
+
+def test_fpisa_seq_loss_tracks_the_reference(reference):
+    """Switch-arrival aggregation on the CPU (one worker, torch backend)
+    against the reference's 1-device step with fpisa_seq; the tolerances
+    of the fpisa case."""
+    losses, gnorms = _port_steps(reference, "fpisa_seq")
+    ref_losses, ref_gnorms = reference["seq"]
+    np.testing.assert_allclose(losses[0], ref_losses[0], rtol=2e-6)
+    np.testing.assert_allclose(losses, ref_losses, rtol=2e-5)
+    np.testing.assert_allclose(gnorms, ref_gnorms, rtol=2e-5)
     assert losses[-1] < losses[0]
 
 
@@ -155,18 +183,29 @@ def test_aggregated_reference_gradients_bit_exact(reference, backend_path, monke
         np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32))
 
 
-def test_cli_runs_on_cpu_and_prints_loss_lines():
+def _run_cli(agg):
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src") + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu", "--arch", ARCH,
-         "--smoke", "--steps", "3", "--global-batch", "4", "--seq-len", "64", "--agg", "fpisa"],
+         "--smoke", "--steps", "3", "--global-batch", "4", "--seq-len", "64", "--agg", agg],
         capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
     assert res.returncode == 0, res.stderr[-3000:]
     lines = re.findall(r"\[train\] step +(\d+) loss ([\d.]+) gnorm ([\d.]+) [\d,]+ tok/s",
                        res.stdout)
     assert [int(s) for s, _, _ in lines] == [0, 2]
     assert all(np.isfinite(float(v)) for _, v, _ in lines)
+    return [float(v) for _, v, _ in lines]
+
+
+def test_cli_runs_on_cpu_and_prints_loss_lines():
+    _run_cli("fpisa")
+
+
+def test_cli_runs_switch_strategies_on_cpu():
+    """--agg switch_emu runs the numpy dataplane and prints the losses of
+    --agg fpisa_seq (the two aggregate to the same bits)."""
+    assert _run_cli("switch_emu") == _run_cli("fpisa_seq")
 
 
 def test_cli_refuses_unported_flags():
