@@ -66,6 +66,15 @@ Phases (each prints on its own lines; any failure raises, exit code != 0):
    same losses (rtol 1e-6: the card's float backward sums in a varying
    order), and one leaf through both aggregators gives the same bits.
 
+After phase 5, in the same group, bucketed aggregation (``bucketed_path``):
+the replay profiler on the card feeds the cost model and ``--bucket-bytes
+auto``'s choice for the 14 gradient leaves; 3 full-width steps with that
+``bucket_bytes`` (K1 and K2 once per bucket per step, counts zeroed just
+before and read just after); bucketed, plain, chunked, hierarchical and
+bucketed ``fpisa_seq`` aggregation of the trained gradients bit-equal to
+per-leaf; the bucketed step's breakdown against the per-leaf one and the
+traced encode / collective / finish sums.
+
 The line before the last is ``{"kernels": [...]}`` with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the rest of the repository beside it, the script exits
@@ -415,12 +424,13 @@ def train_seq_path(torch, dev):
     return launches, model, opt_state
 
 
-def step_breakdown(torch, dev, model, opt_state, strategy="fpisa"):
+def step_breakdown(torch, dev, model, opt_state, strategy="fpisa", bucket_bytes=0):
     """Where a full-width training step's time goes, by layer: forward +
     backward, the aggregation of the 14 gradient leaves (for fpisa K1, K2
     and the plain-torch glue between them; for fpisa_seq the all-gather,
-    K6 and its casts), and the AdamW update; CUDA events, median of 5 runs
-    each after one warm-up, on the same tokens."""
+    K6 and its casts; per leaf, or in buckets of ``bucket_bytes``), and the
+    AdamW update; CUDA events, median of 5 runs each after one warm-up, on
+    the same tokens."""
     from repro_torch.core.agg import AggConfig, Aggregator
     from repro_torch.data.pipeline import ShardedLoader, SyntheticCorpus
     from repro_torch.optim import optimizers
@@ -430,7 +440,7 @@ def step_breakdown(torch, dev, model, opt_state, strategy="fpisa"):
                                             SEQ_LEN).batch_at(STEPS)["tokens"]).to(dev)
     params = list(model.parameters())
     opt_cfg = optimizers.OptConfig(name=cfg.optimizer, lr=cfg.learning_rate)
-    aggregator = Aggregator(AggConfig(strategy=strategy))
+    aggregator = Aggregator(AggConfig(strategy=strategy, bucket_bytes=bucket_bytes))
     held = {}
 
     def grads():
@@ -446,10 +456,203 @@ def step_breakdown(torch, dev, model, opt_state, strategy="fpisa"):
              for name, fn in (("forward+backward", grads), ("aggregation", aggregate),
                               ("optimizer", update))}
     total = sum(parts.values())
-    log(f"[breakdown] {strategy}: one step, " + ", ".join(
+    what = f"{strategy}, buckets of {bucket_bytes} bytes" if bucket_bytes else strategy
+    log(f"[breakdown] {what}: one step, " + ", ".join(
         f"{k} {v:.2f} ms ({100 * v / total:.1f}%)" for k, v in parts.items())
         + f"; sum {total:.2f} ms = {GLOBAL_BATCH * SEQ_LEN / total * 1e3:,.0f} tok/s")
     return parts
+
+
+def bucketed_path(torch, dev, model, tmpdir):
+    """Bucketed, traced and autotuned aggregation (the fpisa path with
+    ``bucket_bytes``), in the one-rank NCCL group:
+
+    1. the replay profiler on the card (cuda backend) writes its spans to
+       ``build/chip_smoke/autotune.jsonl``; the cost model is fitted from that
+       file and ``auto_bucket_bytes`` picks a size for the model's 14 gradient
+       leaves (when it picks per-leaf, 0, the best nonzero candidate is
+       trained instead, and both are printed);
+    2. 3 full-width training steps with that ``bucket_bytes``, K1 and K2's
+       counts zeroed just before and read just after: each must launch once
+       per bucket per step;
+    3. on the trained gradients, per-leaf cuda aggregation must equal, bit
+       for bit: bucketed cuda, per-leaf plain torch, chunked cuda
+       (``chunk_elems`` = 2^20), hierarchical over a pair of one-rank groups
+       (bucketed, stripes), and bucketed ``fpisa_seq`` must equal per-leaf
+       ``fpisa_seq`` with K6 once per bucket;
+    4. the step's breakdown, bucketed against per-leaf, on CUDA events, and
+       the traced encode / collective / finish sums of the bucketed
+       aggregation. Returns the bucketed run's launch counts."""
+    from repro_torch import trace
+    from repro_torch.autotune import costmodel, profile, search
+    from repro_torch.configs import get_config
+    from repro_torch.core.agg import AggConfig, Aggregator
+    from repro_torch.core.bucketer import make_plan
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_loop
+    from repro_torch.runtime.elastic import make_groups
+
+    shapes = [torch.empty(p.shape, dtype=p.dtype, device="meta") for p in model.parameters()]
+    # 1. profile -> fit -> search
+    t0 = time.perf_counter()
+    spans = profile.profile_phases(
+        AggConfig(strategy="fpisa", backend="cuda"), device=dev, iters=5, warmup=2,
+        sizes=profile.probe_sizes(n_probes=9, max_elems=1 << 24))
+    path = trace.write_jsonl(spans, tmpdir / "autotune.jsonl")
+    fitted = costmodel.fit_from_jsonl(path)
+    tuned = search.auto_bucket_bytes(trace_path=path, leaves=shapes)
+    _, scores = search.choose_bucket_bytes(fitted, shapes, block=256)
+    bucket_bytes = tuned or min((c for c in scores if c), key=lambda c: scores[c])
+    log(f"[autotune] {len(spans)} probe spans in {time.perf_counter() - t0:.2f} s -> {path}")
+    log(json.dumps({"autotune_fit": fitted.to_dict(),
+                    "auto_bucket_bytes": tuned, "trained_bucket_bytes": bucket_bytes,
+                    "predicted_ms": {str(c): v * 1e3 for c, v in scores.items()}}))
+    plan = make_plan(shapes, block=256, bucket_bytes=bucket_bytes)
+    buckets = len(plan.buckets)
+    log(f"[bucketed] plan at {bucket_bytes} bytes: {buckets} buckets of "
+        f"{min(b.elems for b in plan.buckets)}-{max(b.elems for b in plan.buckets)} "
+        f"elements ({', '.join(sorted({b.group for b in plan.buckets}))}), passthrough "
+        f"{list(plan.passthrough)}")
+
+    # 2. training, counts zeroed just before and read just after
+    cfg = get_config("qwen1.5-0.5b")
+    agg = AggConfig(strategy="fpisa", backend="auto", bucket_bytes=bucket_bytes)
+    ops.encode_align.launches = 0
+    ops.decode_fused.launches = 0
+    t0 = time.perf_counter()
+    trained, opt_state, losses = train_loop(
+        cfg, steps=STEPS, global_batch=GLOBAL_BATCH, seq_len=SEQ_LEN, agg=agg, device=dev,
+        log_every=1)
+    torch.cuda.synchronize()
+    launches = {"fused_encode_align": ops.encode_align.launches,
+                "fused_decode": ops.decode_fused.launches}
+    log(f"[bucketed] {STEPS} steps of {cfg.name} in {time.perf_counter() - t0:.2f} s "
+        f"(init included); peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(json.dumps({"bucketed_launches_per_step": {k: v / STEPS for k, v in launches.items()},
+                    "buckets": buckets}))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite bucketed loss: {losses}")
+    for k, v in launches.items():
+        if v != buckets * STEPS:
+            raise AssertionError(f"{k} launched {v} times in {STEPS} bucketed steps, "
+                                 f"expected {buckets} per step (one per bucket)")
+
+    # 3. the aggregation forms on the trained gradients
+    from repro_torch.data.pipeline import ShardedLoader, SyntheticCorpus
+
+    tokens = ShardedLoader(SyntheticCorpus(cfg.vocab_size, 0), GLOBAL_BATCH,
+                           SEQ_LEN).batch_at(STEPS)["tokens"]
+    params = list(trained.parameters())
+    grads = list(torch.autograd.grad(trained.loss(torch.from_numpy(tokens).to(dev)), params))
+
+    def same(got, want, what):
+        for i, (g, w) in enumerate(zip(got, want)):
+            if not (g.dtype == w.dtype and torch.equal(g.view(torch.int16), w.view(torch.int16))
+                    and torch.isfinite(g).all()):
+                raise AssertionError(f"{what}: gradient leaf {i} differs from per-leaf")
+
+    want = Aggregator(AggConfig(backend="cuda")).allreduce_tree(grads)
+    before = (ops.encode_align.launches, ops.decode_fused.launches)
+    same(Aggregator(AggConfig(backend="cuda", bucket_bytes=bucket_bytes)).allreduce_tree(grads),
+         want, "bucketed cuda")
+    if (ops.encode_align.launches - before[0], ops.decode_fused.launches - before[1]) \
+            != (buckets, buckets):
+        raise AssertionError("bucketed cuda aggregation: not one K1/K2 launch per bucket")
+    same(Aggregator(AggConfig(backend="torch")).allreduce_tree(grads), want, "per-leaf plain")
+    same(Aggregator(AggConfig(backend="cuda", chunk_elems=1 << 20)).allreduce_tree(grads),
+         want, "chunked cuda")
+    pair = make_groups(1)
+    same(Aggregator(AggConfig(backend="cuda", bucket_bytes=bucket_bytes), pair)
+         .allreduce_tree(grads), want, "hierarchical bucketed cuda")
+    seq_want = Aggregator(AggConfig(strategy="fpisa_seq", backend="cuda")).allreduce_tree(grads)
+    before = ops.accum.launches
+    same(Aggregator(AggConfig(strategy="fpisa_seq", backend="cuda", bucket_bytes=bucket_bytes))
+         .allreduce_tree(grads), seq_want, "bucketed fpisa_seq")
+    if ops.accum.launches - before != buckets:
+        raise AssertionError(f"bucketed fpisa_seq: K6 launched {ops.accum.launches - before} "
+                             f"times, expected {buckets} (one per bucket)")
+    log(f"[check] full-width gradients ({len(grads)} leaves, {grads[0].dtype}): per-leaf cuda fpisa "
+        f"bit-equal to bucketed cuda ({buckets} K1/K2 launches), per-leaf plain, chunked cuda "
+        f"(2^20), hierarchical bucketed cuda over a pair of one-rank groups; bucketed "
+        f"fpisa_seq ({buckets} K6 launches) bit-equal to per-leaf fpisa_seq")
+    del want, seq_want
+
+    # 4. breakdown, bucketed vs per-leaf, then the traced phase sums
+    parts = {bb: step_breakdown(torch, dev, trained, opt_state, "fpisa", bucket_bytes=bb)
+             for bb in (0, bucket_bytes)}
+    aggregator = Aggregator(agg)
+    aggregator.allreduce_tree(grads)
+    tr = trace.enable()
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        aggregator.allreduce_tree(grads)
+    torch.cuda.synchronize()
+    traced_ms = (time.perf_counter() - t0) * 1e3 / reps
+    trace.disable()
+    sums = {ph: sum(s["dur"] for s in tr.spans if s["name"] == f"bucketer.{ph}") * 1e3 / reps
+            for ph in ("encode", "collective", "finish")}
+    log(f"[breakdown] bucketed aggregation, traced (each phase waited on): {traced_ms:.2f} ms "
+        f"per tree on the host clock, of it encode {sums['encode']:.2f} ms, collective "
+        f"{sums['collective']:.2f} ms, finish {sums['finish']:.2f} ms over {buckets} "
+        f"buckets; untraced {parts[bucket_bytes]['aggregation']:.2f} ms (CUDA events), "
+        f"per-leaf untraced {parts[0]['aggregation']:.2f} ms")
+    for bb in (0, bucket_bytes):
+        diagnose_aggregation(torch, Aggregator(AggConfig(bucket_bytes=bb)), grads,
+                             f"buckets of {bb} bytes" if bb else "per-leaf")
+    return launches
+
+
+def diagnose_aggregation(torch, aggregator, grads, what):
+    """Where an untraced aggregation of the gradients spends its time: the
+    host's issue time (the host clock around the call, no synchronize)
+    against its CUDA-event time, median of 5; the caching allocator's new
+    segments (cudaMalloc) over those 5 runs; and, from ``torch.profiler``
+    over one more run, the device's kernel time by name and the calls to
+    cudaMalloc / cudaFree. Issue time near the event time means the host
+    sets the pace and the card waits."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        aggregator.allreduce_tree(grads)
+
+    run()
+    torch.cuda.synchronize()
+    segments = torch.cuda.memory_stats().get("segment.all.allocated", 0)
+    issue, device = [], []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        run()
+        issue.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        end.synchronize()
+        device.append(start.elapsed_time(end))
+    segments = torch.cuda.memory_stats().get("segment.all.allocated", 0) - segments
+    head = (f"[diagnose] {what}: host issue {statistics.median(issue):.2f} ms, CUDA events "
+            f"{statistics.median(device):.2f} ms (median of 5); {segments} new allocator "
+            f"segments in those 5 runs; profiled run: kernel time ")
+    try:  # the profiler is a measurement only: without it the line says so
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+    except RuntimeError as e:
+        log(head + f"not measured (torch.profiler failed: {e})")
+        return
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", 0)
+
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(device_us(e) for e in kernels) / 1e3
+    mallocs = sum(e.count for e in events if e.key in ("cudaMalloc", "cudaFree"))
+    top = sorted(kernels, key=lambda e: -device_us(e))[:6]
+    log(head + (f"{busy:.2f} ms, {mallocs} cudaMalloc/cudaFree calls; top kernels: " + "; ".join(
+        f"{e.key[:60]} x{e.count} {device_us(e) / 1e3:.2f} ms" for e in top)
+        if busy else "not measured (the profiler recorded no device time)"))
 
 
 def check_grads_cuda_equals_plain(torch, dev, model, strategy):
@@ -753,6 +956,8 @@ def main() -> int:
         launches["fpisa_accum"], model, opt_state = train_seq_path(torch, dev)
         check_grads_cuda_equals_plain(torch, dev, model, "fpisa_seq")
         step_breakdown(torch, dev, model, opt_state, "fpisa_seq")
+        torch.cuda.empty_cache()
+        bucketed_path(torch, dev, model, tmpdir)
         del model, opt_state
         torch.cuda.empty_cache()
         times = timing(torch, dev, leaf_sizes)

@@ -1,10 +1,11 @@
 """PyTorch/CUDA port of the FPISA system (the JAX package ``repro`` is the
 reference it is held against).
 
-Same module layout as the reference: ``core/`` (bit-level FPISA numerics and
-the aggregation facade), ``kernels/`` (hand-written Hopper kernels with their
-plain PyTorch versions), ``models/``, ``optim/``, ``train/``, ``launch/``,
-``configs/`` and ``data/``. The package imports ``torch`` and numpy, never
+Same module layout as the reference: ``core/`` (bit-level FPISA numerics,
+the aggregation facade and the bucketer), ``kernels/`` (hand-written Hopper
+kernels with their plain PyTorch versions), ``switchsim/``, ``trace/``,
+``autotune/``, ``runtime/``, ``models/``, ``optim/``, ``train/``,
+``launch/``, ``configs/`` and ``data/``. The package imports ``torch`` and numpy, never
 ``jax`` and nothing of ``repro``.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU; with no CUDA

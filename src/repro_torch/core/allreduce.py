@@ -38,8 +38,18 @@ is carried on the collective as int32 values. They are the same values (the
 wire shift guarantees every partial sum fits int16), so the result is
 bit-identical to the reference's int16 psum, at twice the bytes.
 
-Not ported yet: hierarchical, stacked, chunked and bucketed aggregation and
-the multi-tenant ``switch_shared`` dataplane (ROADMAP.md).
+Hierarchical (``fpisa`` over a ``(pod_group, data_group)`` pair): integer
+reduce-scatter over the data group, an optional narrower wire with its extra
+shift for the SUM over the pod group, the delayed renormalization of this
+rank's owned shard, and an all-gather over the data group. Every other
+strategy given a pair reduces over both groups in turn (data, then pod).
+The split-phase hooks at the end (``_fpisa_flat_phases``,
+``_fpisa_hier_phases``) are what ``core/bucketer.py`` pipelines; their
+collective is launched with ``async_op=True`` and ``finish`` waits on its
+work handle.
+
+Not ported yet: stacked (logical-worker) aggregation and the multi-tenant
+``switch_shared`` dataplane (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -50,26 +60,36 @@ import torch.distributed as dist
 
 from repro_torch.core import fpisa
 from repro_torch.core import numerics as nx
-from repro_torch.core.agg import AggConfig, register_strategy, resolve_backend, world_size
+from repro_torch.core.agg import (
+    AggConfig, _initialized, group_rank, register_strategy, resolve_backend, world_size,
+)
 from repro_torch.kernels import ops
 from repro_torch.switchsim import DataplaneConfig, NumpyDataplane, run_aggregation
 
 # ---------------------------------------------------------------------------
-# collectives (a world of one, with no process group, reduces to identity)
+# collectives (a world of one, with no process group, reduces to identity).
+# ``group`` is a process group, None, or a (pod_group, data_group) pair,
+# which is reduced over its data group, then its pod group.
 # ---------------------------------------------------------------------------
 
 
 def _all_reduce_(t: torch.Tensor, op, group) -> torch.Tensor:
     """In-place all-reduce of a tensor this module owns."""
-    if dist.is_available() and dist.is_initialized():
-        dist.all_reduce(t, op=op, group=group)
+    if _initialized():
+        for g in (reversed(group) if isinstance(group, tuple) else (group,)):
+            dist.all_reduce(t, op=op, group=g)
     return t
 
 
 def _all_gather_rows(flat: torch.Tensor, group) -> torch.Tensor:
-    """(N,) -> (W, N): every rank's tensor, in rank order (worker 0 first)."""
-    if not (dist.is_available() and dist.is_initialized()):
+    """(N,) -> (W, N): every rank's tensor, in rank order (worker 0 first;
+    over a pair, pod-major: pod * w_data + data)."""
+    if not _initialized():
         return flat[None]
+    if isinstance(group, tuple):
+        pod_group, data_group = group
+        rows = _all_gather_rows(_all_gather_rows(flat, data_group).reshape(-1), pod_group)
+        return rows.reshape(-1, flat.shape[0])
     rows = flat.new_empty((dist.get_world_size(group), flat.shape[0]))
     dist.all_gather(list(rows.unbind(0)), flat, group=group)
     return rows
@@ -85,6 +105,29 @@ def _psum_wire(man: torch.Tensor, group) -> torch.Tensor:
     if man.dtype == torch.int16:
         man = man.to(torch.int32)
     return _all_reduce_(man, dist.ReduceOp.SUM, group)
+
+
+def _psum_wire_start(man: torch.Tensor, group):
+    """``_psum_wire`` launched with ``async_op=True``: returns (work handle,
+    the tensor the sum lands in); the caller waits on the handle before
+    reading it. The handle is None when nothing is left in flight (no
+    process group, or a group pair, which is summed in turn)."""
+    if not _initialized() or isinstance(group, tuple):
+        return None, _psum_wire(man, group)
+    if man.dtype == torch.int16:
+        man = man.to(torch.int32)
+    return dist.all_reduce(man, op=dist.ReduceOp.SUM, group=group, async_op=True), man
+
+
+def _reduce_scatter(man: torch.Tensor, group) -> torch.Tensor:
+    """(N,) int32 -> this rank's contiguous (N / w,) shard of the SUM over
+    ``group`` (shard i belongs to group rank i)."""
+    w = world_size(group)
+    if w == 1:
+        return man
+    shard = man.new_empty(man.shape[0] // w)
+    dist.reduce_scatter_tensor(shard, man, op=dist.ReduceOp.SUM, group=group)
+    return shard
 
 
 # ---------------------------------------------------------------------------
@@ -242,6 +285,71 @@ def fpisa_allreduce(x: torch.Tensor, group, cfg: AggConfig) -> torch.Tensor:
     return _unflatten(out, pad, orig_shape, orig_dtype)
 
 
+def _hier_collect(man: torch.Tensor, data_group, pod_group, cfg: AggConfig,
+                  shift: int, *, async_op: bool = False):
+    """Two-level integer collective: reduce-scatter over the data group, then
+    SUM over the pod group. Returns (man_shard, pod_shift, work): ``work``
+    is the pod SUM's handle under ``async_op`` (None otherwise, or when
+    nothing is in flight), which the caller waits on before reading
+    ``man_shard``.
+
+    The data-group partial sums carry up to man_bits + 1 + log2(w_data)
+    magnitude bits; a narrower pod wire takes one extra truncating shift,
+    applied once, after the full-precision data-group reduction."""
+    fmt = cfg.fmt
+    w_data, w_pod = world_size(data_group), world_size(pod_group)
+    man_shard = _reduce_scatter(man, data_group)
+    pod_bits = cfg.pod_wire_bits or cfg.wire_bits
+    pod_shift = 0
+    if pod_bits < 32:
+        # same floor-at--1 rail as _wire_shift, for the pod summand count
+        _check_wire_capacity(w_pod, pod_bits)
+        partial_mag_bits = (fmt.man_bits + 1 - shift) + math.ceil(math.log2(max(w_data, 1)))
+        pod_shift = max(0, partial_mag_bits + math.ceil(math.log2(max(w_pod, 1)))
+                        - (pod_bits - 1))
+        man_shard = _wire_cast(nx.arshift(man_shard, pod_shift), pod_bits)
+    if async_op:
+        work, man_shard = _psum_wire_start(man_shard, pod_group)
+        return man_shard, pod_shift, work
+    return _psum_wire(man_shard, pod_group), pod_shift, None
+
+
+def _hier_finish(man_shard: torch.Tensor, bmax: torch.Tensor, shift: int,
+                 pod_shift: int, data_group, cfg: AggConfig, backend: str) -> torch.Tensor:
+    """Delayed renormalization of this rank's owned shard only (with the
+    block exponents of its data-group index), then an all-gather of the
+    packed FP over the data group."""
+    w_data = world_size(data_group)
+    per = bmax.shape[0] // w_data
+    idx = group_rank(data_group)
+    bmax_shard = bmax[idx * per:(idx + 1) * per]
+    out_shard = _decode(man_shard, bmax_shard, shift + pod_shift, cfg, backend)
+    return _all_gather_rows(out_shard, data_group).reshape(-1)
+
+
+def fpisa_allreduce_hierarchical(x: torch.Tensor, data_group, pod_group,
+                                 cfg: AggConfig) -> torch.Tensor:
+    """Two-level FPISA aggregation over a (pod, data) layout.
+
+    Data group (cheap links): reduce-scatter of the int32 mantissas. Pod
+    group (the expensive hop): SUM, optionally on a narrower wire. Data
+    group: all-gather of the renormalized result. Exponent agreement is over
+    both groups, so the mantissa scales are compatible across both levels;
+    the sum stays in the integer domain and renormalization happens once."""
+    w = world_size(data_group) * world_size(pod_group)
+    backend = resolve_backend(cfg.backend, x.device)
+    orig_shape, orig_dtype = x.shape, x.dtype
+    # pad to block * w_data so the reduce-scatter tiles evenly
+    flat, pad = _flatten_pad(x.to(fpisa.PACKED_DTYPE[cfg.fmt_name]),
+                             cfg.block * world_size(data_group))
+
+    shift = _wire_shift(cfg.fmt, w, cfg.wire_bits)
+    man, bmax = _encode_align(flat, (pod_group, data_group), shift, cfg, backend)
+    man_shard, pod_shift, _ = _hier_collect(man, data_group, pod_group, cfg, shift)
+    out = _hier_finish(man_shard, bmax, shift, pod_shift, data_group, cfg, backend)
+    return _unflatten(out, pad, orig_shape, orig_dtype)
+
+
 # ---------------------------------------------------------------------------
 # bit-faithful sequential variant (accuracy experiments) and its emulation
 # ---------------------------------------------------------------------------
@@ -288,8 +396,118 @@ def switch_emu_allreduce(x: torch.Tensor, group, cfg: AggConfig) -> torch.Tensor
     return torch.from_numpy(out).to(x.device).reshape(x.shape).to(x.dtype)
 
 
-register_strategy("native")(native_allreduce)
-register_strategy("switchml")(switchml_allreduce)
-register_strategy("fpisa")(fpisa_allreduce)
-register_strategy("fpisa_seq")(fpisa_seq_allreduce)
-register_strategy("switch_emu", validate=_validate_switch_emu)(switch_emu_allreduce)
+# ---------------------------------------------------------------------------
+# split-phase pipeline factories (bucketer hooks)
+# ---------------------------------------------------------------------------
+
+
+def _fpisa_flat_phases(group, cfg: AggConfig, backend: str):
+    """(encode, collect, finish) for the flat fpisa path, mirroring
+    ``fpisa_allreduce`` (bucket buffers are block multiples, so its pad is a
+    no-op here). ``collect`` launches the SUM with ``async_op=True``;
+    ``finish`` waits on its handle, then decodes."""
+    shift = _wire_shift(cfg.fmt, world_size(group), cfg.wire_bits)
+
+    def encode(flat):
+        man, bmax = _encode_align(flat, group, shift, cfg, backend)
+        return _wire_cast(man, cfg.wire_bits), bmax
+
+    def collect(state):
+        man, bmax = state
+        work, man_sum = _psum_wire_start(man, group)
+        return work, man_sum, bmax
+
+    def finish(state):
+        work, man_sum, bmax = state
+        if work is not None:
+            work.wait()
+        return _decode(man_sum, bmax, shift, cfg, backend)
+
+    return encode, collect, finish
+
+
+def _fpisa_hier_phases(data_group, pod_group, cfg: AggConfig, backend: str,
+                       stripe: int):
+    """(encode, collect, finish) for the hierarchical fpisa path.
+
+    ``stripe`` rotates the reduce-scatter shard assignment of this bucket by
+    whole shards (a block-multiple roll): bucket i's pod hop and delayed
+    renormalization for a given gradient range land on data rank
+    (rank + i) % w_data, striping consecutive buckets' pod traffic across
+    the data ranks. Rolling by whole shards keeps every block's contents
+    intact, so the result is bit-identical to the unstriped path."""
+    w_data = world_size(data_group)
+    shift = _wire_shift(cfg.fmt, w_data * world_size(pod_group), cfg.wire_bits)
+    quantum = cfg.block * w_data
+
+    def encode(flat):
+        pad = (-flat.shape[0]) % quantum
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        roll = (stripe % w_data) * (flat.shape[0] // w_data)
+        if roll:
+            flat = torch.roll(flat, -roll)
+        man, bmax = _encode_align(flat, (pod_group, data_group), shift, cfg, backend)
+        return man, bmax, pad, roll
+
+    def collect(state):
+        man, bmax, pad, roll = state
+        man_shard, pod_shift, work = _hier_collect(
+            man, data_group, pod_group, cfg, shift, async_op=True)
+        return work, man_shard, bmax, pod_shift, pad, roll
+
+    def finish(state):
+        work, man_shard, bmax, pod_shift, pad, roll = state
+        if work is not None:
+            work.wait()
+        out = _hier_finish(man_shard, bmax, shift, pod_shift, data_group, cfg, backend)
+        if roll:
+            out = torch.roll(out, roll)
+        if pad:
+            out = out[:out.shape[0] - pad]
+        return out
+
+    return encode, collect, finish
+
+
+# ---------------------------------------------------------------------------
+# registry (repro_torch.core.agg): capability flags are validated once at
+# Aggregator construction; the bucketer pulls the split-phase hooks and
+# staging dtypes from the same specs.
+# ---------------------------------------------------------------------------
+
+
+def _stage_native(cfg: AggConfig, group: str) -> torch.dtype:
+    return getattr(torch, group)  # native sums in the leaf dtype
+
+
+def _stage_packed(cfg: AggConfig, group: str) -> torch.dtype:
+    return fpisa.PACKED_DTYPE[cfg.fmt_name]
+
+
+register_strategy(
+    "native", chunk_noop=True, stage_dtype=_stage_native,
+    description="plain float SUM all-reduce — the no-switch baseline",
+)(native_allreduce)
+
+register_strategy(
+    "switchml",
+    description="SwitchML int32 fixed-point with a scale-factor round trip",
+)(switchml_allreduce)
+
+register_strategy(
+    "fpisa", hierarchical=fpisa_allreduce_hierarchical,
+    stage_dtype=_stage_packed,
+    flat_phases=_fpisa_flat_phases, hier_phases=_fpisa_hier_phases,
+    description="the paper's block-exponent integer planes (production path)",
+)(fpisa_allreduce)
+
+register_strategy(
+    "fpisa_seq",
+    description="bit-faithful sequential switch-arrival FPISA-A",
+)(fpisa_seq_allreduce)
+
+register_strategy(
+    "switch_emu", validate=_validate_switch_emu,
+    description="validation via the switch-dataplane emulator",
+)(switch_emu_allreduce)

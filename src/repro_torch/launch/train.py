@@ -8,10 +8,17 @@ on the CPU, at smoke size:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --arch qwen1.5-0.5b --smoke --steps 3 --global-batch 4 --seq-len 64
 and across ranks under ``torchrun`` (rank and world size from its
-environment; NCCL on the card, gloo on the CPU).
+environment; NCCL on the card, gloo on the CPU). Bucketed, traced and
+autotuned aggregation (``--bucket-bytes N|auto``, ``--trace-out PATH``,
+``--agg-chunk N``) take the reference's flags, e.g.
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --arch qwen1.5-0.5b --smoke --steps 3 --global-batch 4 --seq-len 64 \
+      --bucket-bytes auto --trace-out /tmp/t.jsonl
+The trace file is written on exit (JSONL, or chrome://tracing JSON for a
+path ending in ``.chrome.json``).
 
-Not ported yet, and refused: ``--ckpt-dir``, ``--fault-plan``,
-``--num-hosts`` and ``--trace`` / ``--trace-out``.
+Not ported yet, and refused: ``--ckpt-dir``, ``--fault-plan`` and
+``--num-hosts`` (the elastic runtime).
 """
 from __future__ import annotations
 
@@ -24,10 +31,12 @@ import torch.distributed as dist
 
 from repro_torch import NotPortedError, resolve_device
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.core.agg import AggConfig, add_agg_args, world_size
+from repro_torch.core.agg import AggConfig, add_agg_args, group_rank, world_size
 from repro_torch.data.pipeline import ShardedLoader, SyntheticCorpus
 from repro_torch.models.registry import build, param_count
 from repro_torch.optim import optimizers
+from repro_torch.trace import add_trace_args
+from repro_torch.trace import from_args as trace_from_args
 from repro_torch.train.step import make_train_step
 
 
@@ -38,14 +47,15 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
     """Plain data-parallel training loop; returns (model, opt_state, losses).
 
     ``device`` None means the card. ``group`` is the data-parallel process
-    group (None: the default group, or a world of one). ``params`` replaces
-    the seeded initialization (a parameter tree, e.g. exported from the
-    reference). Every rank generates the same global batch and trains on
-    its contiguous slice, as the reference shards the batch over replicas."""
+    group (None: the default group, or a world of one) or a
+    ``(pod_group, data_group)`` pair. ``params`` replaces the seeded
+    initialization (a parameter tree, e.g. exported from the reference).
+    Every rank generates the same global batch and trains on its contiguous
+    slice, as the reference shards the batch over replicas."""
     device = resolve_device(device)
     agg = agg or AggConfig()
     world = world_size(group)
-    rank = dist.get_rank(group) if world > 1 else 0
+    rank = group_rank(group)
     model = build(cfg, device=device, seed=seed, params=params)
     opt_kw = {"name": cfg.optimizer, "lr": cfg.learning_rate}
     opt_kw.update(opt_overrides or {})
@@ -57,7 +67,8 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
 
     say = print if rank == 0 else (lambda *a, **k: None)
     say(f"[train] {cfg.name}: {param_count(model)/1e6:.1f}M params, "
-        f"device={device}, world={world}, agg={agg.strategy}")
+        f"device={device}, world={world}, agg={agg.strategy}, "
+        f"bucket_bytes={agg.bucket_bytes}")
     history = []
     for step in range(steps):
         t0 = perf_counter()
@@ -91,13 +102,13 @@ def main(argv=None):
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or cpu")
-    add_agg_args(ap)
-    for flag in ("--ckpt-dir", "--fault-plan", "--num-hosts", "--trace-out"):
+    add_agg_args(ap)  # the shared --agg-* flags (repro_torch.core.agg)
+    add_trace_args(ap)  # the shared --trace-* flags (repro_torch.trace)
+    for flag in ("--ckpt-dir", "--fault-plan", "--num-hosts"):
         ap.add_argument(flag, default=None, help="not ported yet")
-    ap.add_argument("--trace", action="store_true", help="not ported yet")
     args = ap.parse_args(argv)
-    for flag in ("ckpt_dir", "fault_plan", "num_hosts", "trace_out", "trace"):
-        if getattr(args, flag) not in (None, False):
+    for flag in ("ckpt_dir", "fault_plan", "num_hosts"):
+        if getattr(args, flag) is not None:
             ap.error(str(NotPortedError("--" + flag.replace("_", "-"))))
 
     try:
@@ -107,10 +118,12 @@ def main(argv=None):
         ap.error(str(e))
     device = resolve_device(args.device)
     _init_from_env(device)
+    session = trace_from_args(args)
     try:
         train_loop(cfg, steps=args.steps, global_batch=args.global_batch,
                    seq_len=args.seq_len, agg=agg, device=device)
     finally:
+        session.finish()
         if dist.is_initialized():
             dist.destroy_process_group()
 

@@ -31,6 +31,7 @@ import dataclasses
 import numpy as np
 
 from repro_torch import NotPortedError
+from repro_torch import trace as _trace
 from repro_torch.core import fpisa
 from repro_torch.switchsim import COUNTERS, SLOT_STATE_FIELDS, npfpisa
 
@@ -240,11 +241,16 @@ def run_aggregation(
     have_result = np.zeros((w, nchunks), bool)
     arrivals: dict[int, list[int]] = {}
 
-    _drive_rounds(
-        switch, vecs3, out, have_result, arrivals, rng,
-        drop_prob=drop_prob, max_rounds=max_rounds, window=cfg.window,
-        record_arrivals=record_arrivals, fail_worker=fail_worker,
-        fail_round=fail_round, detect_rounds=detect_rounds, chunk_base=chunk_base)
+    sp = _trace.span("switchsim.run_aggregation", phase="switch",
+                     workers=w, nchunks=nchunks, drop_prob=drop_prob)
+    with sp:
+        rnd = _drive_rounds(
+            switch, vecs3, out, have_result, arrivals, rng,
+            drop_prob=drop_prob, max_rounds=max_rounds, window=cfg.window,
+            record_arrivals=record_arrivals, fail_worker=fail_worker,
+            fail_round=fail_round, detect_rounds=detect_rounds, chunk_base=chunk_base)
+        if sp:
+            sp.tag(rounds=rnd + 1)
     flat = out.reshape(-1)[:n]
     if record_arrivals:
         return flat, arrivals
@@ -255,7 +261,8 @@ def _drive_rounds(switch, vecs3, out, have_result, arrivals, rng, *,
                   drop_prob, max_rounds, window, record_arrivals,
                   fail_worker, fail_round, detect_rounds, chunk_base):
     """The round-synchronous loop of ``run_aggregation`` (the reference's RNG
-    stream)."""
+    stream, split out so run_aggregation's trace span wraps exactly the wire
+    time). Returns the index of the last round."""
     nchunks = vecs3.shape[1]
     reclaim_at: int | None = None
     for rnd in range(max_rounds):
@@ -292,3 +299,4 @@ def _drive_rounds(switch, vecs3, out, have_result, arrivals, rng, *,
                 have_result[miss[ok], c] = True
     if not have_result.all():
         raise RuntimeError("aggregation did not complete within max_rounds")
+    return rnd

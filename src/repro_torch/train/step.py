@@ -3,48 +3,78 @@ boundary (torch port of the ``replica`` path of ``repro.train.step``).
 
 Every rank holds the full parameters and computes the gradients of the mean
 loss over its slice of the global batch. The per-rank gradients are then
-aggregated explicitly by the configured strategy, one leaf at a time
-(``Aggregator.allreduce_tree``): the paper's architecture, in which workers
-compute full gradients and the FPISA collective aggregates them. The
-integer strategies SUM the gradients over ranks, as the reference's
-``lax.psum`` does; ``native`` takes the gradient of the global-batch mean,
-as the reference's auto-sharded native step does. The reported loss is the
-mean over ranks. DDP is not used: the aggregation IS the collective.
+aggregated explicitly by the configured strategy
+(``Aggregator.allreduce_tree``): per leaf, or, with ``agg.bucket_bytes``
+set, streamed through fixed-size block-aligned wire buckets with
+double-buffered dispatch (core/bucketer.py), bit-identical to per leaf. This
+is the paper's architecture, in which workers compute full gradients and the
+FPISA collective aggregates them. The integer strategies SUM the gradients
+over ranks, as the reference's ``lax.psum`` does; ``native`` takes the
+gradient of the global-batch mean, as the reference's auto-sharded native
+step does. The reported loss is the mean over ranks. DDP is not used: the
+aggregation IS the collective. ``group`` may be a ``(pod_group,
+data_group)`` pair (``runtime/elastic.py::make_groups``), which the
+Aggregator reduces hierarchically.
 
-Not ported yet: the ``pod`` boundary, ``accum_steps`` > 1, logical workers
-(elastic mode) and bucketing.
+``accum_steps`` > 1 splits this rank's batch into microbatches and
+accumulates their gradients in float32, as the reference's scan does.
+
+Not ported yet: the ``pod`` boundary and logical workers (elastic mode).
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
+from repro_torch import NotPortedError
 from repro_torch.core.agg import AggConfig, Aggregator, world_size
 from repro_torch.optim import optimizers
 
 
 def make_train_step(model, agg: AggConfig, opt_cfg: optimizers.OptConfig,
-                    global_batch: int, group=None):
+                    global_batch: int, group=None, accum_steps: int = 1,
+                    logical_workers: int = 0):
     """Returns ``step_fn(opt_state, tokens) -> (opt_state, metrics)``, which
     updates the model's parameters in place. ``tokens`` is this rank's
-    (global_batch / world, S) slice of the global batch."""
+    (global_batch / world, S) slice of the global batch; with
+    ``accum_steps`` > 1 it is cut into that many microbatches."""
+    if logical_workers:
+        raise NotPortedError(f"logical_workers={logical_workers} (elastic logical-worker "
+                             f"training)")
     world = world_size(group)
     if global_batch % world:
         raise ValueError(f"global_batch={global_batch} is not divisible by the "
                          f"{world} ranks of the data-parallel group")
+    if accum_steps < 1 or (global_batch // world) % accum_steps:
+        raise ValueError(f"accum_steps={accum_steps} must divide the per-rank batch "
+                         f"{global_batch // world}")
     # the ONE facade instance for this step: validation happens here
     aggregator = Aggregator(agg, group)
     names, params = zip(*model.named_parameters())
+    groups = group if isinstance(group, tuple) else (group,)
+
+    def grads_and_loss(tokens):
+        if accum_steps == 1:
+            loss = model.loss(tokens)
+            return loss.detach(), torch.autograd.grad(loss, params)
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in params]
+        loss_acc = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        for mb in tokens.reshape(accum_steps, -1, *tokens.shape[1:]):
+            loss = model.loss(mb)
+            for a, g in zip(acc, torch.autograd.grad(loss, params)):
+                a += g.to(torch.float32)
+            loss_acc = loss_acc + loss.detach()
+        inv = 1.0 / accum_steps
+        return loss_acc * inv, [a * inv for a in acc]
 
     def train_step(opt_state: optimizers.OptState, tokens: torch.Tensor):
-        loss = model.loss(tokens)
-        grads = dict(zip(names, torch.autograd.grad(loss, params)))
-        grads = aggregator.allreduce_tree(grads)
+        loss, grads = grads_and_loss(tokens)
+        grads = aggregator.allreduce_tree(dict(zip(names, grads)))
         if agg.strategy == "native" and world > 1:
             grads = {k: g / world for k, g in grads.items()}
-        loss = loss.detach()
         if world > 1:
-            dist.all_reduce(loss, group=group)
+            for g in reversed(groups):
+                dist.all_reduce(loss, group=g)
             loss = loss / world
         opt_state, metrics = optimizers.update(
             params, [grads[n] for n in names], opt_state, opt_cfg)

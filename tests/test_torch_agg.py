@@ -228,19 +228,41 @@ def test_backend_names_and_cuda_on_cpu_refused():
         agg.allreduce(torch.ones(256))
 
 
+def _bucketed_stacked():
+    from repro_torch.core import bucketer
+
+    bucketer.bucketed_stacked_allreduce_tree({"a": torch.ones(4)}, None,
+                                             tagg.AggConfig(bucket_bytes=1024))
+
+
+def _logical_workers():
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.registry import build
+    from repro_torch.optim import optimizers
+    from repro_torch.train.step import make_train_step
+
+    model = build(get_smoke_config("qwen1.5-0.5b"), device=torch.device("cpu"))
+    make_train_step(model, tagg.AggConfig(), optimizers.OptConfig(), 4, logical_workers=4)
+
+
 @pytest.mark.parametrize("kwargs", [
-    dict(stacked=True), dict(group=(None, None)),
-    dict(cfg=dict(chunk_elems=1024)), dict(cfg=dict(bucket_bytes=1 << 20)),
+    dict(stacked=True),
     dict(stacked=True, cfg=dict(strategy="fpisa_seq")),
     dict(cfg=dict(strategy="switch_emu", switch_shared="pool", switch_jobs=2)),
-], ids=["stacked", "hierarchical", "chunk", "bucket", "fpisa_seq", "switch_emu"])
+    dict(call=_bucketed_stacked), dict(call=_logical_workers),
+], ids=["stacked", "fpisa_seq", "switch_emu", "bucketed_stacked", "logical_workers"])
 def test_unported_capabilities_refused_at_construction(kwargs):
-    """Stacked fpisa_seq (logical workers) and switch_emu on a shared
-    multi-tenant dataplane wait for later slices; the flat strategies are
-    ported (tests/test_torch_switch.py)."""
-    cfg = tagg.AggConfig(**kwargs.pop("cfg", {}))
+    """Stacked aggregation (logical workers: the stacked strategies, the
+    bucketed stacked tree and the train step's ``logical_workers``) and
+    switch_emu on a shared multi-tenant dataplane wait for later slices;
+    hierarchical, chunked and bucketed aggregation are ported
+    (tests/test_torch_bucketer.py)."""
     with pytest.raises(NotPortedError, match="ROADMAP.md"):
-        tagg.Aggregator(cfg, **kwargs)
+        if "call" in kwargs:
+            kwargs["call"]()
+        else:
+            cfg = tagg.AggConfig(**kwargs.pop("cfg", {}))
+            tagg.Aggregator(cfg, **kwargs)
 
 
 def test_unknown_strategy_names_options():

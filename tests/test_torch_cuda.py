@@ -2,8 +2,10 @@
 (fpisa_decode_fused), K3 (fpisa_extract), K4 (fpisa_align), K5
 (fpisa_decode) and K6 (fpisa_accum) against their plain PyTorch versions on
 the same CUDA tensors, bit for bit (integer views), over the CPU suite's
-sweep plus the special values; their launch counters; and the wrappers'
-refusals. These tests need an NVIDIA GPU and nvcc; elsewhere they
+sweep plus the special values; their launch counters; the wrappers'
+refusals; and bucketed (K1/K2 once per bucket), chunked, hierarchical (a
+pair of one-rank NCCL groups) and bucketed ``fpisa_seq`` aggregation on the
+cuda backend against the plain per-leaf aggregation. These tests need an NVIDIA GPU and nvcc; elsewhere they
 skip. They import nothing of JAX, so the GPU machine runs them with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 """
@@ -237,3 +239,85 @@ def test_cuda_fpisa_seq_equals_torch_backend(dev, fmt):
     want = Aggregator(AggConfig(strategy="fpisa_seq", backend="torch",
                                 fmt_name=fmt)).allreduce(x)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# bucketed, chunked and hierarchical aggregation on the card
+# ---------------------------------------------------------------------------
+
+
+def _tree(dev):
+    """A ragged gradient tree on the card: fp32 and bf16 leaves, a scalar,
+    leaves that span buckets and leaves that are not block multiples."""
+    shapes = {"a": (37, 13), "b": (5000,), "c": (), "d": (700,), "e": (3, 1300)}
+    tree = {k: torch.nan_to_num(_x(s, "fp32", i, dev), posinf=1.0, neginf=-1.0)
+            for i, (k, s) in enumerate(shapes.items())}
+    tree["f"] = torch.nan_to_num(_x((400,), "fp32", 9, dev), posinf=1.0,
+                                 neginf=-1.0).to(torch.bfloat16)
+    return tree
+
+
+def _same_bits(got, want):
+    for k in want:
+        view = torch.int32 if want[k].element_size() == 4 else torch.int16
+        assert got[k].is_cuda and got[k].dtype == want[k].dtype, k
+        assert torch.equal(got[k].reshape(-1).view(view), want[k].reshape(-1).view(view)), k
+
+
+@pytest.mark.parametrize("wire", [32, 16, 8])
+@pytest.mark.parametrize("fmt", FMTS)
+def test_bucketed_cuda_equals_per_leaf_plain(dev, wire, fmt):
+    """Bucketed on the cuda backend (K1/K2 once per bucket) equals the
+    per-leaf plain torch aggregation, bit for bit."""
+    from repro_torch.core.bucketer import make_plan
+
+    tree = _tree(dev)
+    base = dict(wire_bits=wire, fmt_name=fmt)
+    want = Aggregator(AggConfig(backend="torch", **base)).allreduce_tree(tree)
+    cfg = AggConfig(backend="cuda", bucket_bytes=8192, **base)
+    buckets = len(make_plan(list(tree.values()), block=256, bucket_bytes=8192).buckets)
+    before = (ops.encode_align.launches, ops.decode_fused.launches)
+    got = Aggregator(cfg).allreduce_tree(tree)
+    assert (ops.encode_align.launches - before[0], ops.decode_fused.launches - before[1]) \
+        == (buckets, buckets)
+    _same_bits(got, want)
+
+
+def test_chunked_and_bucketed_fpisa_seq_on_the_card(dev):
+    tree = _tree(dev)
+    want = Aggregator(AggConfig(backend="torch")).allreduce_tree(tree)
+    _same_bits(Aggregator(AggConfig(backend="cuda", chunk_elems=1024)).allreduce_tree(tree), want)
+    _same_bits(Aggregator(AggConfig(backend="cuda", chunk_elems=1024,
+                                    bucket_bytes=8192)).allreduce_tree(tree), want)
+    seq = Aggregator(AggConfig(strategy="fpisa_seq", backend="torch")).allreduce_tree(tree)
+    before = ops.accum.launches
+    got = Aggregator(AggConfig(strategy="fpisa_seq", backend="cuda",
+                               bucket_bytes=8192)).allreduce_tree(tree)
+    assert ops.accum.launches > before
+    _same_bits(got, seq)
+
+
+@pytest.mark.parametrize("pod_wire", [32, 16, 8])
+def test_hierarchical_cuda_equals_per_leaf_plain(dev, pod_wire, tmp_path):
+    """Over a (pod, data) pair of one-rank NCCL groups: hierarchical per
+    leaf and bucketed (striped) on the cuda backend equal the flat plain
+    aggregation with the same pod-wire shift, bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.runtime.elastic import make_groups
+
+    assert not dist.is_initialized()
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg", rank=0, world_size=1)
+    try:
+        pair = make_groups(1)
+        tree = _tree(dev)
+        base = dict(pod_wire_bits=pod_wire)
+        want = Aggregator(AggConfig(backend="torch", **base), pair).allreduce_tree(tree)
+        for bucket_bytes in (0, 8192):
+            got = Aggregator(AggConfig(backend="cuda", bucket_bytes=bucket_bytes, **base),
+                             pair).allreduce_tree(tree)
+            _same_bits(got, want)
+        if pod_wire == 32:  # a pod wire of 32 bits adds no shift: the flat result
+            _same_bits(want, Aggregator(AggConfig(backend="torch")).allreduce_tree(tree))
+    finally:
+        dist.destroy_process_group()

@@ -66,4 +66,8 @@ def test_no_fallback_to_plain_versions_in_exception_handlers(path):
 def test_guard_sees_the_whole_port():
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     assert {"src/repro_torch/kernels/ops.py", "src/repro_torch/core/allreduce.py",
+            "src/repro_torch/core/bucketer.py", "src/repro_torch/runtime/elastic.py",
+            "src/repro_torch/trace/tracer.py", "src/repro_torch/trace/export.py",
+            "src/repro_torch/trace/cli.py", "src/repro_torch/autotune/costmodel.py",
+            "src/repro_torch/autotune/search.py", "src/repro_torch/autotune/profile.py",
             "chip_smoke.py"} <= names

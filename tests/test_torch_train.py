@@ -15,9 +15,15 @@ repro_torch.interop.params_from_jax).
   against the reference's step with ``fpisa_seq``, same tolerances.
 * When the reference's gradients are fed into both aggregators, the
   aggregated gradients are BIT-EXACT (integer views).
+* ``accum_steps=2`` (two microbatches, float32 gradient accumulation)
+  against the reference's step with ``accum_steps=2``, same tolerances.
+* Bucketed aggregation in the train step: the aggregated gradients, and so
+  the losses and weights of 3 steps, equal the per-leaf step's bit for bit;
+  the reference's gradients bucketed equal the reference's aggregation.
 * The CLI, ``python -m repro_torch.launch.train --device cpu --smoke``,
   runs and prints its loss lines, with ``--agg fpisa``, ``fpisa_seq`` and
-  ``switch_emu``.
+  ``switch_emu``, and with ``--bucket-bytes auto --trace-out``, whose file
+  ``repro.trace.read_jsonl`` reads.
 """
 import os
 import re
@@ -54,9 +60,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH, STEPS, BATCH, SEQ = "qwen1.5-0.5b", 3, 4, 64
 
 
-def _jax_steps(model, params, mesh, agg, opt_cfg, loader):
+def _jax_steps(model, params, mesh, agg, opt_cfg, loader, accum_steps=1):
     """STEPS reference steps from ``params``: (losses, grad norms)."""
-    step = jax.jit(jax_make_train_step(model, mesh, agg, opt_cfg, BATCH))
+    step = jax.jit(jax_make_train_step(model, mesh, agg, opt_cfg, BATCH,
+                                       accum_steps=accum_steps))
     opt_state = jax_opt.init(params, opt_cfg)
     losses, gnorms = [], []
     for i in range(STEPS):
@@ -90,7 +97,8 @@ def reference():
 
     losses, gnorms = _jax_steps(model, params, mesh, agg, opt_cfg, loader)
     seq = _jax_steps(model, params, mesh, JaxAggConfig(strategy="fpisa_seq"), opt_cfg, loader)
-    return {"init": init, "losses": losses, "gnorms": gnorms, "seq": seq,
+    accum = _jax_steps(model, params, mesh, agg, opt_cfg, loader, accum_steps=2)
+    return {"init": init, "losses": losses, "gnorms": gnorms, "seq": seq, "accum": accum,
             "grads": jax.tree.map(np.asarray, grads),
             "agg_grads": jax.tree.map(np.asarray, agg_grads)}
 
@@ -113,11 +121,12 @@ def test_weights_carry_across_in_the_reference_layout(reference):
     assert len(ref_paths) == 14
 
 
-def _port_steps(reference, strategy):
+def _port_steps(reference, strategy, model=None, **step_kw):
     cfg = get_smoke_config(ARCH)
-    model = _port_model(reference)
+    model = model or _port_model(reference)
     opt_cfg = optimizers.OptConfig(name=cfg.optimizer, lr=cfg.learning_rate)
-    step = make_train_step(model, AggConfig(strategy=strategy), opt_cfg, BATCH)
+    agg = AggConfig(strategy=strategy, bucket_bytes=step_kw.pop("bucket_bytes", 0))
+    step = make_train_step(model, agg, opt_cfg, BATCH, **step_kw)
     opt_state = optimizers.init(list(model.parameters()), opt_cfg)
     loader = ShardedLoader(SyntheticCorpus(cfg.vocab_size, 0), BATCH, SEQ)
     losses, gnorms = [], []
@@ -148,6 +157,46 @@ def test_fpisa_seq_loss_tracks_the_reference(reference):
     assert losses[-1] < losses[0]
 
 
+def test_accum_steps_loss_tracks_the_reference(reference):
+    """Two microbatches of 2, float32 accumulation, against the reference's
+    step with accum_steps=2; the tolerances of the fpisa case."""
+    losses, gnorms = _port_steps(reference, "fpisa", accum_steps=2)
+    ref_losses, ref_gnorms = reference["accum"]
+    np.testing.assert_allclose(losses[0], ref_losses[0], rtol=2e-6)
+    np.testing.assert_allclose(losses, ref_losses, rtol=2e-5)
+    np.testing.assert_allclose(gnorms, ref_gnorms, rtol=2e-5)
+    assert losses[-1] < losses[0]
+    with pytest.raises(ValueError, match="accum_steps=3"):
+        _port_steps(reference, "fpisa", accum_steps=3)
+
+
+@pytest.mark.parametrize("strategy", ["fpisa", "fpisa_seq"])
+def test_bucketed_train_step_equals_per_leaf(reference, strategy, monkeypatch):
+    """The step's aggregated gradients are the per-leaf step's, bit for bit,
+    so 3 steps end on the same losses, grad norms and weights."""
+    from repro_torch.core import agg as tagg
+
+    seen = {}
+    real = tagg.Aggregator.allreduce_tree
+
+    def keep(self, tree):
+        out = real(self, tree)
+        seen.setdefault(self.cfg.bucket_bytes, []).append(
+            {k: v.clone() for k, v in out.items()})
+        return out
+
+    monkeypatch.setattr(tagg.Aggregator, "allreduce_tree", keep)
+    models = {bb: _port_model(reference) for bb in (0, 4096)}
+    runs = {bb: _port_steps(reference, strategy, model=m, bucket_bytes=bb)
+            for bb, m in models.items()}
+    assert runs[0] == runs[4096]
+    for a, b in zip(seen[0], seen[4096]):
+        for k in a:
+            assert torch.equal(a[k].view(torch.int32), b[k].view(torch.int32)), k
+    for p, q in zip(models[0].parameters(), models[4096].parameters()):
+        assert torch.equal(p, q)
+
+
 def test_port_gradients_match_the_reference(reference):
     """Same weights, same tokens: the port's autograd gradients agree with
     jax.grad to float32 rounding (stated: 1e-5 of each leaf's largest
@@ -174,21 +223,25 @@ def test_aggregated_reference_gradients_bit_exact(reference, backend_path, monke
 
         monkeypatch.setattr(allreduce, "resolve_backend", lambda backend, device: "cuda")
     tree = params_from_jax(reference["grads"])
-    out = Aggregator(AggConfig(strategy="fpisa", backend="auto")).allreduce_tree(tree)
-    got = jax.tree.leaves(jax.tree.map(lambda t: t.numpy(), out))
     want = jax.tree.leaves(reference["agg_grads"])
-    assert len(got) == len(want) == 14
-    for g, w in zip(got, want):
-        assert g.shape == w.shape
-        np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32))
+    for bucket_bytes in (0, 4096, 1 << 20):  # per leaf, then bucketed
+        cfg = AggConfig(strategy="fpisa", backend="auto", bucket_bytes=bucket_bytes)
+        out = Aggregator(cfg).allreduce_tree(tree)
+        got = jax.tree.leaves(jax.tree.map(lambda t: t.numpy(), out))
+        assert len(got) == len(want) == 14
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32))
 
 
-def _run_cli(agg):
+def _run_cli(agg, *extra):
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src") + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
+    env.pop("REPRO_AUTOTUNE_TRACE", None)
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu", "--arch", ARCH,
-         "--smoke", "--steps", "3", "--global-batch", "4", "--seq-len", "64", "--agg", agg],
+         "--smoke", "--steps", "3", "--global-batch", "4", "--seq-len", "64", "--agg", agg,
+         *extra],
         capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
     assert res.returncode == 0, res.stderr[-3000:]
     lines = re.findall(r"\[train\] step +(\d+) loss ([\d.]+) gnorm ([\d.]+) [\d,]+ tok/s",
@@ -208,10 +261,25 @@ def test_cli_runs_switch_strategies_on_cpu():
     assert _run_cli("switch_emu") == _run_cli("fpisa_seq")
 
 
+def test_cli_bucketed_auto_traced_run(tmp_path):
+    """--bucket-bytes auto (no autotune trace: the warned fallback) with
+    --trace-out: the same losses as per leaf, and a trace file the
+    reference's reader takes, holding the bucketer's phase spans."""
+    from repro import trace as jtrace
+
+    path = tmp_path / "t.jsonl"
+    assert _run_cli("fpisa", "--bucket-bytes", "auto", "--trace-out", str(path)) \
+        == _run_cli("fpisa", "--agg-chunk", "512")
+    _, spans = jtrace.read_jsonl(path)
+    names = {s["name"] for s in spans}
+    assert {"bucketer.encode", "bucketer.collective", "bucketer.finish",
+            "agg.allreduce_tree"} <= names
+    assert all(s["synced"] for s in spans if s["name"].startswith("bucketer."))
+
+
 def test_cli_refuses_unported_flags():
     from repro_torch.launch.train import main
 
-    for extra in (["--ckpt-dir", "x"], ["--trace"], ["--fault-plan", "kill:1@2"],
-                  ["--bucket-bytes", "4096"]):
+    for extra in (["--ckpt-dir", "x"], ["--fault-plan", "kill:1@2"], ["--num-hosts", "2"]):
         with pytest.raises(SystemExit):
             main(["--device", "cpu", "--arch", ARCH, "--smoke", "--steps", "1", *extra])
