@@ -75,6 +75,28 @@ bucketed ``fpisa_seq`` aggregation of the trained gradients bit-equal to
 per-leaf; the bucketed step's breakdown against the per-leaf one and the
 traced encode / collective / finish sums.
 
+Then, in the same group, the logical-worker path (``stacked_path``): W = 4
+logical workers on the one rank (k = 4, 2 sequences each), 3 full-width
+steps through ``make_train_step(logical_workers=4)`` with stacked ``fpisa``
+(K1 and K2 once per leaf per step, counts zeroed just before and read just
+after; K1 over the 4 workers' rows) and 3 with stacked ``fpisa_seq`` (K6
+once per leaf per step at W = 4); on the trained per-worker gradients the
+cuda and plain stacked aggregations give the same bits, and bucketed
+stacked ``fpisa`` (32 MiB) equals per-leaf stacked; the stacked step's
+breakdown; ``[determinism]``: which gradient leaves and which ops alone
+repeat their bits on the card with and without deterministic algorithms
+(``runtime.elastic.reproducible``), and the forward+backward time of each
+mode; ``[ckpt]``: checkpointed resume through ``train_loop(ckpt_dir=)``
+(2 steps with a bundle after step 1, a resume to step 3) bit-equal in loss,
+parameters and moments to an uninterrupted run, in the default mode, then
+one bundle saved and restored on its own (bytes, seconds) and the directory
+removed (the phase fails if the disk cannot hold two bundles); K1, K2 and
+K6 timed at the stacked shapes. In the ``kernels`` line, ``launches`` is a
+kernel's launches summed over every path above that ran it (main,
+``fpisa_seq``, bucketed, stacked ``fpisa``, stacked ``fpisa_seq``, the
+two-pass pipeline) and ``launches_by_path`` names each path's count, every
+path's counts zeroed just before it and read just after.
+
 The line before the last is ``{"kernels": [...]}`` with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the rest of the repository beside it, the script exits
@@ -82,6 +104,7 @@ with code 2 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -119,6 +142,9 @@ EMBED_ROWS = 607744           # the embedding gradient: 151936 x 1024 / 256
 FMTS = ("fp32", "fp16", "bf16")
 STEPS, GLOBAL_BATCH, SEQ_LEN = 3, 8, 512
 ACCUM_WORKERS = (1, 2, 4, 8)
+LOGICAL_WORKERS = 4           # the stacked phase: W = 4 logical workers on one rank
+KERNEL_WRAPPER = {"fused_encode_align": "encode_align", "fused_decode": "decode_fused",
+                  "fpisa_accum": "accum"}
 
 
 def accum_ops_per_elem(workers: int) -> int:
@@ -598,24 +624,412 @@ def bucketed_path(torch, dev, model, tmpdir):
         f"buckets; untraced {parts[bucket_bytes]['aggregation']:.2f} ms (CUDA events), "
         f"per-leaf untraced {parts[0]['aggregation']:.2f} ms")
     for bb in (0, bucket_bytes):
-        diagnose_aggregation(torch, Aggregator(AggConfig(bucket_bytes=bb)), grads,
-                             f"buckets of {bb} bytes" if bb else "per-leaf")
+        aggregator = Aggregator(AggConfig(bucket_bytes=bb))
+        diagnose(torch, lambda: aggregator.allreduce_tree(grads),
+                 f"buckets of {bb} bytes" if bb else "per-leaf")
     return launches
 
 
-def diagnose_aggregation(torch, aggregator, grads, what):
-    """Where an untraced aggregation of the gradients spends its time: the
-    host's issue time (the host clock around the call, no synchronize)
-    against its CUDA-event time, median of 5; the caching allocator's new
-    segments (cudaMalloc) over those 5 runs; and, from ``torch.profiler``
-    over one more run, the device's kernel time by name and the calls to
-    cudaMalloc / cudaFree. Issue time near the event time means the host
-    sets the pace and the card waits."""
+def train_stacked(torch, dev, strategy, kernels):
+    """3 full-width logical-worker steps (W = 4, all on this rank: k = 4,
+    2 sequences each) through ``make_train_step(logical_workers=4)`` with
+    ``strategy`` on the auto backend, the launch counts of ``kernels``
+    zeroed just before and read just after. Returns (launches, model,
+    optimizer state, losses, peak GiB)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.agg import AggConfig
+    from repro_torch.data.pipeline import ShardedLoader, SyntheticCorpus
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build
+    from repro_torch.optim import optimizers
+    from repro_torch.train.step import make_train_step
+
+    cfg = get_config("qwen1.5-0.5b")
+    model = build(cfg, device=dev, seed=0)
+    opt_cfg = optimizers.OptConfig(name=cfg.optimizer, lr=cfg.learning_rate)
+    opt_state = optimizers.init(list(model.parameters()), opt_cfg)
+    step = make_train_step(model, AggConfig(strategy=strategy, backend="auto"), opt_cfg,
+                           GLOBAL_BATCH, logical_workers=LOGICAL_WORKERS)
+    loader = ShardedLoader(SyntheticCorpus(cfg.vocab_size, 0), GLOBAL_BATCH, SEQ_LEN)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fns = [getattr(ops, KERNEL_WRAPPER[k]) for k in kernels]
+    for fn in fns:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(STEPS):
+        tokens = torch.from_numpy(loader.batch_at(i)["tokens"]).to(dev)
+        opt_state, metrics = step(opt_state, tokens)
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in zip(kernels, fns)}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    leaves = len(list(model.parameters()))
+    log(f"[stacked] {strategy}: {STEPS} steps of {cfg.name} with W = {LOGICAL_WORKERS} "
+        f"logical workers on one rank (k = {LOGICAL_WORKERS}, "
+        f"{GLOBAL_BATCH // LOGICAL_WORKERS} sequences each) in "
+        f"{time.perf_counter() - t0:.2f} s; losses {losses}; peak memory {peak:.2f} GiB")
+    log(json.dumps({f"stacked_{strategy}_launches_per_step":
+                    {k: v / STEPS for k, v in launches.items()}, "gradient_leaves": leaves}))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite stacked {strategy} loss: {losses}")
+    for k, v in launches.items():
+        if v != leaves * STEPS:
+            raise AssertionError(f"stacked {strategy}: {k} launched {v} times in {STEPS} "
+                                 f"steps, expected {leaves} per step (one per leaf)")
+    if not all(torch.isfinite(p).all() for p in model.parameters()):
+        raise AssertionError(f"non-finite parameter after stacked {strategy} training")
+    return launches, model, opt_state, losses, peak
+
+
+def worker_grads(torch, dev, model):
+    """The trained model's per-worker gradients on the next step's tokens,
+    each worker's in its row of a (k, ...) stack."""
+    from repro_torch.data.pipeline import ShardedLoader, SyntheticCorpus
+
+    tokens = torch.from_numpy(ShardedLoader(SyntheticCorpus(model.cfg.vocab_size, 0),
+                                            GLOBAL_BATCH, SEQ_LEN).batch_at(STEPS)["tokens"])
+    params = list(model.parameters())
+    stacks = [torch.empty((LOGICAL_WORKERS, *p.shape), dtype=p.dtype, device=dev)
+              for p in params]
+    for j, mb in enumerate(tokens.to(dev).reshape(LOGICAL_WORKERS, -1, SEQ_LEN)):
+        for s, g in zip(stacks, torch.autograd.grad(model.loss(mb), params)):
+            s[j].copy_(g)
+    return stacks
+
+
+def same_bits(torch, got, want, what):
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not (g.dtype == w.dtype and g.shape == w.shape
+                and torch.equal(g.view(torch.int16), w.view(torch.int16))
+                and torch.isfinite(g).all()):
+            raise AssertionError(f"{what}: gradient leaf {i} differs")
+
+
+def stacked_breakdown(torch, dev, model, opt_state, strategy):
+    """One logical-worker step by layer on CUDA events (median of 5 after
+    one warm-up): the k forward+backward passes into the (k, ...) stacks,
+    the stacked aggregation, the AdamW update."""
+    from repro_torch.core.agg import AggConfig, Aggregator
+    from repro_torch.data.pipeline import ShardedLoader, SyntheticCorpus
+    from repro_torch.optim import optimizers
+
+    cfg = model.cfg
+    tokens = torch.from_numpy(ShardedLoader(SyntheticCorpus(cfg.vocab_size, 0), GLOBAL_BATCH,
+                                            SEQ_LEN).batch_at(STEPS)["tokens"]).to(dev)
+    params = list(model.parameters())
+    opt_cfg = optimizers.OptConfig(name=cfg.optimizer, lr=cfg.learning_rate)
+    aggregator = Aggregator(AggConfig(strategy=strategy), stacked=True)
+    stacks = [torch.empty((LOGICAL_WORKERS, *p.shape), dtype=p.dtype, device=dev)
+              for p in params]
+    held = {}
+
+    def grads():
+        for j, mb in enumerate(tokens.reshape(LOGICAL_WORKERS, -1, SEQ_LEN)):
+            for s, g in zip(stacks, torch.autograd.grad(model.loss(mb), params)):
+                s[j].copy_(g)
+
+    def aggregate():
+        held["a"] = aggregator.allreduce_tree(stacks)
+
+    def update():
+        optimizers.update(params, held["a"], opt_state, opt_cfg)
+
+    parts = {name: median_ms(torch, fn, reps=5, warmup=1)
+             for name, fn in ((f"{LOGICAL_WORKERS} x forward+backward", grads),
+                              ("stacked aggregation", aggregate), ("optimizer", update))}
+    total = sum(parts.values())
+    log(f"[breakdown] stacked {strategy}, W = {LOGICAL_WORKERS} on one rank: one step, "
+        + ", ".join(f"{k} {v:.2f} ms ({100 * v / total:.1f}%)" for k, v in parts.items())
+        + f"; sum {total:.2f} ms = {GLOBAL_BATCH * SEQ_LEN / total * 1e3:,.0f} tok/s")
+    return parts
+
+
+def diagnose_passes(torch, dev, model):
+    """A forward+backward of all the step's sequences against one of a
+    logical worker's share, in the same state (CUDA events, median of 5),
+    then ``diagnose`` of each: where the k passes of the stacked step spend
+    their time."""
+    from repro_torch.data.pipeline import ShardedLoader, SyntheticCorpus
+
+    tokens = torch.from_numpy(ShardedLoader(SyntheticCorpus(model.cfg.vocab_size, 0),
+                                            GLOBAL_BATCH, SEQ_LEN).batch_at(STEPS)["tokens"]).to(dev)
+    params = list(model.parameters())
+    share = GLOBAL_BATCH // LOGICAL_WORKERS
+    runs = {n: (lambda t=tokens[:n]: torch.autograd.grad(model.loss(t), params))
+            for n in (GLOBAL_BATCH, share)}
+    times = {n: median_ms(torch, fn, reps=5, warmup=1) for n, fn in runs.items()}
+    log(f"[diagnose] forward+backward, same weights: {GLOBAL_BATCH} sequences "
+        f"{times[GLOBAL_BATCH]:.2f} ms, {share} sequences {times[share]:.2f} ms "
+        f"({LOGICAL_WORKERS} x = {LOGICAL_WORKERS * times[share]:.2f} ms)")
+    for n, fn in runs.items():
+        diagnose(torch, fn, f"forward+backward of {n} sequences")
+
+
+def determinism(torch, dev, model):
+    """Which ops of the full-width backward repeat their bits on the card,
+    with and without ``runtime.elastic.reproducible`` (deterministic
+    algorithms): the whole backward run 3 more times against a first run
+    (the leaves that differ), each candidate op alone, and what the
+    deterministic mode costs a forward+backward (CUDA events)."""
+    import torch.nn.functional as F
+
+    from repro_torch.data.pipeline import ShardedLoader, SyntheticCorpus
+    from repro_torch.runtime.elastic import reproducible
+
+    tokens = torch.from_numpy(ShardedLoader(SyntheticCorpus(model.cfg.vocab_size, 0),
+                                            GLOBAL_BATCH, SEQ_LEN).batch_at(0)["tokens"]).to(dev)
+    names, params = zip(*model.named_parameters())
+
+    def grads():
+        return [g.clone() for g in torch.autograd.grad(model.loss(tokens), params)]
+
+    def differing(runs):
+        return sorted({n for r in runs[1:] for n, a, b in zip(names, runs[0], r)
+                       if not torch.equal(a.view(torch.int16), b.view(torch.int16))})
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    d, v = model.cfg.d_model, model.cfg.vocab_size
+    tok, wq = model.embed["tok"], model.layers["attn"]["wq"]
+    x = torch.randn(GLOBAL_BATCH, SEQ_LEN, d, generator=gen, device=dev).to(
+        tok.dtype).requires_grad_()
+    up = torch.randn(GLOBAL_BATCH, SEQ_LEN, d, generator=gen, device=dev).to(tok.dtype)
+    up_v = torch.randn(GLOBAL_BATCH, SEQ_LEN, v, generator=gen, device=dev).to(tok.dtype)
+    logits = torch.randn(GLOBAL_BATCH, SEQ_LEN - 1, v, generator=gen,
+                         device=dev).requires_grad_()
+    ops_alone = {
+        "embedding backward (F.embedding)":
+            (lambda: (F.embedding(tokens, tok) * up).float().sum(), [tok]),
+        "tied head matmul backward (x @ tok.T)":
+            (lambda: ((x @ tok.T) * up_v).float().sum(), [x, tok]),
+        "q projection matmul backward":
+            (lambda: ((x @ wq[0].reshape(d, -1)) * up).float().sum(), [x, wq]),
+        "log_softmax + gather backward (float32 logits)":
+            (lambda: -(torch.log_softmax(logits, -1)
+                       .gather(-1, tokens[:, 1:, None].long())).mean(), [logits]),
+    }
+
+    def alone(fn, inputs):
+        runs = [[g.clone() for g in torch.autograd.grad(fn(), inputs)] for _ in range(4)]
+        return any(not torch.equal(a.view(torch.int16), b.view(torch.int16))
+                   for r in runs[1:] for a, b in zip(runs[0], r))
+
+    def mode(name):
+        return reproducible(dev) if name == "reproducible" else contextlib.nullcontext()
+
+    report = {}
+    for name in ("default", "reproducible"):
+        with mode(name):
+            report[name] = {
+                "backward_leaves_differing": differing([grads() for _ in range(4)]),
+                "ops_differing": [k for k, (fn, inp) in ops_alone.items() if alone(fn, inp)],
+                "forward_backward_ms": []}
+    for name in ("default", "reproducible") * 2:  # in turns: drift shows
+        with mode(name):
+            report[name]["forward_backward_ms"].append(median_ms(
+                torch, lambda: torch.autograd.grad(model.loss(tokens), params),
+                reps=5, warmup=1))
+    log("[determinism] " + json.dumps(report))
+    if report["reproducible"]["backward_leaves_differing"]:
+        raise AssertionError("the backward does not repeat its bits under "
+                             f"reproducible(): {report['reproducible']}")
+    return report
+
+
+def checkpoint_resume(torch, dev, tmpdir):
+    """Checkpointed resume at full width through ``train_loop(ckpt_dir=)``
+    (flat fpisa): 2 steps with a bundle after step 1, a resume that runs
+    step 2, and an uninterrupted 3-step run, all in the default mode
+    (``train_loop`` does not turn on deterministic algorithms). The resumed
+    step's loss and every parameter and moment must equal the
+    uninterrupted run's bits.
+    Then one bundle is saved and restored on its own, timed, and the
+    directory removed."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.agg import AggConfig
+    from repro_torch.launch.train import train_loop
+    from repro_torch.runtime import checkpoint as ckpt
+
+    cfg = get_config("qwen1.5-0.5b")
+    d = tmpdir / "ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    # bf16 params + fp32 m and v: 2 + 4 + 4 bytes per parameter, two bundles at most
+    need = 2 * 10 * 463_987_712 + (1 << 30)
+    free = shutil.disk_usage(d).free
+    if free < need:
+        raise AssertionError(f"checkpoint phase: {free / 1e9:.1f} GB free under {d}, needs "
+                             f"{need / 1e9:.1f} GB for two full-width bundles")
+    kw = dict(steps=3, global_batch=GLOBAL_BATCH, seq_len=SEQ_LEN, device=dev, log_every=1,
+              agg=AggConfig(strategy="fpisa", backend="auto"))
+    try:
+        t0 = time.perf_counter()
+        train_loop(cfg, **{**kw, "steps": 2}, ckpt_dir=str(d), ckpt_every=1)
+        first = time.perf_counter() - t0
+        if ckpt.latest_step(str(d)) != 1:
+            raise AssertionError(f"expected a bundle at step 1, found "
+                                 f"{ckpt.committed_steps(str(d))}")
+        t0 = time.perf_counter()
+        resumed, opt_r, hist_r = train_loop(cfg, **kw, ckpt_dir=str(d), ckpt_every=1)
+        second = time.perf_counter() - t0
+        whole, opt_w, hist_w = train_loop(cfg, **kw)
+        if len(hist_r) != 1 or hist_r[0] != hist_w[2]:
+            raise AssertionError(f"resumed step-2 loss {hist_r} != uninterrupted {hist_w}")
+        for what, a, b in (("parameter", list(resumed.parameters()), list(whole.parameters())),
+                           ("moment", opt_r.m + opt_r.v, opt_w.m + opt_w.v)):
+            for i, (x, y) in enumerate(zip(a, b)):
+                if not torch.equal(x.view(torch.int16), y.view(torch.int16)):
+                    raise AssertionError(f"resumed {what} {i} differs from the uninterrupted run")
+        del whole, opt_w
+        log(f"[ckpt] resumed step-2 loss {hist_r[0]!r} bit-equal to the uninterrupted run's "
+            f"{hist_w[2]!r} ({hist_w}); all {len(list(resumed.parameters()))} parameters and "
+            f"{len(opt_r.m + opt_r.v)} moments bit-equal; run to step 1 with its bundle "
+            f"{first:.2f} s, resume to step 2 {second:.2f} s (init included)")
+        shutil.rmtree(d)
+        d.mkdir()
+        trees = ckpt.state_trees(resumed, opt_r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_bundle(str(d), 3, trees)
+        save_s = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in d.rglob("*") if f.is_file())
+        t0 = time.perf_counter()
+        restored, _ = ckpt.restore_bundle(str(d), 3, trees)
+        opt_back = ckpt.load_state(resumed, opt_r, restored)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if opt_back.step != 3:
+            raise AssertionError(f"restored optimizer step {opt_back.step}, expected 3")
+        log(f"[ckpt] one full-width bundle: {size} bytes ({size / 1e9:.3f} GB: bf16 params, "
+            f"fp32 m and v), save_bundle {save_s:.2f} s ({size / save_s / 1e9:.2f} GB/s), "
+            f"restore_bundle + load_state {restore_s:.2f} s ({size / restore_s / 1e9:.2f} GB/s), "
+            f"{free / 1e9:.1f} GB were free")
+        return {"bundle_bytes": size, "save_s": save_s, "restore_s": restore_s}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def stacked_timing(torch, dev, leaf_sizes):
+    """K1, K2 and K6 at the stacked step's shapes: K1 once per leaf over the
+    k = 4 workers' (4 R, 256) rows, K2 once per leaf on the summed (R, 256)
+    plane, K6 once per leaf over the (4, 1, N) stack; CUDA events against
+    the bound, as in ``timing``."""
+    from repro_torch.core import fpisa
+    from repro_torch.kernels import ops, ref
+
+    fmt = fpisa.FP32
+    k = LOGICAL_WORKERS
+    workers = [step_leaves(torch, dev, leaf_sizes, seed=100 * j) for j in range(k)]
+    xs = [torch.cat(per_leaf) for per_leaf in zip(*workers)]  # (k R, 256) per leaf
+    del workers
+    rows = sum(x.shape[0] for x in xs)
+    elems = rows * 256
+    out = {"fused_encode_align": time_kernel(
+        torch, "fused_encode_align", lambda: [ops.encode_align(x, "fp32") for x in xs],
+        lambda: [ref.fused_encode_align_ref(x, fmt) for x in xs],
+        elems * 8 + rows * 4, elems * OPS_PER_ELEM["fused_encode_align"],
+        copy_ms(torch, dev, [x.numel() * 8 for x in xs]),
+        f"stacked step, k = {k}: {len(xs)} leaves, {rows} rows x 256 fp32", plain_reps=5)}
+    planes = [ops.encode_align(x[:x.shape[0] // k], "fp32") for x in xs]
+    del xs
+    rows //= k
+    elems //= k
+    out["fused_decode"] = time_kernel(
+        torch, "fused_decode", lambda: [ops.decode_fused(m, b, 2, "fp32") for m, b in planes],
+        lambda: [ref.fused_decode_ref(m, b, 2, fmt) for m, b in planes],
+        elems * 8 + rows * 4, elems * OPS_PER_ELEM["fused_decode"],
+        copy_ms(torch, dev, [m.numel() * 8 for m, _ in planes]),
+        f"stacked step: {len(planes)} leaves, {rows} rows x 256 (the summed plane)")
+    del planes
+    workers = [step_leaves(torch, dev, leaf_sizes, seed=100 * j) for j in range(k)]
+    stacks = [torch.stack(per_leaf).reshape(k, 1, -1) for per_leaf in zip(*workers)]
+    del workers
+    n = sum(s.shape[-1] for s in stacks)
+    out["fpisa_accum"] = time_kernel(
+        torch, "fpisa_accum", lambda: [ops.accum(s, "fpisa_a", "fp32") for s in stacks],
+        lambda: [ref.accum_ref(s, "fpisa_a", fmt) for s in stacks],
+        n * (k + 1) * 4, n * accum_ops_per_elem(k),
+        copy_ms(torch, dev, [s.numel() // k * (k + 1) * 4 for s in stacks]),
+        f"stacked fpisa_seq step, W = {k} over {len(stacks)} leaves, {n} elements", plain_reps=3)
+    return out
+
+
+def stacked_path(torch, dev, tmpdir, leaf_sizes):
+    """The fourth slice's path, in the one-rank NCCL group: logical-worker
+    training with stacked fpisa (K1/K2 once per leaf per step over the
+    k workers' rows) and stacked fpisa_seq (K6 at W = 4), each with cuda ==
+    plain bits on the trained per-worker gradients; bucketed stacked ==
+    per-leaf stacked; the step's breakdown; the card's determinism with and
+    without deterministic algorithms; checkpointed resume at full width;
+    and the kernels at the stacked shapes. Returns ({path: launches},
+    times)."""
+    from repro_torch.core.agg import AggConfig, Aggregator
+    from repro_torch.core.bucketer import make_plan
+    from repro_torch.kernels import ops
+
+    launches, model, opt_state, _, _ = train_stacked(
+        torch, dev, "fpisa", ("fused_encode_align", "fused_decode"))
+    stacks = worker_grads(torch, dev, model)
+    want = Aggregator(AggConfig(backend="cuda"), stacked=True).allreduce_tree(stacks)
+    same_bits(torch, Aggregator(AggConfig(backend="torch"), stacked=True)
+              .allreduce_tree(stacks), want, "stacked fpisa, plain vs cuda")
+    bucket_bytes = 32 << 20
+    buckets = len(make_plan([torch.empty(p.shape, dtype=p.dtype, device="meta")
+                             for p in model.parameters()], block=256,
+                            bucket_bytes=bucket_bytes).buckets)
+    before = (ops.encode_align.launches, ops.decode_fused.launches)
+    same_bits(torch, Aggregator(AggConfig(backend="cuda", bucket_bytes=bucket_bytes),
+                                stacked=True).allreduce_tree(stacks), want,
+              "bucketed stacked fpisa vs per-leaf stacked")
+    if (ops.encode_align.launches - before[0], ops.decode_fused.launches - before[1]) \
+            != (buckets, buckets):
+        raise AssertionError("bucketed stacked fpisa: not one K1/K2 launch per bucket")
+    log(f"[check] stacked fpisa, full-width per-worker gradients ({len(stacks)} leaves x "
+        f"k = {LOGICAL_WORKERS}): cuda bit-equal to plain; bucketed at {bucket_bytes} bytes "
+        f"({buckets} buckets, {buckets} K1/K2 launches) bit-equal to per-leaf stacked")
+    del stacks, want
+    stacked_breakdown(torch, dev, model, opt_state, "fpisa")
+    diagnose_passes(torch, dev, model)
+    determinism(torch, dev, model)
+    del model, opt_state
+    torch.cuda.empty_cache()
+
+    seq_launches, model, opt_state, _, _ = train_stacked(torch, dev, "fpisa_seq",
+                                                         ("fpisa_accum",))
+    stacks = worker_grads(torch, dev, model)
+    same_bits(torch, Aggregator(AggConfig(strategy="fpisa_seq", backend="torch"), stacked=True)
+              .allreduce_tree(stacks),
+              Aggregator(AggConfig(strategy="fpisa_seq", backend="cuda"), stacked=True)
+              .allreduce_tree(stacks), "stacked fpisa_seq, plain vs cuda")
+    log(f"[check] stacked fpisa_seq (K6 at W = {LOGICAL_WORKERS}), full-width per-worker "
+        f"gradients: cuda bit-equal to plain")
+    del stacks
+    stacked_breakdown(torch, dev, model, opt_state, "fpisa_seq")
+    del model, opt_state
+    torch.cuda.empty_cache()
+
+    checkpoint_resume(torch, dev, tmpdir)
+    torch.cuda.empty_cache()
+    times = stacked_timing(torch, dev, leaf_sizes)
+    launches = {"stacked_fpisa": launches, "stacked_fpisa_seq": seq_launches}
+    log(json.dumps({"stacked_launches": launches, "stacked_times": times}))
+    return launches, times
+
+
+def diagnose(torch, run, what):
+    """Where an untraced ``run()`` (an aggregation of the gradients, a
+    forward+backward) spends its time: the host's issue time (the host
+    clock around the call, no synchronize) against its CUDA-event time,
+    median of 5; the caching allocator's new segments (cudaMalloc) over
+    those 5 runs; and, from ``torch.profiler`` over one more run, the
+    device's kernel time by name and the calls to cudaMalloc / cudaFree.
+    Issue time near the event time means the host sets the pace and the
+    card waits."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    def run():
-        aggregator.allreduce_tree(grads)
 
     run()
     torch.cuda.synchronize()
@@ -742,10 +1156,10 @@ def median_ms(torch, fn, reps=25, warmup=3):
     return statistics.median(times)
 
 
-def step_leaves(torch, dev, leaf_sizes):
+def step_leaves(torch, dev, leaf_sizes, seed=0):
     """The main path's gradient leaves as (R, 256) fp32 planes, finite."""
     rows = [-(-n // 256) for n in leaf_sizes]
-    xs = [sample(torch, (r, 256), "fp32", i, dev) for i, r in enumerate(rows)]
+    xs = [sample(torch, (r, 256), "fp32", seed + i, dev) for i, r in enumerate(rows)]
     return [torch.nan_to_num(x, posinf=1.0, neginf=-1.0) for x in xs]
 
 
@@ -947,22 +1361,26 @@ def main() -> int:
     dist.init_process_group("nccl", init_method=f"file://{rendezvous}", rank=0,
                             world_size=1)
     try:
-        launches, model, opt_state = train_main_path(torch, dev)
+        paths = {}  # path -> {kernel: launches}, each counted from zero over its run
+        paths["main"], model, opt_state = train_main_path(torch, dev)
         check_against_plain(torch, dev, model)
         step_breakdown(torch, dev, model, opt_state, "fpisa")
         leaf_sizes = [p.numel() for p in model.parameters()]
         del model, opt_state
         torch.cuda.empty_cache()
-        launches["fpisa_accum"], model, opt_state = train_seq_path(torch, dev)
+        seq_launches, model, opt_state = train_seq_path(torch, dev)
+        paths["fpisa_seq"] = {"fpisa_accum": seq_launches}
         check_grads_cuda_equals_plain(torch, dev, model, "fpisa_seq")
         step_breakdown(torch, dev, model, opt_state, "fpisa_seq")
         torch.cuda.empty_cache()
-        bucketed_path(torch, dev, model, tmpdir)
+        paths["bucketed"] = bucketed_path(torch, dev, model, tmpdir)
         del model, opt_state
         torch.cuda.empty_cache()
+        stacked_launches, stacked_times = stacked_path(torch, dev, tmpdir, leaf_sizes)
+        paths.update(stacked_launches)
+        torch.cuda.empty_cache()
         times = timing(torch, dev, leaf_sizes)
-        two_pass_launches, two_pass_times = two_pass_pipeline(torch, dev, leaf_sizes, par)
-        launches.update(two_pass_launches)
+        paths["two_pass"], two_pass_times = two_pass_pipeline(torch, dev, leaf_sizes, par)
         times.update(two_pass_times)
         torch.cuda.empty_cache()
         times["fpisa_accum"] = accum_timing(torch, dev, leaf_sizes, par)
@@ -983,8 +1401,13 @@ def main() -> int:
                 "fpisa_align": "src/repro/kernels/fpisa_encode.py:73",
                 "fpisa_decode": "src/repro/kernels/fpisa_decode.py:28",
                 "fpisa_accum": "src/repro/kernels/fpisa_accum.py:41"}
+    # launches: the sum over every path that ran the kernel; launches_by_path:
+    # each path's count, zeroed just before the path and read just after
+    by_path = {name: {path: n[name] for path, n in paths.items() if name in n}
+               for name in KERNELS}
     kernels = [{"name": name, "route": "cuda", "source": sources[name],
-                "replaces": replaces[name], "launches": launches[name],
+                "replaces": replaces[name],
+                "launches": sum(by_path[name].values()), "launches_by_path": by_path[name],
                 "max_abs_err": float(par.err[name]), "ms": times[name]["ms"],
                 "plain_ms": times[name]["plain_ms"], "bound_ms": times[name]["bound_ms"],
                 "bound_by": times[name]["bound_by"], "library_ms": None}

@@ -11,9 +11,11 @@
                           two-axis ``("pod", "data")`` layout
                           (``runtime/elastic.py::make_groups``);
                           ``agg.allreduce(x)`` and ``agg.allreduce_tree(tree)``.
-                          It owns chunked streaming, hierarchical routing and
-                          tree bucketing (``core/bucketer.py``). All
-                          capability checks happen at construction.
+                          It owns chunked streaming, hierarchical routing,
+                          logical-worker stacking (``stacked=True``: a leading
+                          worker axis, reduced with it) and tree bucketing
+                          (``core/bucketer.py``). All capability checks
+                          happen at construction.
 * :func:`register_strategy` — the registry; the built-in strategies
                           (``native``, ``switchml``, ``fpisa``,
                           ``fpisa_seq``, ``switch_emu``) live in
@@ -31,11 +33,11 @@ Backends (``AggConfig.backend``) choose where the FPISA encode/decode (and
 
 A group pair routes a strategy with a hierarchical variant (``fpisa``)
 through it; every other strategy reduces over both groups in turn (data,
-then pod), which is the flat reduction over the pair's ranks.
+then pod), which is the flat reduction over the pair's ranks. Stacked
+aggregation reduces a pair jointly (flat), as the reference does.
 
-Not ported yet, and refused with :class:`NotPortedError`: stacked
-(logical-worker) aggregation and the multi-tenant ``switch_shared``
-dataplane of ``switch_emu`` (ROADMAP.md).
+Not ported yet, and refused with :class:`NotPortedError`: the multi-tenant
+``switch_shared`` dataplane of ``switch_emu`` (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -225,14 +227,15 @@ def add_agg_args(parser: argparse.ArgumentParser, *,
 class StrategySpec:
     """One registered aggregation strategy with its capability flags.
 
-    ``fn`` takes ``(x, group, cfg)``; ``hierarchical_fn`` takes
-    ``(x, data_group, pod_group, cfg)``. The ``*_phases`` hooks are optional
-    split-phase pipeline factories consumed by ``core/bucketer.py`` for
-    double-buffered dispatch; a strategy without them streams through the
-    one-shot path with the same interleaving."""
+    ``fn`` / ``stacked_fn`` take ``(x, group, cfg)``; ``hierarchical_fn``
+    takes ``(x, data_group, pod_group, cfg)``. The ``*_phases`` hooks are
+    optional split-phase pipeline factories consumed by ``core/bucketer.py``
+    for double-buffered dispatch; a strategy without them streams through
+    the one-shot path with the same interleaving."""
 
     name: str
     fn: Callable
+    stacked_fn: Callable | None = None
     hierarchical_fn: Callable | None = None
     # capability flags (validated once, at Aggregator construction)
     supports_chunking: bool = True
@@ -248,20 +251,28 @@ class StrategySpec:
     # split-phase pipeline factories for the bucketer's double-buffering:
     #   flat_phases(group, cfg, backend)                        -> (enc, coll, fin)
     #   hier_phases(data_group, pod_group, cfg, backend, stripe) -> (enc, coll, fin)
+    #   stacked_phases(group, cfg, backend, k)                  -> (enc, coll, fin)
     flat_phases: Callable | None = None
     hier_phases: Callable | None = None
+    stacked_phases: Callable | None = None
     description: str = ""
+
+    @property
+    def supports_stacking(self) -> bool:
+        return self.stacked_fn is not None
 
 
 _REGISTRY: dict[str, StrategySpec] = {}
 
 
-def register_strategy(name: str, *, hierarchical: Callable | None = None,
+def register_strategy(name: str, *, stacked: Callable | None = None,
+                      hierarchical: Callable | None = None,
                       supports_chunking: bool = True, chunk_noop: bool = False,
                       validate: Callable | None = None,
                       stage_dtype: Callable | None = None,
                       flat_phases: Callable | None = None,
                       hier_phases: Callable | None = None,
+                      stacked_phases: Callable | None = None,
                       description: str = "", overwrite: bool = False):
     """Decorator registering ``fn(x, group, cfg)`` as strategy ``name`` with
     its capability flags and hooks (``StrategySpec``). Re-registering an
@@ -273,10 +284,11 @@ def register_strategy(name: str, *, hierarchical: Callable | None = None,
                 f"aggregation strategy {name!r} is already registered "
                 f"(pass overwrite=True to replace it)")
         _REGISTRY[name] = StrategySpec(
-            name=name, fn=fn, hierarchical_fn=hierarchical,
+            name=name, fn=fn, stacked_fn=stacked, hierarchical_fn=hierarchical,
             supports_chunking=supports_chunking, chunk_noop=chunk_noop,
             validate=validate, stage_dtype=stage_dtype,
             flat_phases=flat_phases, hier_phases=hier_phases,
+            stacked_phases=stacked_phases,
             description=description or (fn.__doc__ or "").split("\n")[0])
         return fn
 
@@ -389,6 +401,22 @@ def _dispatch(x: torch.Tensor, group, cfg: AggConfig) -> torch.Tensor:
     return spec.fn(x, group, cfg)
 
 
+def _dispatch_stacked(x: torch.Tensor, group, cfg: AggConfig) -> torch.Tensor:
+    """Stacked (leading logical-worker axis) dispatch."""
+    spec = get_strategy(cfg.strategy)
+    if x.dim() < 1:
+        raise ValueError("stacked aggregation needs a leading worker axis")
+    if cfg.chunk_elems:
+        raise NotImplementedError(
+            "chunk_elems is not supported with stacked (logical-worker) "
+            "aggregation; use bucket_bytes to bound transient memory instead")
+    if spec.stacked_fn is None:
+        raise ValueError(
+            f"strategy {cfg.strategy!r} does not support stacked "
+            f"(logical-worker) aggregation")
+    return spec.stacked_fn(x, group, cfg)
+
+
 def _chunked(x: torch.Tensor, group, cfg: AggConfig) -> torch.Tensor:
     """Stream the aggregation through fixed-size chunks, one at a time, so
     the integer planes of only one chunk are live. The last chunk is padded
@@ -440,7 +468,11 @@ class Aggregator:
 
     ``group`` is a ``torch.distributed`` process group, ``None``, or a pair
     ``(pod_group, data_group)`` in the reference's ``("pod", "data")`` axis
-    order. ``stacked=True`` (logical workers) is not ported yet."""
+    order. ``stacked=True`` selects logical-worker mode: every input carries
+    a leading worker axis of size k (this rank's k of the job's W = k x
+    world logical workers) and the reduction runs over that axis and the
+    group through the strategy's stacked variant, whose bits are the same
+    for every placement of the W workers (``core/allreduce.py``)."""
 
     def __init__(self, cfg: AggConfig, group=None, *, stacked: bool = False):
         if isinstance(group, list):
@@ -452,21 +484,35 @@ class Aggregator:
                 raise ValueError(
                     f"group must be a process group or a (pod_group, data_group) "
                     f"pair, got {len(group)} groups")
-        if stacked:
-            raise NotPortedError("stacked (logical-worker) aggregation")
         self.cfg = cfg
         self.group = group
+        self.stacked = bool(stacked)
         self.spec = get_strategy(cfg.strategy)
+        if self.stacked and not self.spec.supports_stacking:
+            capable = [s for s in available_strategies() if get_strategy(s).supports_stacking]
+            raise ValueError(
+                f"strategy {cfg.strategy!r} does not support stacked "
+                f"(logical-worker) aggregation; stacked-capable strategies: "
+                f"{', '.join(capable)}")
+        if self.stacked and cfg.chunk_elems:
+            raise ValueError(
+                "chunk_elems is not supported with stacked (logical-worker) "
+                "aggregation; use bucket_bytes to bound transient memory "
+                "instead")
         _check_config(cfg, self.spec)
 
     def allreduce(self, x: torch.Tensor) -> torch.Tensor:
         """Aggregate one tensor over the group (a new tensor; x is not
-        modified)."""
+        modified); with ``stacked``, over its leading logical-worker axis
+        too."""
         with _trace.span("agg.allreduce", strategy=self.spec.name,
-                         stacked=False) as sp:
+                         stacked=self.stacked) as sp:
             if sp:
                 sp.tag(backend=resolve_backend(self.cfg.backend, x.device))
-            out = _dispatch(x, self.group, self.cfg)
+            if self.stacked:
+                out = _dispatch_stacked(x, self.group, self.cfg)
+            else:
+                out = _dispatch(x, self.group, self.cfg)
             sp.sync(out)
         return out
 
@@ -479,14 +525,16 @@ class Aggregator:
         encode/decode launches paid per bucket instead of per leaf.
         Otherwise one leaf at a time."""
         with _trace.span("agg.allreduce_tree", strategy=self.spec.name,
-                         stacked=False, bucket_bytes=self.cfg.bucket_bytes) as sp:
+                         stacked=self.stacked, bucket_bytes=self.cfg.bucket_bytes) as sp:
             leaves, unflatten = tree_flatten(tree)
             if sp and leaves:
                 sp.tag(backend=resolve_backend(self.cfg.backend, leaves[0].device))
             if self.cfg.bucket_bytes:
                 from repro_torch.core import bucketer
 
-                out = bucketer.bucketed_allreduce_tree(tree, self.group, self.cfg)
+                tree_fn = (bucketer.bucketed_stacked_allreduce_tree if self.stacked
+                           else bucketer.bucketed_allreduce_tree)
+                out = tree_fn(tree, self.group, self.cfg)
             else:
                 out = unflatten([self.allreduce(leaf) for leaf in leaves])
             sp.sync(out)

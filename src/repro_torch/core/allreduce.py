@@ -48,8 +48,9 @@ The split-phase hooks at the end (``_fpisa_flat_phases``,
 collective is launched with ``async_op=True`` and ``finish`` waits on its
 work handle.
 
-Not ported yet: stacked (logical-worker) aggregation and the multi-tenant
-``switch_shared`` dataplane (ROADMAP.md).
+Stacked (logical-worker) variants (``stacked_*``) reduce a leading worker
+axis of k as well as the group (section doc below). Not ported yet: the
+multi-tenant ``switch_shared`` dataplane (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -355,23 +356,26 @@ def fpisa_allreduce_hierarchical(x: torch.Tensor, data_group, pod_group,
 # ---------------------------------------------------------------------------
 
 
+def _seq_sum(rows: torch.Tensor, cfg: AggConfig, backend: str) -> torch.Tensor:
+    """(W, N) float32 rows in worker order -> (N,) switch-arrival FPISA-A sum
+    in the format, worker 0 first: K6 over one (W, 1, N) row on the cuda
+    backend (float32 out, the format's value exactly), ``fpisa_sum_sequential``
+    on torch (the format's dtype): the same values."""
+    stacked = rows.to(fpisa.PACKED_DTYPE[cfg.fmt_name])
+    if backend == "cuda":
+        return ops.accum(stacked[:, None], "fpisa_a", cfg.fmt_name).reshape(-1)
+    return fpisa.fpisa_sum_sequential(stacked, cfg.fmt, variant="fpisa_a")
+
+
 def fpisa_seq_allreduce(x: torch.Tensor, group, cfg: AggConfig) -> torch.Tensor:
     """bit-faithful sequential switch-arrival FPISA-A
 
     The (W, N) stack of all ranks' leaves, cast to the format's packed dtype,
-    summed worker 0 first; the result is cast back to the leaf's dtype. On
-    the cuda backend the stack goes through K6 as one (W, 1, N) row, since
-    the sum is elementwise (float32 out, the format's value exactly), on
-    torch through ``fpisa_sum_sequential`` (the format's dtype): the same
-    values."""
+    summed worker 0 first (``_seq_sum``); the result is cast back to the
+    leaf's dtype."""
     backend = resolve_backend(cfg.backend, x.device)
-    packed = fpisa.PACKED_DTYPE[cfg.fmt_name]
-    stacked = _all_gather_rows(x.to(torch.float32).reshape(-1), group).to(packed)
-    if backend == "cuda":
-        out = ops.accum(stacked[:, None], "fpisa_a", cfg.fmt_name)
-    else:
-        out = fpisa.fpisa_sum_sequential(stacked, cfg.fmt, variant="fpisa_a")
-    return out.reshape(x.shape).to(x.dtype)
+    rows = _all_gather_rows(x.to(torch.float32).reshape(-1), group)
+    return _seq_sum(rows, cfg, backend).reshape(x.shape).to(x.dtype)
 
 
 def _validate_switch_emu(cfg: AggConfig) -> None:
@@ -379,6 +383,16 @@ def _validate_switch_emu(cfg: AggConfig) -> None:
         raise ValueError(
             "switch_emu runs on the numpy dataplane, which is fp32-only; got "
             f"fmt_name={cfg.fmt_name!r}")
+
+
+def _switch_emulate(rows: torch.Tensor) -> torch.Tensor:
+    """(W, N) float32 rows, one per switch port in worker order -> (N,)
+    float32 through ``NumpyDataplane`` on the host, on a lossless fabric;
+    the result goes back to the rows' device."""
+    dp = NumpyDataplane(DataplaneConfig(num_workers=rows.shape[0], fmt_name="fp32",
+                                        variant="fpisa_a"))
+    out = run_aggregation(dp, rows.cpu().numpy())  # float32
+    return torch.from_numpy(out).to(rows.device)
 
 
 def switch_emu_allreduce(x: torch.Tensor, group, cfg: AggConfig) -> torch.Tensor:
@@ -389,11 +403,155 @@ def switch_emu_allreduce(x: torch.Tensor, group, cfg: AggConfig) -> torch.Tensor
     on a lossless fabric: real slot pool, worker bitmaps, streaming window
     and packetization. Bit-identical to ``fpisa_seq``. fp32 only (checked
     when the Aggregator is built)."""
-    stacked = _all_gather_rows(x.to(torch.float32).reshape(-1), group)
-    dp = NumpyDataplane(DataplaneConfig(num_workers=stacked.shape[0], fmt_name="fp32",
-                                        variant="fpisa_a"))
-    out = run_aggregation(dp, stacked.cpu().numpy())  # float32
-    return torch.from_numpy(out).to(x.device).reshape(x.shape).to(x.dtype)
+    rows = _all_gather_rows(x.to(torch.float32).reshape(-1), group)
+    return _switch_emulate(rows).reshape(x.shape).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# stacked (logical-worker) aggregation: elastic fault tolerance
+# ---------------------------------------------------------------------------
+#
+# ``stacked_*`` variants reduce over a LEADING logical-worker axis as well as
+# the group: x has shape (k, ...) where this rank hosts k of the job's
+# W = k * world logical workers (rank d hosts workers [d*k, (d+1)*k)). The
+# reduction over logical workers runs entirely in the integer domain
+# (mantissa planes for fpisa, fixed point for switchml, arrival-ordered rows
+# for fpisa_seq / switch_emu), and the wire shift is derived from W, not the
+# group size, so the aggregated bits are IDENTICAL for any placement of the
+# W workers over any group that divides W. That is what elastic recovery
+# rests on: after a host death the survivors regroup with k' > k workers per
+# rank and training continues bit for bit (runtime/controller.py). A group
+# pair is reduced jointly (flat): the flat integer sum equals the
+# hierarchical one at equal W. ``native`` sums floats, whose result depends
+# on the grouping; it carries no bit-identity guarantee.
+
+
+def _stacked_rows(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return x.reshape(x.shape[0], -1).to(dtype)
+
+
+def _stacked_pad(rows: torch.Tensor, quantum: int):
+    pad = (-rows.shape[1]) % quantum
+    if pad:
+        rows = torch.cat([rows, rows.new_zeros(rows.shape[0], pad)], dim=1)
+    return rows, pad
+
+
+def _encode_align_stacked(rows: torch.Tensor, group, shift: int, cfg: AggConfig,
+                          backend: str):
+    """rows (k, Nb) packed FP -> (man (k, Nb) int32 aligned to the block
+    exponent maxed over ALL W logical workers, bmax (Nb/block,) int32).
+
+    The block max folds the local worker axis before the MAX all-reduce;
+    max is associative, so the agreed exponent (and with it every aligned
+    mantissa) does not depend on the placement of the workers. The cuda
+    backend runs K1 once over the (k * Nb/block, block) rows, then the
+    residual shift to the agreed exponent."""
+    k, nb_elems = rows.shape
+    nblocks = nb_elems // cfg.block
+    if backend == "cuda":
+        man_local, local_bmax = ops.encode_align(rows.reshape(-1, cfg.block), cfg.fmt_name)
+        local_bmax = local_bmax.reshape(k, nblocks)
+        bmax = _pmax(local_bmax.amax(0), group)
+        man = nx.arshift(man_local.reshape(k, nblocks, cfg.block),
+                         (bmax[None, :] - local_bmax)[:, :, None] + shift)
+        return man.reshape(k, nb_elems), bmax
+    planes = fpisa.encode(rows, cfg.fmt)
+    local_bmax = fpisa.block_max_exponent(planes.exp, cfg.block)  # (k, nblocks)
+    bmax = _pmax(local_bmax.amax(0), group)
+    be = bmax.repeat_interleave(cfg.block)[None, :]
+    return nx.arshift(planes.man, (be - planes.exp) + shift), bmax
+
+
+def _fold_workers(man: torch.Tensor, wire_bits: int) -> torch.Tensor:
+    """(k, N) per-worker wire payloads -> (N,) their exact int32 sum, cast
+    to the wire again (every partial fits: the shift is derived from W)."""
+    man = _wire_cast(man, wire_bits)
+    return _wire_cast(man.to(torch.int32).sum(0, dtype=torch.int32), wire_bits)
+
+
+def stacked_native_allreduce(x: torch.Tensor, group, cfg: AggConfig) -> torch.Tensor:
+    """float SUM over the worker axis, then over the group"""
+    return _all_reduce_(x.sum(0), dist.ReduceOp.SUM, group)
+
+
+def stacked_fpisa_allreduce(x: torch.Tensor, group, cfg: AggConfig) -> torch.Tensor:
+    """FPISA aggregation over (leading logical-worker axis) + group.
+
+    Each logical worker's mantissas are wire-cast on their own (its packet
+    payload), summed over the local workers in int32 (exact: every partial
+    fits the wire by the W-derived shift), then summed over the group.
+    Integer addition is associative and commutative, so the result is
+    bit-identical for every placement of the W workers."""
+    k = x.shape[0]
+    w = k * world_size(group)
+    backend = resolve_backend(cfg.backend, x.device)
+    orig_shape, orig_dtype = x.shape[1:], x.dtype
+    rows, pad = _stacked_pad(_stacked_rows(x, fpisa.PACKED_DTYPE[cfg.fmt_name]), cfg.block)
+
+    shift = _wire_shift(cfg.fmt, w, cfg.wire_bits)
+    man, bmax = _encode_align_stacked(rows, group, shift, cfg, backend)
+    man_sum = _psum_wire(_fold_workers(man, cfg.wire_bits), group)
+    out = _decode(man_sum, bmax, shift, cfg, backend)
+    return _unflatten(out, pad, orig_shape, orig_dtype)
+
+
+def stacked_switchml_allreduce(x: torch.Tensor, group, cfg: AggConfig) -> torch.Tensor:
+    """SwitchML fixed point with W logical workers (``switchml_allreduce``
+    has the scale mechanics): per-worker quantization, exact int32 fold
+    over the local workers, integer SUM over the group."""
+    k = x.shape[0]
+    w = k * world_size(group)
+    fmt = cfg.fmt
+    orig_shape, orig_dtype = x.shape[1:], x.dtype
+    rows, pad = _stacked_pad(_stacked_rows(x, torch.float32), cfg.block)
+
+    planes = fpisa.encode(rows, fmt)
+    bmax = _pmax(fpisa.block_max_exponent(planes.exp, cfg.block).amax(0), group)
+
+    s = nx.required_preshift(w, fmt)
+    be = bmax.repeat_interleave(cfg.block)
+    kexp = (fmt.man_bits - s) - (be - fmt.bias)
+    k1 = torch.div(kexp, 2, rounding_mode="floor")
+    k2 = kexp - k1
+    live = be > 0
+    q = torch.where(live[None, :], torch.round((rows * _pow2(k1)[None, :]) * _pow2(k2)[None, :]),
+                    0.0).to(torch.int32)
+    qsum = _all_reduce_(q.sum(0, dtype=torch.int32), dist.ReduceOp.SUM, group)
+    out = torch.where(live, (qsum.to(torch.float32) * _pow2(-k1)) * _pow2(-k2), 0.0)
+    return _unflatten(out, pad, orig_shape, orig_dtype)
+
+
+def _gather_logical(x: torch.Tensor, group) -> torch.Tensor:
+    """(k, ...) per-rank stacks -> (W, N) float32 rows in logical-worker
+    order. Rank d hosts workers [d*k, (d+1)*k), so the rank-order all-gather
+    IS the logical order, for every group size."""
+    k = x.shape[0]
+    rows = x.to(torch.float32).reshape(k, -1)
+    return _all_gather_rows(rows.reshape(-1), group).reshape(-1, rows.shape[1])
+
+
+def stacked_fpisa_seq_allreduce(x: torch.Tensor, group, cfg: AggConfig) -> torch.Tensor:
+    """switch-arrival FPISA-A over the W logical workers in logical order"""
+    backend = resolve_backend(cfg.backend, x.device)
+    out = _seq_sum(_gather_logical(x, group), cfg, backend)
+    return out.reshape(x.shape[1:]).to(x.dtype)
+
+
+def stacked_switch_emu_allreduce(x: torch.Tensor, group, cfg: AggConfig) -> torch.Tensor:
+    """validation with W logical switch ports: the gathered per-worker
+    gradients stream through the numpy dataplane as in
+    ``switch_emu_allreduce``; arrival order is logical-worker-major, the same
+    for every placement, so kill-and-resume stays bit-exact under the full
+    protocol emulation."""
+    _validate_switch_emu(cfg)
+    if cfg.switch_shared is not None:
+        raise ValueError(
+            "switch_shared tenancy is wired for the flat switch_emu path; "
+            "the stacked (elastic logical-worker) variant does not support "
+            "a shared dataplane")
+    out = _switch_emulate(_gather_logical(x, group))
+    return out.reshape(x.shape[1:]).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -401,16 +559,10 @@ def switch_emu_allreduce(x: torch.Tensor, group, cfg: AggConfig) -> torch.Tensor
 # ---------------------------------------------------------------------------
 
 
-def _fpisa_flat_phases(group, cfg: AggConfig, backend: str):
-    """(encode, collect, finish) for the flat fpisa path, mirroring
-    ``fpisa_allreduce`` (bucket buffers are block multiples, so its pad is a
-    no-op here). ``collect`` launches the SUM with ``async_op=True``;
-    ``finish`` waits on its handle, then decodes."""
-    shift = _wire_shift(cfg.fmt, world_size(group), cfg.wire_bits)
-
-    def encode(flat):
-        man, bmax = _encode_align(flat, group, shift, cfg, backend)
-        return _wire_cast(man, cfg.wire_bits), bmax
+def _sum_phases(group, shift: int, cfg: AggConfig, backend: str):
+    """(collect, finish) of the flat and stacked fpisa paths: ``collect``
+    launches the integer SUM with ``async_op=True``; ``finish`` waits on its
+    handle, then decodes."""
 
     def collect(state):
         man, bmax = state
@@ -423,7 +575,34 @@ def _fpisa_flat_phases(group, cfg: AggConfig, backend: str):
             work.wait()
         return _decode(man_sum, bmax, shift, cfg, backend)
 
-    return encode, collect, finish
+    return collect, finish
+
+
+def _fpisa_flat_phases(group, cfg: AggConfig, backend: str):
+    """(encode, collect, finish) for the flat fpisa path, mirroring
+    ``fpisa_allreduce`` (bucket buffers are block multiples, so its pad is a
+    no-op here)."""
+    shift = _wire_shift(cfg.fmt, world_size(group), cfg.wire_bits)
+
+    def encode(flat):
+        man, bmax = _encode_align(flat, group, shift, cfg, backend)
+        return _wire_cast(man, cfg.wire_bits), bmax
+
+    return (encode, *_sum_phases(group, shift, cfg, backend))
+
+
+def _fpisa_stacked_phases(group, cfg: AggConfig, backend: str, k: int):
+    """(encode, collect, finish) for the stacked fpisa path, mirroring
+    ``stacked_fpisa_allreduce``: per-worker encode and the exact local int
+    fold before the wire, the W-derived shift, one delayed renormalization
+    after the SUM."""
+    shift = _wire_shift(cfg.fmt, k * world_size(group), cfg.wire_bits)
+
+    def encode(buf):  # (k, elems) packed FP
+        man, bmax = _encode_align_stacked(buf, group, shift, cfg, backend)
+        return _fold_workers(man, cfg.wire_bits), bmax
+
+    return (encode, *_sum_phases(group, shift, cfg, backend))
 
 
 def _fpisa_hier_phases(data_group, pod_group, cfg: AggConfig, backend: str,
@@ -486,28 +665,29 @@ def _stage_packed(cfg: AggConfig, group: str) -> torch.dtype:
 
 
 register_strategy(
-    "native", chunk_noop=True, stage_dtype=_stage_native,
+    "native", stacked=stacked_native_allreduce, chunk_noop=True, stage_dtype=_stage_native,
     description="plain float SUM all-reduce — the no-switch baseline",
 )(native_allreduce)
 
 register_strategy(
-    "switchml",
+    "switchml", stacked=stacked_switchml_allreduce,
     description="SwitchML int32 fixed-point with a scale-factor round trip",
 )(switchml_allreduce)
 
 register_strategy(
-    "fpisa", hierarchical=fpisa_allreduce_hierarchical,
+    "fpisa", stacked=stacked_fpisa_allreduce, hierarchical=fpisa_allreduce_hierarchical,
     stage_dtype=_stage_packed,
     flat_phases=_fpisa_flat_phases, hier_phases=_fpisa_hier_phases,
+    stacked_phases=_fpisa_stacked_phases,
     description="the paper's block-exponent integer planes (production path)",
 )(fpisa_allreduce)
 
 register_strategy(
-    "fpisa_seq",
+    "fpisa_seq", stacked=stacked_fpisa_seq_allreduce,
     description="bit-faithful sequential switch-arrival FPISA-A",
 )(fpisa_seq_allreduce)
 
 register_strategy(
-    "switch_emu", validate=_validate_switch_emu,
+    "switch_emu", stacked=stacked_switch_emu_allreduce, validate=_validate_switch_emu,
     description="validation via the switch-dataplane emulator",
 )(switch_emu_allreduce)

@@ -38,6 +38,12 @@ Aggregator checks it).
 Plans depend only on the leaf list: the reference flattens dicts by sorted
 key, the port keeps the tree's own order (``named_parameters()``), so the
 two plans agree for the same leaf list.
+
+``bucketed_stacked_allreduce_tree`` does the same for per-logical-worker
+gradient stacks (a leading worker axis of k on every leaf): the plan is the
+unstacked plan of the per-worker leaves, so block boundaries and bucket cuts
+are the same for every k, and the (k, bucket) buffers go through the same
+double-buffered dispatch.
 """
 from __future__ import annotations
 
@@ -47,7 +53,6 @@ from typing import Sequence
 
 import torch
 
-from repro_torch import NotPortedError
 from repro_torch import trace as _trace
 from repro_torch.core import agg as _agg
 from repro_torch.core.agg import AggConfig
@@ -171,13 +176,16 @@ def pack_bucket(bucket: Bucket, flat_leaves, stage_dtype: torch.dtype,
                 device) -> torch.Tensor:
     """Assemble one bucket buffer from (already flattened) leaves: one
     preallocated ``stage_dtype`` buffer, each segment copied in by slice
-    (``copy_`` casts), each padding tail zeroed."""
-    buf = torch.empty(bucket.elems, dtype=stage_dtype, device=device)
+    (``copy_`` casts), each padding tail zeroed. Leaves flattened to
+    (k, n) stacks give a (k, elems) buffer, one row per logical worker."""
+    lead = flat_leaves[bucket.segments[0].leaf].shape[:-1]
+    buf = torch.empty((*lead, bucket.elems), dtype=stage_dtype, device=device)
     for s in bucket.segments:
         if s.size:
-            buf[s.offset:s.offset + s.size].copy_(flat_leaves[s.leaf][s.start:s.start + s.size])
+            buf[..., s.offset:s.offset + s.size].copy_(
+                flat_leaves[s.leaf][..., s.start:s.start + s.size])
         if s.span > s.size:
-            buf[s.offset + s.size:s.offset + s.span].zero_()
+            buf[..., s.offset + s.size:s.offset + s.span].zero_()
     return buf
 
 
@@ -251,18 +259,19 @@ def _stream_buckets(plan: BucketPlan, flat_leaves: dict, cfg: AggConfig,
     return pieces
 
 
-def _reassemble(leaves, unflatten, results: dict, pieces: dict):
+def _reassemble(leaves, unflatten, results: dict, pieces: dict, shape_of=lambda l: l.shape):
     for i, leaf in enumerate(leaves):
         if i in results:
             continue
+        shape = shape_of(leaf)
         ps = sorted(pieces[i], key=lambda t: t[0])
         if len(ps) == 1:
             flat = ps[0][1].to(leaf.dtype)
         else:
-            flat = torch.empty(leaf.numel(), dtype=leaf.dtype, device=leaf.device)
+            flat = torch.empty(math.prod(shape), dtype=leaf.dtype, device=leaf.device)
             for start, piece in ps:
                 flat[start:start + piece.shape[0]].copy_(piece)
-        results[i] = flat.reshape(leaf.shape)
+        results[i] = flat.reshape(shape)
     return unflatten([results[i] for i in range(len(leaves))])
 
 
@@ -318,6 +327,52 @@ def bucketed_allreduce_tree(tree, group, cfg: AggConfig):
 
 
 def bucketed_stacked_allreduce_tree(tree, group, cfg: AggConfig):
-    """Bucketed aggregation of per-logical-worker gradient stacks: comes with
-    the elastic runtime (ROADMAP.md)."""
-    raise NotPortedError("bucketed stacked (logical-worker) aggregation")
+    """``bucketed_allreduce_tree`` for per-logical-worker gradient stacks:
+    every leaf carries a leading worker axis of size k and the reduction
+    runs over that axis and the group (core/allreduce.py, stacked section).
+
+    The plan is built from the PER-WORKER leaf shapes (leading axis
+    dropped), so the wire layout (block alignment, bucket cuts, dispatch
+    order) is the unstacked plan of the same tree, identical for every k:
+    after a failure the survivors re-plan for their new k without moving a
+    block boundary. Each bucket is packed as one (k, elems) buffer; it comes
+    back reduced (1-D) and unpacks as in the unstacked path."""
+    leaves, unflatten = _agg.tree_flatten(tree)
+    if not leaves:
+        return tree
+    k = leaves[0].shape[0]
+    inner = dataclasses.replace(cfg, bucket_bytes=0)
+    per_worker = [torch.empty(l.shape[1:], dtype=l.dtype, device="meta") for l in leaves]
+    plan = plan_for_config(per_worker, cfg)
+
+    results: dict[int, torch.Tensor] = {}
+    for i in plan.passthrough:
+        results[i] = _agg._dispatch_stacked(leaves[i], group, inner)
+
+    def shape_of(leaf):
+        return leaf.shape[1:]
+
+    planned = {s.leaf for b in plan.buckets for s in b.segments}
+    flat_leaves = {i: leaves[i].reshape(k, -1) for i in planned}
+    if not planned:
+        return _reassemble(leaves, unflatten, results, {}, shape_of)
+    device = leaves[min(planned)].device
+
+    spec = _agg.get_strategy(cfg.strategy)
+    backend = _agg.resolve_backend(cfg.backend, device)
+    phases = None
+
+    def phases_for(bucket):
+        nonlocal phases
+        if spec.stacked_phases is None:
+            return None
+        if phases is None:
+            phases = spec.stacked_phases(group, cfg, backend, k)
+        return phases
+
+    pieces = _stream_buckets(
+        plan, flat_leaves, cfg,
+        lambda bucket, dt: pack_bucket(bucket, flat_leaves, dt, device),
+        phases_for,
+        lambda buf: _agg._dispatch_stacked(buf, group, inner))
+    return _reassemble(leaves, unflatten, results, pieces, shape_of)

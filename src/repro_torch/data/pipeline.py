@@ -91,3 +91,9 @@ class ShardedLoader:
         finally:
             stop.set()
 
+
+def reassign_shard(loader: ShardedLoader, new_shard_id: int) -> ShardedLoader:
+    """Deterministic failover: a replacement host resumes the dead host's
+    stream bit for bit (runtime/controller.py re-derives shard ownership
+    from ``HealthMonitor.reassignments`` with this every step)."""
+    return loader.with_shard(new_shard_id)

@@ -17,8 +17,16 @@ autotuned aggregation (``--bucket-bytes N|auto``, ``--trace-out PATH``,
 The trace file is written on exit (JSONL, or chrome://tracing JSON for a
 path ending in ``.chrome.json``).
 
-Not ported yet, and refused: ``--ckpt-dir``, ``--fault-plan`` and
-``--num-hosts`` (the elastic runtime).
+``--ckpt-dir DIR`` commits a params+opt bundle every ``--ckpt-every`` steps
+and resumes from the newest one. ``--fault-plan`` (e.g. ``kill:2@4``) or
+``--num-hosts N`` route the run through the elastic controller
+(``runtime.controller.run_controller``): N hosts, one per rank,
+heartbeats, switch-slot reclamation and bit-identical resume on the
+survivors, with deterministic algorithms on the card
+(``runtime.elastic.reproducible``), e.g. on the CPU over gloo
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --device cpu --arch qwen1.5-0.5b --smoke --steps 10 --global-batch 8 \
+      --seq-len 32 --fault-plan kill:2@4 --num-hosts 4
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from repro_torch.core.agg import AggConfig, add_agg_args, group_rank, world_size
 from repro_torch.data.pipeline import ShardedLoader, SyntheticCorpus
 from repro_torch.models.registry import build, param_count
 from repro_torch.optim import optimizers
+from repro_torch.runtime import checkpoint as ckpt
 from repro_torch.trace import add_trace_args
 from repro_torch.trace import from_args as trace_from_args
 from repro_torch.train.step import make_train_step
@@ -42,16 +51,29 @@ from repro_torch.train.step import make_train_step
 
 def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
                agg: AggConfig | None = None, device=None, group=None,
+               ckpt_dir: str | None = None, ckpt_every: int = 50,
                log_every: int = 10, opt_overrides: dict | None = None,
                seed: int = 0, params: dict | None = None):
-    """Plain data-parallel training loop; returns (model, opt_state, losses).
+    """Plain data-parallel training loop; returns (model, opt_state, losses),
+    the losses of the steps this call ran.
 
     ``device`` None means the card. ``group`` is the data-parallel process
     group (None: the default group, or a world of one) or a
     ``(pod_group, data_group)`` pair. ``params`` replaces the seeded
     initialization (a parameter tree, e.g. exported from the reference).
     Every rank generates the same global batch and trains on its contiguous
-    slice, as the reference shards the batch over replicas."""
+    slice, as the reference shards the batch over replicas.
+
+    With ``ckpt_dir``: the newest bundle there (params and optimizer state,
+    ``runtime/checkpoint.py``) is restored and training resumes after its
+    step; a bundle is committed after every step > 0 that is a multiple of
+    ``ckpt_every``, in the background, by the group's rank 0. A directory
+    written in the older split layout (params at ``<dir>``, optimizer
+    state at ``<dir>_opt``) is restored once. The steps run in the same
+    mode with or without ``ckpt_dir``: a resumed run repeats the
+    uninterrupted one bit for bit where the step's ops repeat their bits,
+    which ``chip_smoke.py`` checks on the card (``[determinism]``,
+    ``[ckpt]``)."""
     device = resolve_device(device)
     agg = agg or AggConfig()
     world = world_size(group)
@@ -61,16 +83,37 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
     opt_kw.update(opt_overrides or {})
     opt_cfg = optimizers.OptConfig(**opt_kw)
     opt_state = optimizers.init(list(model.parameters()), opt_cfg)
+    say = print if rank == 0 else (lambda *a, **k: None)
+
+    start_step = 0
+    saver = None
+    if ckpt_dir:
+        saver = ckpt.AsyncCheckpointer(ckpt_dir) if rank == 0 else None
+        latest = ckpt.latest_step(ckpt_dir)
+        if latest is not None:
+            like = ckpt.state_trees(model, opt_state)
+            try:
+                # atomic bundle: params and opt always come from the SAME step
+                trees, _ = ckpt.restore_bundle(ckpt_dir, latest, like)
+            except ValueError:
+                # pre-bundle layout (params at <dir>, opt at <dir>_opt) from
+                # an older run: restore it once; the next save commits a
+                # bundle and the split dirs stop mattering
+                trees = {"params": ckpt.restore(ckpt_dir, latest, like["params"])[0],
+                         "opt": ckpt.restore(ckpt_dir + "_opt", latest, like["opt"])[0]}
+            opt_state = ckpt.load_state(model, opt_state, trees)
+            start_step = latest + 1
+            say(f"[train] resumed from step {latest}")
+
     step_fn = make_train_step(model, agg, opt_cfg, global_batch, group)
     loader = ShardedLoader(SyntheticCorpus(cfg.vocab_size, seed), global_batch, seq_len)
     local = global_batch // world
 
-    say = print if rank == 0 else (lambda *a, **k: None)
     say(f"[train] {cfg.name}: {param_count(model)/1e6:.1f}M params, "
         f"device={device}, world={world}, agg={agg.strategy}, "
         f"bucket_bytes={agg.bucket_bytes}")
     history = []
-    for step in range(steps):
+    for step in range(start_step, steps):
         t0 = perf_counter()
         tokens = loader.batch_at(step)["tokens"][rank * local:(rank + 1) * local]
         opt_state, metrics = step_fn(opt_state, torch.from_numpy(tokens).to(device))
@@ -81,6 +124,10 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
             tok_s = global_batch * seq_len / dt
             say(f"[train] step {step:5d} loss {loss:.4f} "
                 f"gnorm {float(metrics['grad_norm']):.3f} {tok_s:,.0f} tok/s")
+        if saver and step > 0 and step % ckpt_every == 0:
+            saver.save_bundle(step, ckpt.state_trees(model, opt_state), {"loss": loss})
+    if saver:
+        saver.wait()
     return model, opt_state, history
 
 
@@ -104,24 +151,51 @@ def main(argv=None):
                     help="cuda (default; raises without a card) or cpu")
     add_agg_args(ap)  # the shared --agg-* flags (repro_torch.core.agg)
     add_trace_args(ap)  # the shared --trace-* flags (repro_torch.trace)
-    for flag in ("--ckpt-dir", "--fault-plan", "--num-hosts"):
-        ap.add_argument(flag, default=None, help="not ported yet")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--fault-plan", default="",
+                    help="fault-injection spec, e.g. 'kill:2@5' or "
+                         "'kill:2@5,revive:2@20,slow:3@4x6': routes the run "
+                         "through the elastic controller "
+                         "(repro_torch/runtime/controller.py): heartbeats, switch-"
+                         "slot reclamation, regrouping and bit-identical resume")
+    ap.add_argument("--num-hosts", type=int, default=None,
+                    help="logical worker / host count for the elastic "
+                         "controller (default: one per rank); implies the "
+                         "controller path even without --fault-plan")
     args = ap.parse_args(argv)
-    for flag in ("ckpt_dir", "fault_plan", "num_hosts"):
-        if getattr(args, flag) is not None:
-            ap.error(str(NotPortedError("--" + flag.replace("_", "-"))))
 
     try:
         cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
         agg = AggConfig.from_args(args)
     except (ValueError, KeyError, NotPortedError) as e:
         ap.error(str(e))
+    elastic = bool(args.fault_plan or args.num_hosts)
+    if elastic and agg.chunk_elems:
+        ap.error("--agg-chunk is not supported on the elastic controller path "
+                 "(stacked aggregation; use --bucket-bytes instead)")
+    if elastic:
+        # cuBLAS reads its workspace setting when CUDA starts; the
+        # controller's deterministic mode needs it (runtime.elastic.reproducible)
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     device = resolve_device(args.device)
     _init_from_env(device)
     session = trace_from_args(args)
     try:
+        if elastic:
+            from repro_torch.runtime.controller import run_controller
+
+            try:  # the controller's argument checks are usage errors
+                run_controller(cfg, steps=args.steps, global_batch=args.global_batch,
+                               seq_len=args.seq_len, agg=agg, num_hosts=args.num_hosts,
+                               ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                               fault_plan=args.fault_plan, device=device)
+            except ValueError as e:
+                ap.error(str(e))
+            return
         train_loop(cfg, steps=args.steps, global_batch=args.global_batch,
-                   seq_len=args.seq_len, agg=agg, device=device)
+                   seq_len=args.seq_len, agg=agg, device=device,
+                   ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
     finally:
         session.finish()
         if dist.is_initialized():

@@ -19,15 +19,27 @@ Aggregator reduces hierarchically.
 ``accum_steps`` > 1 splits this rank's batch into microbatches and
 accumulates their gradients in float32, as the reference's scan does.
 
-Not ported yet: the ``pod`` boundary and logical workers (elastic mode).
+Logical-worker mode (``logical_workers`` = W > 0) decouples the aggregation
+from the group for elastic fault tolerance: the global batch is owned by W
+fixed logical workers (= switch ports); each rank hosts k = W / world of
+them, computes their gradients SEPARATELY, one after another, into (k, ...)
+buffers, and aggregates through the stacked integer-domain collectives
+(core/allreduce.py, stacked section). The wire shift is derived from W and
+integer addition is associative, so the aggregated gradient, and the loss
+folded left to right in float32 over the gathered (W,) per-worker losses,
+are bit-identical on any group that divides W. That is what lets
+runtime/controller.py resume on the survivors of a host death with a
+trajectory equal, bit for bit, to the uninterrupted run.
+
+Not ported yet: the ``pod`` boundary.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
-from repro_torch import NotPortedError
 from repro_torch.core.agg import AggConfig, Aggregator, world_size
+from repro_torch.core.allreduce import _all_gather_rows
 from repro_torch.optim import optimizers
 
 
@@ -37,11 +49,25 @@ def make_train_step(model, agg: AggConfig, opt_cfg: optimizers.OptConfig,
     """Returns ``step_fn(opt_state, tokens) -> (opt_state, metrics)``, which
     updates the model's parameters in place. ``tokens`` is this rank's
     (global_batch / world, S) slice of the global batch; with
-    ``accum_steps`` > 1 it is cut into that many microbatches."""
-    if logical_workers:
-        raise NotPortedError(f"logical_workers={logical_workers} (elastic logical-worker "
-                             f"training)")
+    ``accum_steps`` > 1 it is cut into that many microbatches.
+
+    ``logical_workers`` > 0 selects logical-worker mode (module doc); it
+    requires a non-native aggregation strategy, ``accum_steps == 1``, and a
+    group whose size divides W, with W dividing the global batch."""
     world = world_size(group)
+    if logical_workers:
+        if agg.strategy == "native":
+            raise ValueError(
+                "logical_workers needs an explicit aggregation boundary with "
+                f"a non-native strategy (got strategy={agg.strategy!r}, "
+                f"group of {world} ranks)")
+        if accum_steps != 1:
+            raise ValueError("logical_workers is incompatible with accum_steps")
+        if logical_workers % world or global_batch % logical_workers:
+            raise ValueError(
+                f"logical_workers={logical_workers} must be a multiple of the "
+                f"replica extent {world} and divide global_batch={global_batch}")
+        return _logical_worker_step(model, agg, opt_cfg, group, logical_workers)
     if global_batch % world:
         raise ValueError(f"global_batch={global_batch} is not divisible by the "
                          f"{world} ranks of the data-parallel group")
@@ -79,6 +105,42 @@ def make_train_step(model, agg: AggConfig, opt_cfg: optimizers.OptConfig,
         opt_state, metrics = optimizers.update(
             params, [grads[n] for n in names], opt_state, opt_cfg)
         metrics["loss"] = loss
+        return opt_state, metrics
+
+    return train_step
+
+
+def _logical_worker_step(model, agg: AggConfig, opt_cfg: optimizers.OptConfig, group,
+                         workers: int):
+    """The logical-worker step: this rank hosts k = W / world contiguous
+    workers (rank d hosts [d*k, (d+1)*k), the order of the stacked
+    all-gather), each owning an equal contiguous slice of the rank's
+    tokens."""
+    k = workers // world_size(group)
+    aggregator = Aggregator(agg, group, stacked=True)
+    names, params = zip(*model.named_parameters())
+
+    def train_step(opt_state: optimizers.OptState, tokens: torch.Tensor):
+        # each worker's gradients go straight into its row of a preallocated
+        # (k, ...) buffer: no stacked copy of k gradient trees
+        stacks = [torch.empty((k, *p.shape), dtype=p.dtype, device=p.device) for p in params]
+        losses = torch.empty(k, dtype=torch.float32, device=tokens.device)
+        for j, mb in enumerate(tokens.reshape(k, -1, *tokens.shape[1:])):
+            loss = model.loss(mb)
+            for stack, g in zip(stacks, torch.autograd.grad(loss, params)):
+                stack[j].copy_(g)
+            losses[j] = loss.detach()
+        grads = aggregator.allreduce_tree(dict(zip(names, stacks)))
+        del stacks
+        # fixed-order loss: the gathered (W,) vector has the same order on
+        # every group; fold it left to right in float32, one add at a time
+        # (torch.sum is a tree reduction whose grouping is not fixed)
+        loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        for v in _all_gather_rows(losses, group).reshape(-1):
+            loss = loss + v
+        opt_state, metrics = optimizers.update(
+            params, [grads[n] for n in names], opt_state, opt_cfg)
+        metrics["loss"] = loss / workers
         return opt_state, metrics
 
     return train_step

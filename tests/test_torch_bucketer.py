@@ -36,7 +36,6 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import bucketer as jb  # noqa: E402
-from repro_torch import NotPortedError  # noqa: E402
 from repro_torch.core import agg as tagg  # noqa: E402
 from repro_torch.core import allreduce as tar  # noqa: E402
 from repro_torch.core import bucketer as tb  # noqa: E402
@@ -188,8 +187,11 @@ def test_bucketing_and_chunking_construction_checks():
     with pytest.raises(ValueError, match="multiple of block"):
         Aggregator(AggConfig(bucket_bytes=4096, chunk_elems=1000))
     Aggregator(AggConfig(chunk_elems=1000))  # chunking alone needs no alignment
-    with pytest.raises(NotPortedError, match="ROADMAP.md"):
-        tb.bucketed_stacked_allreduce_tree({"a": torch.ones(4)}, None, AggConfig())
+    with pytest.raises(ValueError, match="chunk_elems is not supported with stacked"):
+        Aggregator(AggConfig(bucket_bytes=4096, chunk_elems=1024), stacked=True)
+    out = tb.bucketed_stacked_allreduce_tree({"a": torch.ones(3, 4)}, None,
+                                             AggConfig(bucket_bytes=1024))
+    assert torch.equal(out["a"], torch.full((4,), 3.0))
     with pytest.raises(ValueError, match="pod_group, data_group"):
         Aggregator(AggConfig(), (None, None, None))
 

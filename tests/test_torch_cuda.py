@@ -5,8 +5,12 @@ the same CUDA tensors, bit for bit (integer views), over the CPU suite's
 sweep plus the special values; their launch counters; the wrappers'
 refusals; and bucketed (K1/K2 once per bucket), chunked, hierarchical (a
 pair of one-rank NCCL groups) and bucketed ``fpisa_seq`` aggregation on the
-cuda backend against the plain per-leaf aggregation. These tests need an NVIDIA GPU and nvcc; elsewhere they
-skip. They import nothing of JAX, so the GPU machine runs them with
+cuda backend against the plain per-leaf aggregation; stacked (logical-worker)
+``fpisa`` (K1/K2 once per leaf over k = 2, 4, 8 workers) and ``fpisa_seq``
+(K6 at W = 2, 4, 8) against the plain stacked aggregation; checkpoint round
+trips of CUDA bf16 and fp32 tensors; and the backward's bits repeated under
+``runtime.elastic.reproducible``. These tests need an NVIDIA GPU and nvcc;
+elsewhere they skip. They import nothing of JAX, so the GPU machine runs them with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 """
 import numpy as np
@@ -321,3 +325,89 @@ def test_hierarchical_cuda_equals_per_leaf_plain(dev, pod_wire, tmp_path):
             _same_bits(want, Aggregator(AggConfig(backend="torch")).allreduce_tree(tree))
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# stacked (logical-worker) aggregation and checkpoints on the card
+# ---------------------------------------------------------------------------
+
+
+def _stacked_tree(dev, k):
+    """k workers' ragged gradient trees, stacked on a leading worker axis."""
+    trees = [_tree(dev) for _ in range(k)]
+    for j, t in enumerate(trees):  # distinct workers
+        for v in t.values():
+            v.mul_(1.0 + j / 8)
+    return {name: torch.stack([t[name] for t in trees]) for name in trees[0]}
+
+
+@pytest.mark.parametrize("k", [2, 4, 8])
+@pytest.mark.parametrize("wire", [32, 16, 8])
+@pytest.mark.parametrize("fmt", FMTS)
+def test_stacked_fpisa_cuda_equals_plain(dev, k, wire, fmt):
+    """Stacked fpisa on the cuda backend (K1 once per leaf over the k
+    workers' rows, K2 once per leaf) equals the plain stacked aggregation,
+    per leaf and bucketed, bit for bit."""
+    tree = _stacked_tree(dev, k)
+    base = dict(wire_bits=wire, fmt_name=fmt)
+    want = Aggregator(AggConfig(backend="torch", **base), stacked=True).allreduce_tree(tree)
+    before = (ops.encode_align.launches, ops.decode_fused.launches)
+    got = Aggregator(AggConfig(backend="cuda", **base), stacked=True).allreduce_tree(tree)
+    assert (ops.encode_align.launches - before[0], ops.decode_fused.launches - before[1]) \
+        == (len(tree), len(tree))
+    _same_bits(got, want)
+    _same_bits(Aggregator(AggConfig(backend="cuda", bucket_bytes=8192, **base),
+                          stacked=True).allreduce_tree(tree), want)
+
+
+@pytest.mark.parametrize("k", [2, 4, 8])
+@pytest.mark.parametrize("fmt", FMTS)
+def test_stacked_fpisa_seq_cuda_equals_plain(dev, k, fmt):
+    """Stacked fpisa_seq: K6 once per leaf over the (k, 1, N) stack on the
+    cuda backend, fpisa_sum_sequential on torch; the same bits."""
+    tree = _stacked_tree(dev, k)
+    want = Aggregator(AggConfig(strategy="fpisa_seq", backend="torch", fmt_name=fmt),
+                      stacked=True).allreduce_tree(tree)
+    before = ops.accum.launches
+    got = Aggregator(AggConfig(strategy="fpisa_seq", backend="cuda", fmt_name=fmt),
+                     stacked=True).allreduce_tree(tree)
+    assert ops.accum.launches - before == len(tree)
+    _same_bits(got, want)
+
+
+def test_checkpoint_round_trip_of_cuda_tensors(dev, tmp_path):
+    """bf16 and fp32 CUDA tensors through save / restore: the restored
+    leaves land on the like's CUDA device with the same bits."""
+    from repro_torch.runtime import checkpoint as ckpt
+
+    tree = {"w": _x((37, 13), "bf16", 1, dev), "m": _x((700,), "fp32", 2, dev),
+            "step": 5}
+    ckpt.save_bundle(str(tmp_path), 2, {"params": tree})
+    like = {"w": torch.empty((37, 13), dtype=torch.bfloat16, device=dev),
+            "m": torch.empty(700, device=dev), "step": 0}
+    out, _ = ckpt.restore_bundle(str(tmp_path), 2, {"params": like})
+    got = out["params"]
+    assert got["step"] == 5
+    assert got["w"].is_cuda and torch.equal(got["w"].view(torch.int16), tree["w"].view(torch.int16))
+    assert got["m"].is_cuda and torch.equal(got["m"].view(torch.int32), tree["m"].view(torch.int32))
+
+
+def test_reproducible_repeats_the_backward_bits(dev):
+    """Inside runtime.elastic.reproducible, two backward passes of the
+    smoke model give the same gradient bits; the setting is restored on
+    exit."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.registry import build
+    from repro_torch.runtime.elastic import reproducible
+
+    model = build(get_smoke_config("qwen1.5-0.5b"), device=dev)
+    tokens = torch.randint(0, 512, (4, 64), device=dev)
+    was = torch.are_deterministic_algorithms_enabled()
+    with reproducible(dev):
+        assert torch.are_deterministic_algorithms_enabled()
+        runs = [torch.autograd.grad(model.loss(tokens), list(model.parameters()))
+                for _ in range(3)]
+    assert torch.are_deterministic_algorithms_enabled() == was
+    for r in runs[1:]:
+        for a, b in zip(runs[0], r):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))

@@ -277,9 +277,17 @@ def test_cli_bucketed_auto_traced_run(tmp_path):
     assert all(s["synced"] for s in spans if s["name"].startswith("bucketer."))
 
 
-def test_cli_refuses_unported_flags():
+def test_cli_refuses_unported_flags(tmp_path, capsys):
+    """--ckpt-dir, --fault-plan and --num-hosts are ported
+    (tests/test_torch_recovery.py); the launcher refuses what the
+    reference's refuses on that path: --agg-chunk with the controller, more
+    hosts than ranks, a fault plan naming a host outside the job."""
     from repro_torch.launch.train import main
 
-    for extra in (["--ckpt-dir", "x"], ["--fault-plan", "kill:1@2"], ["--num-hosts", "2"]):
+    for extra, why in ((["--fault-plan", "kill:1@2", "--agg-chunk", "512"], "--agg-chunk"),
+                       (["--num-hosts", "2"], "exceeds the 1 ranks"),
+                       (["--fault-plan", "kill:5@2"], "host 5")):
         with pytest.raises(SystemExit):
-            main(["--device", "cpu", "--arch", ARCH, "--smoke", "--steps", "1", *extra])
+            main(["--device", "cpu", "--arch", ARCH, "--smoke", "--steps", "1",
+                  "--ckpt-dir", str(tmp_path), *extra])
+        assert why in capsys.readouterr().err
