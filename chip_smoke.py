@@ -91,9 +91,28 @@ mode; ``[ckpt]``: checkpointed resume through ``train_loop(ckpt_dir=)``
 parameters and moments to an uninterrupted run, in the default mode, then
 one bundle saved and restored on its own (bytes, seconds) and the directory
 removed (the phase fails if the disk cannot hold two bundles); K1, K2 and
-K6 timed at the stacked shapes. In the ``kernels`` line, ``launches`` is a
-kernel's launches summed over every path above that ran it (main,
-``fpisa_seq``, bucketed, stacked ``fpisa``, stacked ``fpisa_seq``, the
+K6 timed at the stacked shapes.
+
+Then, in the same group, the serving path (``serve_path``): full-width
+qwen1.5-0.5b (bf16 weights from a seed) through ``repro_torch.serve``.
+(a) one ``decode_step_paged`` equals ``decode_step`` bit for bit at 16 rows
+with 64 pages x 16 = max_len 1024, on caches holding the same prefill; the
+continuous engine (16 slots, max_len 1024, pages of 16) serves a seeded
+Poisson trace of 32 requests (prompts 64/256/512, budgets 32/64/128, rate
+0.5 per step) and the static engine (batch 16) the same requests, both with
+``fpisa`` telemetry (the ``serve`` path); (c) the telemetry totals equal the
+host counts; (d) K1 and K2 launch once per telemetry flush; (b) on 6
+requests the continuous engine's tokens equal the static engine's run one
+request at a time, a differing token passing only where the oracle's top-2
+logit gap is no larger than the largest |logit difference| of the two
+paths' rows at that step (each divergence printed); 8 requests with
+``fpisa_seq`` telemetry (the ``serve_fpisa_seq`` path, K6 once per flush,
+traced); a decode step and prefills on CUDA events; ``[diagnose] serve
+decode``.
+
+In the ``kernels`` line, ``launches`` is a kernel's launches summed over
+every path above that ran it (main, ``fpisa_seq``, bucketed, stacked
+``fpisa``, stacked ``fpisa_seq``, ``serve``, ``serve_fpisa_seq``, the
 two-pass pipeline) and ``launches_by_path`` names each path's count, every
 path's counts zeroed just before it and read just after.
 
@@ -144,7 +163,13 @@ STEPS, GLOBAL_BATCH, SEQ_LEN = 3, 8, 512
 ACCUM_WORKERS = (1, 2, 4, 8)
 LOGICAL_WORKERS = 4           # the stacked phase: W = 4 logical workers on one rank
 KERNEL_WRAPPER = {"fused_encode_align": "encode_align", "fused_decode": "decode_fused",
+                  "fpisa_extract": "extract", "fpisa_align": "align", "fpisa_decode": "decode",
                   "fpisa_accum": "accum"}
+# the serve phase: engines' sizes and the Poisson trace
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_PAGE = 16, 1024, 16
+SERVE_REQUESTS, SERVE_RATE = 32, 0.5
+SERVE_PROMPTS, SERVE_BUDGETS = (64, 256, 512), (32, 64, 128)
+ORACLE_REQUESTS, SEQ_REQUESTS = 6, 8
 
 
 def accum_ops_per_elem(workers: int) -> int:
@@ -1019,6 +1044,272 @@ def stacked_path(torch, dev, tmpdir, leaf_sizes):
     return launches, times
 
 
+def zero_launches():
+    from repro_torch.kernels import ops
+
+    for name in KERNELS:
+        getattr(ops, KERNEL_WRAPPER[name]).launches = 0
+
+
+def read_launches():
+    from repro_torch.kernels import ops
+
+    return {name: getattr(ops, KERNEL_WRAPPER[name]).launches for name in KERNELS}
+
+
+def check_paged_equals_dense(torch, dev, model):
+    """Check (a): one ``decode_step_paged`` equals ``decode_step`` bit for
+    bit at B = 16 with MP x page == max_len, on caches holding the same
+    prefill (the dense cache's rows copied into each slot's pages); the
+    k/v both write equal too."""
+    from repro_torch.serve.kvcache import PagedKVCache
+
+    cfg, b, plen = model.cfg, SERVE_SLOTS, SERVE_PROMPTS[0]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    prompts = torch.randint(0, cfg.vocab_size, (b, plen), generator=gen, device=dev)
+    logits, dense = model.prefill(prompts, model.init_cache(b, SERVE_MAX_LEN))
+    paged = PagedKVCache(cfg, b, SERVE_MAX_LEN, SERVE_PAGE, device=dev)
+    for j in range(b):
+        paged.grow_slot(j, plen + 1)
+        paged.write_prompt(j, dense.kv.k[:, j, :plen], dense.kv.v[:, j, :plen])
+    nxt = logits[:, -1].argmax(-1)[:, None]
+    want, dense = model.decode_step(nxt, dense)
+    got, _, _ = model.decode_step_paged(nxt, paged.k, paged.v, paged.device_table(),
+                                        torch.full((b,), plen, device=dev))
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+        raise AssertionError(f"paged decode logits differ from dense decode: max |diff| "
+                             f"{(got.float() - want.float()).abs().max().item()}")
+    for j in range(b):
+        pages = torch.tensor(paged.slot_pages(j), device=dev)
+        for pool, cache in ((paged.k, dense.kv.k), (paged.v, dense.kv.v)):
+            view = pool[:, pages].flatten(1, 2)[:, :plen + 1]
+            if not torch.equal(view.view(torch.int16), cache[:, j, :plen + 1].view(torch.int16)):
+                raise AssertionError(f"slot {j}: paged k/v differ from the dense cache's")
+    log(f"[serve] check (a): decode_step_paged == decode_step bit for bit ({b} rows, "
+        f"{SERVE_MAX_LEN // SERVE_PAGE} pages x {SERVE_PAGE} == max_len {SERVE_MAX_LEN}, "
+        f"{plen}-token prefill), logits {tuple(got.shape)} {got.dtype} and every written k/v")
+
+
+def replay_row(torch, dev, model, req, tokens, t):
+    """Float32 logits of token ``t`` of ``req``, teacher-forced with
+    ``tokens[:t]``: through the static engine's path at one row (the
+    oracle's), and through the paged path with the request in row 0 of a
+    16-slot step (the continuous engine's shape)."""
+    from repro_torch.serve.kvcache import PagedKVCache
+
+    plen = len(req.prompt)
+    prompt = torch.from_numpy(req.prompt[None].astype("int64")).to(dev)
+    feed = torch.from_numpy(tokens.astype("int64")).to(dev)
+    logits, cache = model.prefill(prompt, model.init_cache(1, SERVE_MAX_LEN))
+    for i in range(t):
+        logits, cache = model.decode_step(feed[i].reshape(1, 1), cache)
+    oracle = logits[0, -1].float()
+    logits, cache = model.prefill(prompt, model.init_cache(1, plen, rows=1))
+    paged = PagedKVCache(model.cfg, SERVE_SLOTS, SERVE_MAX_LEN, SERVE_PAGE, device=dev)
+    paged.grow_slot(0, plen)
+    paged.write_prompt(0, cache.kv.k[:, 0], cache.kv.v[:, 0])
+    for i in range(t):
+        paged.grow_slot(0, plen + i + 1)
+        toks = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int64, device=dev)
+        toks[0] = feed[i]
+        lens = torch.zeros((SERVE_SLOTS,), dtype=torch.int64, device=dev)
+        lens[0] = plen + i
+        logits, _, _ = model.decode_step_paged(toks, paged.k, paged.v, paged.device_table(),
+                                               lens)
+    return oracle, logits[0, -1].float()
+
+
+def check_against_oracle(torch, dev, model, requests, results):
+    """Check (b): the continuous engine's tokens against the static engine
+    run one request at a time, token for token. A differing token passes
+    only as a near-tie that float rounding explains: at the first one, the
+    oracle's top-2 logit gap is no larger than the largest |logit
+    difference| between the two paths' rows at that step (``replay_row``).
+    Every divergence is printed."""
+    from repro_torch.serve.engine import ServeEngine
+
+    got = {r.rid: r.tokens for r in results}
+    divergences = []
+    t0 = time.perf_counter()
+    for req in requests:
+        want = ServeEngine(model, batch_size=1, max_len=SERVE_MAX_LEN).run([req])[0].tokens
+        mine = got[req.rid]
+        if len(mine) != len(want):
+            raise AssertionError(f"rid {req.rid}: {len(mine)} tokens, the oracle {len(want)}")
+        differ = [i for i, (a, b) in enumerate(zip(mine, want)) if a != b]
+        if not differ:
+            continue
+        t = differ[0]
+        oracle, cont = replay_row(torch, dev, model, req, want, t)
+        top2 = oracle.topk(2).values
+        gap, diff = float(top2[0] - top2[1]), float((oracle - cont).abs().max())
+        div = {"rid": req.rid, "step": t, "gap": gap, "max_abs_logit_diff": diff,
+               "oracle_token": int(want[t]), "continuous_token": int(mine[t]),
+               "replay_argmax": int(cont.argmax())}
+        divergences.append(div)
+        log(f"[serve] divergence: {json.dumps(div)}")
+        if gap > diff:
+            raise AssertionError(f"rid {req.rid} diverges from the oracle at token {t} with "
+                                 f"a top-2 gap {gap} above the paths' logit difference {diff}")
+    log(f"[serve] check (b): continuous == static at batch_size=1 on {len(requests)} "
+        f"requests ({sum(len(got[r.rid]) for r in requests)} tokens), "
+        f"{len(divergences)} near-tie divergences; oracle runs "
+        f"{time.perf_counter() - t0:.2f} s")
+    return divergences
+
+
+def check_telemetry(eng, results, what):
+    """Check (c): the totals that went through the cuda aggregator equal
+    the engine's host counts."""
+    host = {"requests": len(results), "tokens_generated": sum(len(r.tokens) for r in results)}
+    got = {k: eng.telemetry[k] for k in host}
+    if got != host or eng.aggregator is None:
+        raise AssertionError(f"{what} telemetry through {eng.aggregator}: {got} != host {host}")
+    return eng.telemetry_channel.reductions
+
+
+def serve_path(torch, dev):
+    """The fifth slice's path: full-width qwen1.5-0.5b (bf16 weights from a
+    seed) served on the card, in the one-rank NCCL group, through
+    ``repro_torch.serve``. Check (a), then the continuous engine (16 slots,
+    max_len 1024, pages of 16) on a 32-request Poisson trace and the static
+    engine (batch 16) on the same requests, both with ``fpisa`` telemetry
+    (the ``serve`` path: every kernel's count zeroed just before, read just
+    after); checks (c) and (d); check (b) on the first 6 requests; then 8
+    requests through the continuous engine with ``fpisa_seq`` telemetry (the
+    ``serve_fpisa_seq`` path, traced: ``serve.prefill`` / ``serve.decode``
+    spans). Then a decode step and prefills on CUDA events, and
+    ``diagnose`` of a decode step. Returns {path: launches}."""
+    from repro_torch import trace
+    from repro_torch.configs import get_config
+    from repro_torch.core.agg import AggConfig
+    from repro_torch.models.registry import build
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.loadgen import PoissonLoadGen, latency_report
+    from repro_torch.serve.scheduler import ContinuousEngine, _decode_fused
+
+    cfg = get_config("qwen1.5-0.5b")
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    model = build(cfg, device=dev, seed=0)
+    check_paged_equals_dense(torch, dev, model)
+    torch.cuda.empty_cache()
+    arrivals = PoissonLoadGen(rate=SERVE_RATE, prompt_lens=SERVE_PROMPTS, max_new=SERVE_BUDGETS,
+                              vocab_size=cfg.vocab_size, seed=0).trace(SERVE_REQUESTS)
+    requests = [r for _, r in arrivals]
+    paths = {}
+
+    zero_launches()
+    cont = ContinuousEngine(model, num_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                            page_size=SERVE_PAGE, agg=AggConfig(strategy="fpisa"))
+    cont_res = cont.run_trace(arrivals)
+    torch.cuda.synchronize()
+    cont_wall = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    static = ServeEngine(model, batch_size=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                         agg=AggConfig(strategy="fpisa"))
+    static_res = static.run(requests)
+    torch.cuda.synchronize()
+    static_wall = time.perf_counter() - t0
+    paths["serve"] = read_launches()
+    flushes = (check_telemetry(cont, cont_res, "continuous")
+               + check_telemetry(static, static_res, "static"))
+    for k in ("fused_encode_align", "fused_decode"):
+        if paths["serve"][k] != flushes:
+            raise AssertionError(f"serve: {k} launched {paths['serve'][k]} times for "
+                                 f"{flushes} telemetry flushes (one each)")
+    cont_tok = sum(len(r.tokens) for r in cont_res)
+    static_tok = sum(len(r.tokens) for r in static_res)
+    rep = latency_report(cont.latency_stats())
+    log(f"[serve] continuous ({SERVE_SLOTS} slots, max_len {SERVE_MAX_LEN}, pages of "
+        f"{SERVE_PAGE}): {len(cont_res)} requests, {cont_tok} tokens in {cont.last_wall_s:.2f} s "
+        f"(last_wall_s) = {cont_tok / cont.last_wall_s:.1f} tok/s; "
+        f"{cont.telemetry['decode_steps']} decode steps, {cont.telemetry['prefills']} "
+        f"prefill groups; TTFT p50/p99 {rep['ttft_p50']:.2f}/{rep['ttft_p99']:.2f} steps, "
+        f"TPOT p50/p99 {rep['tpot_p50']:.2f}/{rep['tpot_p99']:.2f} steps; peak "
+        f"{cont.cache.peak_pages_in_use} pages x {SERVE_PAGE} = "
+        f"{cont.cache.peak_pages_in_use * SERVE_PAGE} tokens vs dense "
+        f"{cont.cache.dense_equivalent_tokens}; model build + check (a) + run "
+        f"{cont_wall:.2f} s")
+    log(f"[serve] static (batch {SERVE_SLOTS}): {len(static_res)} requests, {static_tok} tokens "
+        f"in {static_wall:.2f} s = {static_tok / static_wall:.1f} tok/s; "
+        f"{static.telemetry['decode_steps']} decode steps, {static.telemetry['slot_steps']} "
+        f"slot steps, truncated_by_packing {static.telemetry['truncated_by_packing']}")
+    log(f"[serve] check (c), (d): telemetry through {cont.aggregator} equals the host counts "
+        f"(continuous {cont.telemetry['requests']} requests / "
+        f"{cont.telemetry['tokens_generated']} tokens, static {static.telemetry['requests']} / "
+        f"{static.telemetry['tokens_generated']}); {flushes} flushes, launches "
+        f"{json.dumps(paths['serve'])}")
+    divergences = check_against_oracle(torch, dev, model, requests[:ORACLE_REQUESTS], cont_res)
+
+    zero_launches()
+    tr = trace.enable()
+    seq = ContinuousEngine(model, num_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                           page_size=SERVE_PAGE, agg=AggConfig(strategy="fpisa_seq"))
+    seq_res = seq.run_trace(arrivals[:SEQ_REQUESTS])
+    trace.disable()
+    paths["serve_fpisa_seq"] = read_launches()
+    seq_flushes = check_telemetry(seq, seq_res, "continuous fpisa_seq")
+    if paths["serve_fpisa_seq"]["fpisa_accum"] != seq_flushes:
+        raise AssertionError(f"serve_fpisa_seq: fpisa_accum launched "
+                             f"{paths['serve_fpisa_seq']['fpisa_accum']} times for "
+                             f"{seq_flushes} telemetry flushes")
+    want = {r.rid: r.tokens for r in cont_res}
+    same = sum(len(r.tokens) == len(want[r.rid]) and bool((r.tokens == want[r.rid]).all())
+               for r in seq_res)
+    spans = {name: [x for x in tr.spans if x["name"] == name]
+             for name in ("serve.prefill", "serve.decode")}
+    by_len = {}
+    for x in spans["serve.prefill"]:
+        by_len.setdefault(x["tags"]["plen"], []).append(
+            (x["tags"]["n"], x["dur"] * 1e3))
+    log(f"[serve] fpisa_seq ({SEQ_REQUESTS} requests, traced: each span waits for the "
+        f"card): {same} of {len(seq_res)} requests' tokens equal the 32-request run's; "
+        f"{seq_flushes} flushes, launches "
+        f"{json.dumps(paths['serve_fpisa_seq'])}; prefill per admission group (prompt length: "
+        f"[(group size, ms)]) {json.dumps(by_len)}; decode step median "
+        f"{statistics.median(x['dur'] for x in spans['serve.decode']) * 1e3:.2f} ms over "
+        f"{len(spans['serve.decode'])} steps (host clock)")
+
+    # a decode step and prefills on CUDA events
+    nxt = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int32, device=dev)
+    table = cont.cache.device_table()  # every slot retired: all on the scratch page
+    lens = torch.zeros((SERVE_SLOTS,), dtype=torch.int64, device=dev)
+
+    def decode():
+        return _decode_fused(model, nxt, cont.cache.k, cont.cache.v, table, lens)
+
+    dense = model.init_cache(SERVE_SLOTS, SERVE_MAX_LEN)._replace(pos=SERVE_MAX_LEN // 2)
+    times = {"decode_paged_ms": median_ms(torch, decode, reps=20),
+             "decode_dense_ms": median_ms(torch, lambda: model.decode_step(nxt, dense),
+                                          reps=20)}
+    del dense
+    for plen in SERVE_PROMPTS:
+        prompt = torch.zeros((1, plen), dtype=torch.int64, device=dev)
+        times[f"prefill_{plen}_ms"] = median_ms(
+            torch, lambda: model.prefill(prompt, model.init_cache(1, plen, rows=1)),
+            reps=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[serve] CUDA events, median: decode step of {SERVE_SLOTS} slots over ({SERVE_SLOTS}, "
+        f"{SERVE_MAX_LEN}) gathered views {times['decode_paged_ms']:.2f} ms, dense "
+        f"{times['decode_dense_ms']:.2f} ms; prefill of one sequence "
+        + ", ".join(f"{p} tokens {times[f'prefill_{p}_ms']:.2f} ms" for p in SERVE_PROMPTS)
+        + f"; peak memory {peak:.2f} GiB; phase {time.perf_counter() - t_phase:.1f} s")
+    log(json.dumps({"serve": {
+        "continuous": {"requests": len(cont_res), "tokens": cont_tok,
+                       "last_wall_s": cont.last_wall_s, "tok_per_s": cont_tok / cont.last_wall_s,
+                       "decode_steps": cont.telemetry["decode_steps"],
+                       "prefills": cont.telemetry["prefills"], "latency_steps": rep,
+                       "peak_pages": cont.cache.peak_pages_in_use},
+        "static": {"requests": len(static_res), "tokens": static_tok, "wall_s": static_wall,
+                   "tok_per_s": static_tok / static_wall,
+                   "decode_steps": static.telemetry["decode_steps"]},
+        "divergences": divergences, "times": times, "peak_gib": peak}}))
+    diagnose(torch, decode, "serve decode (one paged step, 16 slots)")
+    return paths
+
+
 def diagnose(torch, run, what):
     """Where an untraced ``run()`` (an aggregation of the gradients, a
     forward+backward) spends its time: the host's issue time (the host
@@ -1378,6 +1669,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         stacked_launches, stacked_times = stacked_path(torch, dev, tmpdir, leaf_sizes)
         paths.update(stacked_launches)
+        torch.cuda.empty_cache()
+        paths.update(serve_path(torch, dev))
         torch.cuda.empty_cache()
         times = timing(torch, dev, leaf_sizes)
         paths["two_pass"], two_pass_times = two_pass_pipeline(torch, dev, leaf_sizes, par)

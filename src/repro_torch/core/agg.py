@@ -501,6 +501,11 @@ class Aggregator:
                 "instead")
         _check_config(cfg, self.spec)
 
+    def __repr__(self) -> str:
+        return (f"Aggregator(strategy={self.spec.name!r}, backend={self.cfg.backend!r}, "
+                f"stacked={self.stacked}, chunk_elems={self.cfg.chunk_elems}, "
+                f"bucket_bytes={self.cfg.bucket_bytes})")
+
     def allreduce(self, x: torch.Tensor) -> torch.Tensor:
         """Aggregate one tensor over the group (a new tensor; x is not
         modified); with ``stacked``, over its leading logical-worker axis

@@ -1,4 +1,4 @@
-"""Causal GQA attention for training (torch port of the training path of
+"""Causal GQA attention for training and serving (torch port of
 ``repro.models.attention``).
 
 ``causal_attention`` computes what the reference's ``chunked_attention``
@@ -6,12 +6,22 @@ computes, as one full (S, S) score matrix: scores from the compute-dtype
 product, upcast to float32 and scaled, the causal mask at -1e30, a float32
 softmax, and the weights cast back to the compute dtype before the product
 with V. The reference streams (q, kv) chunk pairs with an online softmax;
-the two agree to float rounding. A fast attention kernel is later work, and
-so are the decode paths (serving slice).
+the two agree to float rounding. A fast attention kernel is later work.
+
+Serving: ``attention_prefill`` (full-sequence attention that writes K/V at
+[0, S) of a dense cache), ``attention_decode`` (one new token per row at a
+shared position ``pos``) and ``attention_decode_paged`` (per-row positions
+over a global page pool). The caches are written IN PLACE (``index_put_``;
+the reference donates them to XLA), never copied whole. Decode keeps the
+reference's grouped ``(b, kvh, g, hd)`` form and its dtype steps: scores
+from the compute-dtype product, upcast to float32 and divided by
+sqrt(head_dim), masked at -1e30, softmax in float32, weights cast back to
+the cache dtype before the product with V.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -43,12 +53,17 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, h * hd)).unflatten(-1, (h, hd))
 
 
-def _qkv(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor | None = None):
+def _qkv(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor | None = None,
+         angles=None):
+    """q, k, v with RoPE at ``positions``, or at precomputed ``angles``
+    (``rope_angles`` of them, shared by every layer of one step)."""
     q, k, v = _project(x, p["wq"]), _project(x, p["wk"]), _project(x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    if positions is not None:
-        cos, sin = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    if angles is None and positions is not None:
+        angles = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    if angles is not None:
+        cos, sin = angles
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     return q, k, v
 
@@ -73,9 +88,123 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
     return (w.to(v.dtype) @ vh).transpose(1, 2)
 
 
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") as one matrix product."""
+    h, hd, d = wo.shape
+    return out.flatten(-2) @ wo.reshape(h * hd, d)
+
+
 def attention_train(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor) -> torch.Tensor:
     q, k, v = _qkv(p, x, cfg, positions)
     k, v = _repeat_kv(k, v, cfg)
-    out = causal_attention(q, k, v)
-    h, hd, d = p["wo"].shape
-    return out.flatten(-2) @ p["wo"].reshape(h * hd, d)
+    return _out_proj(causal_attention(q, k, v), p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, Smax, K, hd)
+    v: torch.Tensor
+
+
+def init_kv_cache(batch: int, max_len: int, cfg, dtype, device) -> KVCache:
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def attention_prefill(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
+                      cache: KVCache):
+    """Full-sequence causal attention; k/v are written into the cache at
+    [0, S), in place. Returns (out (B, S, d), cache)."""
+    q, k, v = _qkv(p, x, cfg, positions)
+    s = x.shape[1]
+    cache.k[:, :s] = k.to(cache.k.dtype)
+    cache.v[:, :s] = v.to(cache.v.dtype)
+    k, v = _repeat_kv(k, v, cfg)
+    return _out_proj(causal_attention(q, k, v), p["wo"]), cache
+
+
+def _attend_one(p: dict, q: torch.Tensor, keys: torch.Tensor, values: torch.Tensor,
+                valid: torch.Tensor, cfg) -> torch.Tensor:
+    """One query token per row over a cache view: q (B, 1, H, hd); keys,
+    values (B, S, K, hd); valid bool (B or 1, S). Returns (B, 1, d)."""
+    b, hd, kvh = q.shape[0], cfg.resolved_head_dim, cfg.num_kv_heads
+    qf = q.reshape(b, kvh, cfg.num_heads // kvh, hd)
+    scores = torch.einsum("bkgh,bskh->bkgs", qf, keys).to(torch.float32)
+    scores = scores / math.sqrt(hd)
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskh->bkgh", w.to(values.dtype), values)
+    return _out_proj(out.reshape(b, 1, cfg.num_heads, hd), p["wo"])
+
+
+def attention_decode(p: dict, x: torch.Tensor, cfg, cache: KVCache, pos: int,
+                     angles=None):
+    """x: (B, 1, d); pos: the index of the new token (an int, the same for
+    every row). Writes its k/v at ``pos`` in place and attends over
+    cache[0..pos]. ``angles`` are the RoPE angles of ``pos``, computed once
+    per step. Returns (out (B, 1, d), cache)."""
+    if angles is None:
+        positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
+        angles = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    q, k, v = _qkv(p, x, cfg, angles=angles)
+    cache.k[:, pos] = k[:, 0].to(cache.k.dtype)
+    cache.v[:, pos] = v[:, 0].to(cache.v.dtype)
+    valid = (torch.arange(cache.k.shape[1], device=x.device) <= pos)[None]
+    return _attend_one(p, q, cache.k, cache.v, valid, cfg), cache
+
+
+class PagedIndex(NamedTuple):
+    """What one paged decode step computes once for all its layers: the
+    physical (page, offset) each row writes its new k/v at, the valid
+    positions of each row's gathered view, and the RoPE angles."""
+    page_table: torch.Tensor  # (B, MP) int64
+    write_page: torch.Tensor  # (B,) int64
+    write_off: torch.Tensor   # (B,) int64
+    valid: torch.Tensor       # (B, MP * page) bool
+    angles: tuple             # (cos, sin), (B, 1, hd // 2) float32
+
+
+def paged_index(cfg, page_table: torch.Tensor, lens: torch.Tensor, page: int) -> PagedIndex:
+    table, lens = page_table.long(), lens.long()
+    write_page = table.gather(1, (lens // page)[:, None])[:, 0]
+    span = torch.arange(table.shape[1] * page, device=lens.device)
+    return PagedIndex(table, write_page, lens % page, span[None, :] <= lens[:, None],
+                      rope_angles(lens[:, None], cfg.resolved_head_dim, cfg.rope_theta))
+
+
+def attention_decode_paged(p: dict, x: torch.Tensor, cfg, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, page_table: torch.Tensor,
+                           lens: torch.Tensor, index: PagedIndex | None = None):
+    """Paged-cache decode step for ONE layer.
+
+    x: (B, 1, d); k_pool/v_pool: (NP, page, K, hd), this layer's slice of
+    the global page pool (page id 0 is reserved scratch); page_table:
+    (B, MP) page ids per slot; lens: (B,) tokens already cached per slot
+    (the position the new token is written at). ``index`` is
+    :func:`paged_index` of (page_table, lens), computed once per step.
+
+    Slot j writes its new k/v at page ``page_table[j, lens[j] // page]``,
+    offset ``lens[j] % page``, in place, then attends over the gathered
+    ``(MP * page,)`` view of its own pages, masked at ``<= lens[j]``. With
+    ``MP * page == max_len`` the gathered view has the dense cache's shape
+    and values at every unmasked position, so the result equals
+    :func:`attention_decode`'s bit for bit. Live slots own disjoint pages;
+    idle slots all write to scratch page 0, which no live slot reads, so
+    the duplicate indices of that write are harmless.
+
+    Returns (out (B, 1, d), k_pool, v_pool)."""
+    b = x.shape[0]
+    hd, kvh = cfg.resolved_head_dim, cfg.num_kv_heads
+    if index is None:
+        index = paged_index(cfg, page_table, lens, k_pool.shape[1])
+    q, k, v = _qkv(p, x, cfg, angles=index.angles)
+    k_pool.index_put_((index.write_page, index.write_off), k[:, 0].to(k_pool.dtype))
+    v_pool.index_put_((index.write_page, index.write_off), v[:, 0].to(v_pool.dtype))
+    keys = k_pool[index.page_table].reshape(b, -1, kvh, hd)  # (B, MP*page, K, hd)
+    values = v_pool[index.page_table].reshape(b, -1, kvh, hd)
+    return _attend_one(p, q, keys, values, index.valid, cfg), k_pool, v_pool

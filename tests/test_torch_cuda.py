@@ -9,7 +9,10 @@ cuda backend against the plain per-leaf aggregation; stacked (logical-worker)
 ``fpisa`` (K1/K2 once per leaf over k = 2, 4, 8 workers) and ``fpisa_seq``
 (K6 at W = 2, 4, 8) against the plain stacked aggregation; checkpoint round
 trips of CUDA bf16 and fp32 tensors; and the backward's bits repeated under
-``runtime.elastic.reproducible``. These tests need an NVIDIA GPU and nvcc;
+``runtime.elastic.reproducible``; serving on the card (prefill, dense and
+paged decode against the CPU plain path, paged == dense and batch-invariant
+rows bit for bit) and serving telemetry through K1/K2 and K6. These tests
+need an NVIDIA GPU and nvcc;
 elsewhere they skip. They import nothing of JAX, so the GPU machine runs them with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 """
@@ -411,3 +414,71 @@ def test_reproducible_repeats_the_backward_bits(dev):
     for r in runs[1:]:
         for a, b in zip(runs[0], r):
             assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _serving_pair(dev, **cfg_kw):
+    """The smoke model from one seeded parameter tree, on the CPU and on
+    the card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import build
+
+    cfg = get_smoke_config("qwen1.5-0.5b").with_(**cfg_kw)
+    params = transformer.init_lm(cfg, torch.Generator().manual_seed(0))
+    return (build(cfg, device=torch.device("cpu"), params=params),
+            build(cfg, device=dev, params=params))
+
+
+@pytest.mark.parametrize("kv_heads", [4, 2])
+def test_serving_decode_on_the_card_matches_cpu(dev, kv_heads):
+    """prefill, decode_step and decode_step_paged on the card against the
+    CPU plain path (float32, TF32 off), within 2e-5; on the card paged ==
+    dense and a row alone == the row in a batch, bit for bit."""
+    from repro_torch.serve.kvcache import PagedKVCache
+
+    cpu_m, card_m = _serving_pair(dev, num_kv_heads=kv_heads)
+    prompts = torch.from_numpy(np.random.default_rng(3).integers(0, 512, (3, 10)))
+    nxt = torch.from_numpy(np.random.default_rng(4).integers(0, 512, (3, 1)))
+    out = {}
+    for name, m, d in (("cpu", cpu_m, torch.device("cpu")), ("card", card_m, dev)):
+        logits, cache = m.prefill(prompts.to(d), m.init_cache(3, 32))
+        paged = PagedKVCache(m.cfg, num_slots=3, max_len=32, page_size=8, device=d)
+        for j in range(3):
+            paged.grow_slot(j, 11)
+            paged.write_prompt(j, cache.kv.k[:, j, :10], cache.kv.v[:, j, :10])
+        dense, _ = m.decode_step(nxt.to(d), cache)
+        lens = torch.full((3,), 10, device=d)
+        pg, _, _ = m.decode_step_paged(nxt.to(d), paged.k, paged.v, paged.device_table(), lens)
+        alone, _, _ = m.decode_step_paged(nxt[1:2].to(d), paged.k, paged.v,
+                                          paged.device_table()[1:2], lens[1:2])
+        out[name] = (logits.cpu(), dense.cpu(), pg.cpu(), alone.cpu())
+    for a, b in zip(out["card"], out["cpu"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=2e-5)
+    _, dense, pg, alone = out["card"]
+    assert torch.equal(dense, pg) and torch.equal(alone[0], pg[1])
+
+
+@pytest.mark.parametrize("strategy, kernel", [("fpisa", "encode_align"),
+                                              ("fpisa", "decode_fused"),
+                                              ("fpisa_seq", "accum")])
+def test_serving_telemetry_launches_the_kernels(dev, strategy, kernel):
+    """The continuous engine on the card with ``strategy`` telemetry: one
+    launch of the kernel per telemetry flush, exact totals, and the same
+    tokens as without telemetry."""
+    from repro_torch.serve.engine import Request
+    from repro_torch.serve.scheduler import ContinuousEngine
+
+    _, card_m = _serving_pair(dev)
+    rng = np.random.default_rng(8)
+    reqs = [Request(i, rng.integers(0, 512, 5).astype(np.int32), 4) for i in range(5)]
+    plain = {r.rid: r.tokens for r in
+             ContinuousEngine(card_m, num_slots=2, max_len=16, page_size=8).run(reqs)}
+    fn = getattr(ops, kernel)
+    before = fn.launches
+    eng = ContinuousEngine(card_m, num_slots=2, max_len=16, page_size=8,
+                           agg=AggConfig(strategy=strategy))
+    res = eng.run(reqs)
+    assert fn.launches - before == eng.telemetry_channel.reductions >= 1
+    assert eng.telemetry["requests"] == 5 and eng.telemetry["tokens_generated"] == 20
+    for r in res:
+        np.testing.assert_array_equal(r.tokens, plain[r.rid])

@@ -70,4 +70,7 @@ def test_guard_sees_the_whole_port():
             "src/repro_torch/trace/tracer.py", "src/repro_torch/trace/export.py",
             "src/repro_torch/trace/cli.py", "src/repro_torch/autotune/costmodel.py",
             "src/repro_torch/autotune/search.py", "src/repro_torch/autotune/profile.py",
-            "chip_smoke.py"} <= names
+            "src/repro_torch/serve/engine.py", "src/repro_torch/serve/scheduler.py",
+            "src/repro_torch/serve/kvcache.py", "src/repro_torch/serve/loadgen.py",
+            "src/repro_torch/launch/serve.py", "src/repro_torch/models/attention.py",
+            "src/repro_torch/models/transformer.py", "chip_smoke.py"} <= names
