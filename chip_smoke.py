@@ -110,11 +110,43 @@ paths' rows at that step (each divergence printed); 8 requests with
 traced); a decode step and prefills on CUDA events; ``[diagnose] serve
 decode``.
 
+Then the switch dataplane (``switchsim_path``, ``[switchsim]`` lines; the
+dataplane runs as torch ops on the card, as the reference runs it as jitted
+``jnp``): (a) the card's ``BatchedDataplane`` equals the port's numpy
+dataplane on the host and the per-packet ``FpisaSwitch`` on the card, bits
+and counters, at a small size (both variants, P = 1 and 4, drop 0 and 0.3,
+a worker failure, J = 2 with overlapping quotas and priorities (1, 0));
+(b) the full-size stream: one full-width qwen1.5-0.5b MLP leaf (24 x 1024 x
+2816 = 69,206,016 elements) from each of 4 workers through 4 pipelines x
+256 slots (G = 2048, a window of 1024 chunks, up to 4,096 packets a driver
+round), both variants at drop 0 and 0.01, each result held bit for bit
+against K6 in arrival order (the chunks grouped by their arrival
+permutation, one ``ops.accum`` per group: the ``switchsim`` path's K6
+launches, counted from zero over (a) and (b)); driver and inner rounds,
+packets/s, stats, host wall and CUDA-event time, and one driver round's
+device call profiled (host issue, events, kernels, launches per inner
+round, device busy share); (c) that stream and a one-port
+``StreamedGroupBySum`` query stream on one dataplane, ``job_workers=(4,
+1)``, priorities (1, 0): disjoint quotas (each job bit-equal to its
+single-tenant run), then a shared pool (query totals within rel 1e-4 of the
+full scan), with done_round, job_stats and Jain fairness; (d) two
+``switch_emu`` Aggregators on one named dataplane, card == CPU bits.
+Then in-switch query processing (``query_path``, ``[query]`` lines): (e)
+the uservisits adRevenue column (AMPLab Big Data Benchmark; gamma(2, 50),
+float32, numpy seed 1) on the card: Top-10 over 50,000,000 rows in batches
+of 1,048,576, exact against the full scan, with its prune rate; group-by
+SUM of 64 groups over 2,000,000 rows (``full``): the timed run's planes
+equal to the CPU's over the same rows, its totals within rel 2e-3 of
+``spark_like_groupby``, rows/s on the card and the baseline's on the host;
+(f) ``python -m repro_torch.launch.query`` on the card. Every time is
+printed beside the card's name and power limit.
+
 In the ``kernels`` line, ``launches`` is a kernel's launches summed over
 every path above that ran it (main, ``fpisa_seq``, bucketed, stacked
 ``fpisa``, stacked ``fpisa_seq``, ``serve``, ``serve_fpisa_seq``, the
-two-pass pipeline) and ``launches_by_path`` names each path's count, every
-path's counts zeroed just before it and read just after.
+two-pass pipeline, ``switchsim``) and ``launches_by_path`` names each
+path's count, every path's counts zeroed just before it and read just
+after.
 
 The line before the last is ``{"kernels": [...]}`` with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -126,6 +158,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -170,6 +203,14 @@ SERVE_SLOTS, SERVE_MAX_LEN, SERVE_PAGE = 16, 1024, 16
 SERVE_REQUESTS, SERVE_RATE = 32, 0.5
 SERVE_PROMPTS, SERVE_BUDGETS = (64, 256, 512), (32, 64, 128)
 ORACLE_REQUESTS, SEQ_REQUESTS = 6, 8
+# the switchsim phase: one full-width qwen1.5-0.5b MLP leaf (24 layers x d_model
+# 1024 x d_ff 2816) from each of 4 workers, through 4 pipelines x 256 slots
+STREAM_WORKERS, STREAM_ELEMS = 4, 24 * 1024 * 2816
+SWITCH_SLOTS, SWITCH_PIPES = 256, 4
+# the query phase: the uservisits adRevenue column (AMPLab Big Data Benchmark)
+QUERY_ROWS, QUERY_BATCH = 50_000_000, 1_048_576
+GROUPS, GROUP_ROWS = 64, 2_000_000
+CARD = "card not read yet"    # nvidia-smi's name and power limit, beside every number
 
 
 def accum_ops_per_elem(workers: int) -> int:
@@ -196,6 +237,8 @@ def card_facts(torch):
     log(f"[card] torch.cuda.get_device_name: {name}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, device_count {torch.cuda.device_count()}")
     log(smi[0])
+    global CARD
+    CARD = smi[0].strip()
     log(f"[card] allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     return name
@@ -1320,32 +1363,18 @@ def diagnose(torch, run, what):
     Issue time near the event time means the host sets the pace and the
     card waits."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     run()
     torch.cuda.synchronize()
     segments = torch.cuda.memory_stats().get("segment.all.allocated", 0)
-    issue, device = [], []
-    for _ in range(5):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        t0 = time.perf_counter()
-        run()
-        issue.append((time.perf_counter() - t0) * 1e3)
-        end.record()
-        end.synchronize()
-        device.append(start.elapsed_time(end))
+    issue, device = issue_vs_device(torch, run)
     segments = torch.cuda.memory_stats().get("segment.all.allocated", 0) - segments
-    head = (f"[diagnose] {what}: host issue {statistics.median(issue):.2f} ms, CUDA events "
-            f"{statistics.median(device):.2f} ms (median of 5); {segments} new allocator "
+    head = (f"[diagnose] {what}: host issue {issue:.2f} ms, CUDA events "
+            f"{device:.2f} ms (median of 5); {segments} new allocator "
             f"segments in those 5 runs; profiled run: kernel time ")
-    try:  # the profiler is a measurement only: without it the line says so
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-    except RuntimeError as e:
-        log(head + f"not measured (torch.profiler failed: {e})")
+    events = profiled_events(torch, run)
+    if events is None:
+        log(head + "not measured (torch.profiler failed)")
         return
 
     def device_us(e):
@@ -1623,6 +1652,445 @@ def switch_emu_smoke(torch, dev):
         f"bit-equal to fpisa_seq (K6 on the card)")
 
 
+# ---------------------------------------------------------------------------
+# the sixth slice: the switch dataplane and in-switch query processing
+# ---------------------------------------------------------------------------
+
+
+def smoke_vectors(workers, n, seed, scale=1e-3):
+    """Gradient-like (workers, n) float32 rows from a numpy seed."""
+    import numpy as np
+
+    v = np.random.default_rng(seed).standard_normal((workers, n), dtype=np.float32)
+    v *= np.float32(scale)
+    return v
+
+
+def same_f32(a, b):
+    import numpy as np
+
+    return np.array_equal(np.ascontiguousarray(a, np.float32).view(np.int32),
+                          np.ascontiguousarray(b, np.float32).view(np.int32))
+
+
+def profiled_events(torch, run):
+    """torch.profiler's ``key_averages()`` of one ``run()``, or None when the
+    profiler fails (it is a measurement only: the line then says so)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    except RuntimeError:
+        return None
+    return prof.key_averages()
+
+
+def device_profile(torch, run):
+    """(kernel ms, kernel launches) of one ``run()`` from torch.profiler, or
+    None when the profiler records no device time."""
+    from torch.autograd import DeviceType
+
+    events = profiled_events(torch, run) or []
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total", 0) for e in kernels) / 1e3
+    return (busy, sum(e.count for e in kernels)) if busy else None
+
+
+def host_split(fn, funcs):
+    """cProfile of ``fn()``: (host wall s, {label: cumulative s}) for each
+    function of ``funcs`` ({label: function}), matched by its code object."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    fn()
+    prof.disable()
+    wall = time.perf_counter() - t0
+    codes = {(f.__code__.co_filename, f.__code__.co_firstlineno, f.__code__.co_name): label
+             for label, f in funcs.items()}
+    out = dict.fromkeys(funcs, 0.0)
+    for key, (_, _, _, cumulative, _) in pstats.Stats(prof).stats.items():
+        if key in codes:
+            out[codes[key]] += cumulative
+    return wall, out
+
+
+def issue_vs_device(torch, run, reps=5):
+    """Host issue time (host clock, no synchronize) and CUDA-event time of
+    ``run()``, medians of ``reps`` (the caller warms up)."""
+    issue, device = [], []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        run()
+        issue.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        end.synchronize()
+        device.append(start.elapsed_time(end))
+    return statistics.median(issue), statistics.median(device)
+
+
+def timed(torch, fn):
+    """(result, host wall s, CUDA-event s) of ``fn()``, ending in a
+    synchronize."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, time.perf_counter() - t0, start.elapsed_time(end) / 1e3
+
+
+def switchsim_parity(torch, dev):
+    """Check (a): the card's BatchedDataplane against the port's numpy
+    dataplane on the host and the per-packet FpisaSwitch on the card, at a
+    small size: both variants, P = 1 and 4, drop 0 and 0.3, a worker
+    failure, and J = 2 with overlapping quotas and priorities (1, 0); bits
+    and counters."""
+    from repro_torch import switchsim
+    from repro_torch.core import switch as legacy
+
+    vec = smoke_vectors(4, 40 * 256, seed=1, scale=1.0)
+    cases = 0
+    for variant in ("fpisa_a", "full"):
+        for pipes in (1, 4):
+            for drop, fail in ((0.0, None), (0.3, None), (0.3, 2)):
+                kw = dict(num_workers=4, num_slots=4, num_pipelines=pipes, variant=variant)
+                fabric = dict(drop_prob=drop, seed=3)
+                if fail is not None:
+                    fabric.update(fail_worker=fail, fail_round=3)
+                card = switchsim.BatchedDataplane(switchsim.DataplaneConfig(**kw), device=dev)
+                host = switchsim.NumpyDataplane(switchsim.DataplaneConfig(**kw))
+                got = switchsim.run_aggregation(card, vec, **fabric)
+                want = switchsim.run_aggregation(host, vec, **fabric)
+                if not (same_f32(got, want) and card.stats == host.stats):
+                    raise AssertionError(f"[switchsim] (a) card != numpy: {kw} {fabric}: "
+                                         f"{card.stats} vs {host.stats}")
+                cases += 1
+                if pipes == 1 and fail is None:
+                    sw = legacy.FpisaSwitch(legacy.SwitchConfig(
+                        num_workers=4, num_slots=4, variant=variant), device=dev)
+                    per_packet = switchsim.run_aggregation(sw, vec[:, :16 * 256], **fabric)
+                    if not same_f32(per_packet, switchsim.run_aggregation(
+                            switchsim.NumpyDataplane(switchsim.DataplaneConfig(**kw)),
+                            vec[:, :16 * 256], **fabric)):
+                        raise AssertionError(f"[switchsim] (a) per-packet != numpy: {kw}")
+                    cases += 1
+    kw = dict(num_workers=5, num_slots=8, num_pipelines=2, num_jobs=2, job_slots=(8, 6),
+              job_workers=(4, 1), job_priorities=(1, 0), stale_after=2)
+    vs = [vec, smoke_vectors(1, 20 * 256, seed=2, scale=1.0)]
+    out = {}
+    for name, dp in (("card", switchsim.BatchedDataplane(switchsim.DataplaneConfig(**kw),
+                                                         device=dev)),
+                     ("host", switchsim.NumpyDataplane(switchsim.DataplaneConfig(**kw)))):
+        out[name] = switchsim.run_multitenant(dp, vs, drop_prob=0.2, seed=4)
+    (fc, rc), (fh, rh) = out["card"], out["host"]
+    if not (all(same_f32(a, b) for a, b in zip(fc, fh)) and rc == rh):
+        raise AssertionError(f"[switchsim] (a) J = 2 card != numpy: {rc} vs {rh}")
+    log(f"[switchsim] check (a): the card's BatchedDataplane == the numpy dataplane "
+        f"(bits, stats) in {cases} single-tenant cases (fpisa_a/full x P 1/4 x drop 0/0.3, "
+        f"a worker failure; FpisaSwitch per packet on the card at P = 1), and J = 2 "
+        f"(overlapping quotas (8, 6), priorities (1, 0), drop 0.2): bits, job_stats "
+        f"{rc['job_stats']}, done_round {rc['done_round']}")
+
+
+def check_against_k6(torch, dev, vec3, out, arrivals, variant):
+    """The stream's result against K6 in arrival order: the chunks grouped
+    by their arrival permutation, each group's permuted (W, n, 256) stack
+    through ``ops.accum``. Returns the number of groups."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+
+    w, nchunks, e = vec3.shape
+    perms = np.array([arrivals[c] for c in range(nchunks)], np.int64)
+    got = out.reshape(nchunks, e)
+    groups, inverse = np.unique(perms, axis=0, return_inverse=True)
+    for g, perm in enumerate(groups):
+        idx = np.nonzero(inverse.reshape(-1) == g)[0]
+        stack = torch.from_numpy(vec3[:, idx][perm]).to(dev)
+        want = ops.accum(stack, variant, "fp32").cpu().numpy()
+        if not same_f32(got[idx], want):
+            raise AssertionError(f"[switchsim] (b) {variant}: chunks of arrival order "
+                                 f"{perm.tolist()} differ from K6")
+    return len(groups)
+
+
+def switchsim_stream(torch, dev, vecs):
+    """Check (b): the full-size stream, (W, N) = ``vecs``, through the card's
+    BatchedDataplane (4 pipelines x 256 slots: G = 2048, a window of 1024
+    chunks) for both variants at drop 0 and 0.01, each result held against
+    K6 in arrival order; then one driver round's ingest call profiled."""
+    import numpy as np
+
+    from repro_torch import switchsim
+    from repro_torch.switchsim import dataplane
+
+    w, n = vecs.shape
+    vec3 = vecs.reshape(w, -1, 256)
+    rows = {}
+    for variant in ("fpisa_a", "full"):
+        cfg = switchsim.DataplaneConfig(num_workers=w, num_slots=SWITCH_SLOTS,
+                                        elems_per_packet=256, num_pipelines=SWITCH_PIPES,
+                                        variant=variant)
+        for drop in (0.0, 0.01):
+            dp = switchsim.BatchedDataplane(cfg, device=dev)
+            (out, arrivals), wall, events = timed(torch, lambda: switchsim.run_aggregation(
+                dp, vecs, drop_prob=drop, seed=5, record_arrivals=True, max_rounds=100_000))
+            groups = check_against_k6(torch, dev, vec3, out, arrivals, variant)
+            st = dp.stats
+            sent = st["packets"] + st["duplicates"] + st["stale"] + st["admission_denied"]
+            rounds = dp.last_now + 1
+            rows[(variant, drop)] = dict(driver_rounds=rounds, calls=dp.calls,
+                                         inner_rounds=dp.rounds_run, wall_s=wall,
+                                         events_s=events, packets_per_s=sent / wall, stats=st)
+            log(f"[switchsim] (b) {variant}, drop {drop}: {w} x {n:,} elements "
+                f"({vec3.shape[1]:,} chunks of 256), G = {cfg.total_slots}, window "
+                f"{cfg.window}: equal to K6 in arrival order, bit for bit ({groups} arrival "
+                f"order{'s' if groups > 1 else ''}); {rounds} driver rounds, {dp.calls} "
+                f"device calls, {dp.rounds_run} inner rounds; host wall {wall:.3f} s, CUDA "
+                f"events {events:.3f} s; {sent:,} packets, {sent / wall:,.0f} packets/s; "
+                f"stats {st}; {CARD}")
+    # one driver round's device call (4,096 packets, 4 inner rounds) alone
+    cfg = switchsim.DataplaneConfig(num_workers=w, num_slots=SWITCH_SLOTS, elems_per_packet=256,
+                                    num_pipelines=SWITCH_PIPES)
+    state = dataplane.init_state(cfg, dev)
+    b = w * cfg.window
+    wk = torch.arange(w, device=dev).repeat_interleave(cfg.window).int()
+    ck = torch.arange(cfg.window, device=dev).repeat(w).int()
+    pl = torch.from_numpy(np.ascontiguousarray(vec3[:, :cfg.window].reshape(b, 256))).to(dev)
+    ones = torch.ones(b, dtype=torch.bool, device=dev)
+    jobs = torch.zeros(b, dtype=torch.int32, device=dev)
+
+    def call():
+        return dataplane.ingest_batch(state, wk, ck, pl, ones, jobs, 0, cfg=cfg, rounds=w)
+
+    call()
+    torch.cuda.synchronize()
+    issue, device = issue_vs_device(torch, call)
+    prof = device_profile(torch, call)
+    lossless = rows[("fpisa_a", 0.0)]
+    per_round_ms = lossless["wall_s"] * 1e3 / lossless["driver_rounds"]
+    busy = "not measured (the profiler recorded no device time)" if prof is None else (
+        f"kernels {prof[0]:.3f} ms in {prof[1]} launches = {prof[1] / w:.1f} per inner round; "
+        f"device busy {100 * prof[0] / device:.1f} % of the call's events, "
+        f"{100 * prof[0] / per_round_ms:.1f} % of a lossless driver round's host wall "
+        f"{per_round_ms:.3f} ms")
+    log(f"[switchsim] (b) one driver round's device call ({b} packets, {w} inner rounds, "
+        f"fpisa_a): host issue {issue:.3f} ms, CUDA events {device:.3f} ms (median of 5); "
+        f"{busy}; {CARD}")
+    # where a driver round's host time goes: cProfile over the first 30 windows
+    from repro_torch.core import fpisa
+
+    part = np.ascontiguousarray(vecs[:, :30 * cfg.window * 256])
+    dp = switchsim.BatchedDataplane(cfg, device=dev)
+    wall, split = host_split(
+        lambda: switchsim.run_aggregation(dp, part, record_arrivals=True),
+        {"driver": dataplane._drive_rounds, "handle": dataplane.BatchedDataplane.ingest_batch,
+         "device_fn": dataplane.ingest_batch, "renormalize": fpisa.renormalize})
+    r = dp.last_now + 1
+    log(f"[switchsim] (b) host split of a {r}-round lossless fpisa_a run (cProfile, which "
+        f"slows every Python call): {1e3 * wall / r:.2f} ms a driver round = the dataplane's "
+        f"torch calls {1e3 * split['device_fn'] / r:.2f} ms (of which the always-computed "
+        f"renormalize {1e3 * split['renormalize'] / r:.2f} ms) + the host handle's padding "
+        f"and copies {1e3 * (split['handle'] - split['device_fn']) / r:.2f} ms + the driver's "
+        f"numpy and Python {1e3 * (split['driver'] - split['handle']) / r:.2f} ms; {CARD}")
+    return {f"{v}@{d}": r for (v, d), r in rows.items()}
+
+
+def switchsim_tenancy(torch, dev, vecs, keys, values):
+    """Check (c): the training stream and a one-port StreamedGroupBySum query
+    stream on one card dataplane, ``job_workers=(4, 1)``, priorities (1, 0):
+    disjoint quotas (each job bit-equal to its single-tenant run), then a
+    fully shared pool (query totals within rel 1e-4 of the full scan)."""
+    from repro_torch import switchsim
+    from repro_torch.db import query as q
+
+    gb = q.StreamedGroupBySum(num_groups=GROUPS, elems_per_packet=256)
+    qvec = gb.vectors(keys, values, batch=4096)
+    want = q.spark_like_groupby(keys, values)
+    w = vecs.shape[0]
+    base = dict(num_workers=w, num_slots=SWITCH_SLOTS, elems_per_packet=256,
+                num_pipelines=SWITCH_PIPES, num_jobs=2, job_workers=(w, 1),
+                job_priorities=(1, 0))
+    quotas = (SWITCH_SLOTS - SWITCH_SLOTS // 4, SWITCH_SLOTS // 4)
+    for name, extra in (("disjoint", dict(job_slots=quotas)), ("shared", {})):
+        cfg = switchsim.DataplaneConfig(**base, **extra)
+        dp = switchsim.BatchedDataplane(cfg, device=dev)
+        ((tflat, qflat), rep), wall, events = timed(
+            torch, lambda: switchsim.run_multitenant(dp, [vecs, qvec], max_rounds=100_000))
+        got = gb.finalize(qflat)
+        worst = max(abs(got[k] - v) / abs(v) for k, v in want.items())
+        if name == "disjoint":
+            for j, (vals, flat) in enumerate(((vecs, tflat), (qvec, qflat))):
+                alone = switchsim.BatchedDataplane(switchsim.DataplaneConfig(
+                    num_workers=vals.shape[0], num_slots=quotas[j], elems_per_packet=256,
+                    num_pipelines=SWITCH_PIPES), device=dev)
+                if not same_f32(flat, switchsim.run_aggregation(alone, vals, max_rounds=100_000)):
+                    raise AssertionError(f"[switchsim] (c) disjoint quotas: job {j} differs "
+                                         f"from its single-tenant run")
+        if worst > 1e-4:
+            raise AssertionError(f"[switchsim] (c) {name}: query totals off by rel {worst:.2e}")
+        rates = [s["packets"] / d for s, d in zip(rep["job_stats"], rep["done_round"])]
+        log(f"[switchsim] (c) {name} pool{' ' + str(quotas) if extra else ''}: training "
+            f"{vecs.shape[0]} x {vecs.shape[1]:,} + query {len(keys):,} rows in "
+            f"{qvec.shape[1] // 256} packets: done_round {rep['done_round']} of "
+            f"{rep['rounds']}; job_stats {rep['job_stats']}; Jain fairness of packets per "
+            f"round {switchsim.jain_fairness(rates):.4f}; query totals within rel "
+            f"{worst:.2e} of spark_like_groupby"
+            + ("; each job bit-equal to its single-tenant run" if extra else "")
+            + f"; host wall {wall:.3f} s, CUDA events {events:.3f} s; {CARD}")
+
+
+def switchsim_shared_agg(torch, dev):
+    """Check (d): two switch_emu Aggregators share one named dataplane at
+    smoke size, on the card's tensors (the NCCL group); the bits of the same
+    on CPU tensors (a one-rank gloo group)."""
+    import torch.distributed as dist
+
+    from repro_torch import switchsim
+    from repro_torch.core.agg import AggConfig, Aggregator
+
+    xs = [torch.from_numpy(smoke_vectors(1, 3000, seed=20 + j)[0]) for j in (0, 1)]
+    cpu_group = dist.new_group(backend="gloo") if dist.is_initialized() else None
+    outs = {}
+    for label, where, group in (("card", dev, None), ("cpu", torch.device("cpu"), cpu_group)):
+        switchsim.reset_shared_dataplanes()
+        outs[label] = [Aggregator(AggConfig(
+            strategy="switch_emu", switch_shared="chip-smoke", switch_jobs=2,
+            switch_job=j), group).allreduce(x.to(where)).cpu().numpy()
+            for j, x in enumerate(xs)]
+        stats = switchsim.shared_dataplane("chip-smoke", switchsim.DataplaneConfig(
+            num_workers=1, num_jobs=2, job_workers=(1, 1))).job_stats
+        if not all(s["packets"] > 0 for s in stats):
+            raise AssertionError(f"[switchsim] (d) a tenant sent nothing: {stats}")
+    switchsim.reset_shared_dataplanes()
+    if not all(same_f32(a, b) for a, b in zip(outs["card"], outs["cpu"])):
+        raise AssertionError("[switchsim] (d) shared switch_emu: card != CPU")
+    log(f"[switchsim] check (d): two switch_emu Aggregators (switch_job 0, 1) on one named "
+        f"dataplane, card tensors == CPU tensors bit for bit; job_stats {stats}")
+
+
+def switchsim_path(torch, dev, vecs, keys, values):
+    """The sixth slice's dataplane phase; K6 is the oracle of (b), so its
+    launches are the ``switchsim`` path's (counts zeroed just before (a),
+    read just after (b))."""
+    t0 = time.perf_counter()
+    zero_launches()
+    switchsim_parity(torch, dev)
+    streams = switchsim_stream(torch, dev, vecs)
+    launches = read_launches()
+    if launches["fpisa_accum"] == 0:
+        raise AssertionError("[switchsim] K6 never ran as the stream's oracle")
+    switchsim_tenancy(torch, dev, vecs, keys, values)
+    switchsim_shared_agg(torch, dev)
+    log(json.dumps({"switchsim_launches": {"fpisa_accum": launches["fpisa_accum"]},
+                    "streams": streams}))
+    log(f"[switchsim] phase {time.perf_counter() - t0:.1f} s")
+    return {"fpisa_accum": launches["fpisa_accum"]}
+
+
+def uservisits():
+    """The uservisits table's adRevenue column, drawn as the reference's
+    example draws it (gamma(2, 50), float32, numpy seed 1), ``QUERY_ROWS``
+    rows, and a group key in [0, ``GROUPS``) for the first ``GROUP_ROWS``."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    revenue = rng.gamma(2.0, 50.0, QUERY_ROWS).astype(np.float32)
+    return revenue, rng.integers(0, GROUPS, GROUP_ROWS)
+
+
+def query_path(torch, dev, revenue, keys):
+    """Checks (e) and (f): the adRevenue column uploaded to the card once;
+    Top-10 over ``QUERY_ROWS`` rows in batches of ``QUERY_BATCH`` exact
+    against the full scan; group-by SUM of ``GROUPS`` groups over
+    ``GROUP_ROWS`` rows, the timed run's final planes equal to a CPU run's
+    over the same rows and its totals within the reference's rel 2e-3 of the
+    full scan (tests/test_db.py); then ``python -m repro_torch.launch.query``
+    on the card."""
+    import numpy as np
+
+    from repro_torch.core import fpisa
+    from repro_torch.db import query as q
+    from repro_torch.switchsim import query as swq
+
+    t_phase = time.perf_counter()
+    (col,), up_wall, up_ev = timed(torch, lambda: (torch.from_numpy(revenue).to(dev),))
+    pruner = q.TopNPruner(n=10, device=dev)
+    surv, wall, events = timed(torch, lambda: pruner.run(col, batch=QUERY_BATCH))
+    t0 = time.perf_counter()
+    exact = q.spark_like_topn(revenue, 10)
+    scan = time.perf_counter() - t0
+    top = np.sort(revenue[surv])[::-1][:10]
+    if not np.array_equal(top, exact):
+        raise AssertionError(f"[query] (e) Top-10 differs from the full scan: {top} vs {exact}")
+    log(f"[query] (e) Top-10 over {QUERY_ROWS:,} rows ({revenue.nbytes / 1e6:.0f} MB on the "
+        f"card, uploaded once in {up_wall:.3f} s), batches of {QUERY_BATCH:,}: exact; "
+        f"prune rate {pruner.stats.prune_rate:.6f} ({pruner.stats.rows_out:,} rows reached "
+        f"the master); host wall {wall:.3f} s, CUDA events {events:.3f} s = "
+        f"{QUERY_ROWS / wall:,.0f} rows/s; full-scan sort on the host {scan:.3f} s = "
+        f"{QUERY_ROWS / scan:,.0f} rows/s; {CARD}")
+    del col
+    vals = revenue[:GROUP_ROWS]
+    kd, vd = torch.from_numpy(keys).to(dev), torch.from_numpy(vals).to(dev)
+    agg = q.GroupBySum(num_slots=GROUPS, variant="full", device=dev)
+    got, wall, events = timed(torch, lambda: agg.run(kd, vd))
+    t0 = time.perf_counter()
+    cpu = q.GroupBySum(num_slots=GROUPS, variant="full", device="cpu")
+    cpu.run(keys, vals)
+    cpu_wall = time.perf_counter() - t0
+    for name in ("exp", "man", "since"):
+        if not torch.equal(getattr(agg, name).cpu(), getattr(cpu, name)):
+            raise AssertionError(f"[query] (e) group-by {name} plane: card != CPU")
+    t0 = time.perf_counter()
+    want = q.spark_like_groupby(keys, vals)
+    base = time.perf_counter() - t0
+    worst = max(abs(got[k] - v) / v for k, v in want.items())
+    if sorted(got) != sorted(want) or not worst < 2e-3:
+        raise AssertionError(f"[query] (e) group-by totals: worst rel err {worst:.3e} "
+                             f"(bound 2e-3) over groups {sorted(got)}")
+
+    def one_batch():
+        q.GroupBySum(num_slots=GROUPS, variant="full", device=dev).run(kd[:65536], vd[:65536])
+
+    prof = device_profile(torch, one_batch)
+    batch_wall, split = host_split(one_batch, {"ingest": swq.groupby_ingest,
+                                               "renormalize": fpisa.renormalize,
+                                               "encode": fpisa.encode})
+    busy = ("device busy not measured" if prof is None else
+            f"one 65,536-row batch profiled: kernels {prof[0]:.1f} ms in {prof[1]:,} "
+            f"launches") + (
+        f"; cProfile of that batch: {batch_wall:.3f} s, groupby_ingest "
+        f"{split['ingest']:.3f} s, of which the always-computed flush's renormalize "
+        f"{split['renormalize']:.3f} s and "
+        f"encode (once more per call) {split['encode']:.3f} s")
+    log(f"[query] (e) group-by SUM, {GROUPS} groups, full FPISA, {GROUP_ROWS:,} rows on the "
+        f"card: planes == a CPU run's over the same rows bit for bit (CPU {cpu_wall:.3f} s); "
+        f"largest rel err {worst:.3e} against spark_like_groupby (bound 2e-3); host wall "
+        f"{wall:.3f} s, CUDA events {events:.3f} s = {GROUP_ROWS / wall:,.0f} rows/s; "
+        f"{busy}; the baseline on the host {base:.3f} s = {GROUP_ROWS / base:,.0f} rows/s; "
+        f"{CARD}")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.query"], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"[query] (f) launch.query failed: {res.stderr[-2000:]}")
+    lines = [ln for ln in res.stdout.splitlines() if ln.strip()]
+    log(f"[query] (f) python -m repro_torch.launch.query on the card ran to its end in "
+        f"{time.perf_counter() - t0:.1f} s: " + " | ".join(lines))
+    log(f"[query] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script; run it "
@@ -1679,6 +2147,12 @@ def main() -> int:
         times["fpisa_accum"] = accum_timing(torch, dev, leaf_sizes, par)
         torch.cuda.empty_cache()
         switch_emu_smoke(torch, dev)
+        revenue, keys = uservisits()
+        vecs = smoke_vectors(STREAM_WORKERS, STREAM_ELEMS, seed=0)
+        paths["switchsim"] = switchsim_path(torch, dev, vecs, keys, revenue[:GROUP_ROWS])
+        del vecs
+        torch.cuda.empty_cache()
+        query_path(torch, dev, revenue, keys)
     finally:
         dist.destroy_process_group()
 

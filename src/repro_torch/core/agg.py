@@ -35,9 +35,6 @@ A group pair routes a strategy with a hierarchical variant (``fpisa``)
 through it; every other strategy reduces over both groups in turn (data,
 then pod), which is the flat reduction over the pair's ranks. Stacked
 aggregation reduces a pair jointly (flat), as the reference does.
-
-Not ported yet, and refused with :class:`NotPortedError`: the multi-tenant
-``switch_shared`` dataplane of ``switch_emu`` (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -50,7 +47,6 @@ from typing import Callable, Sequence
 import torch
 import torch.distributed as dist
 
-from repro_torch import NotPortedError
 from repro_torch import trace as _trace
 
 DEFAULT_BLOCK = 256
@@ -107,7 +103,10 @@ class AggConfig:
     # wire as fixed-size block-aligned buckets, dispatched double-buffered,
     # bit-identical to the per-leaf path; 0 = per leaf
     bucket_bytes: int = 0
-    # multi-tenant switch emulation (switch_emu only; not ported yet)
+    # multi-tenant switch emulation (switch_emu only): name a process-shared
+    # emulated dataplane and this aggregator's tenant on it, so several jobs
+    # (plus query streams) contend for one switch. None = a private
+    # single-tenant dataplane per call.
     switch_shared: str | None = None
     switch_jobs: int = 1
     switch_job: int = 0
@@ -446,9 +445,6 @@ def _check_config(cfg: AggConfig, spec: StrategySpec) -> None:
             f"bucket_bytes with chunk_elems requires chunk_elems to be a "
             f"multiple of block={cfg.block} for bit-identity "
             f"(got chunk_elems={cfg.chunk_elems}; see core/bucketer.py)")
-    if cfg.switch_shared is not None:
-        raise NotPortedError(f"switch_shared={cfg.switch_shared!r} (the multi-tenant "
-                             f"switch dataplane)")
     if spec.validate is not None:
         spec.validate(cfg)
 

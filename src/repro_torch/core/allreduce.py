@@ -26,6 +26,9 @@ switch_emu : validation strategy: the all-gathered per-worker gradients go
            host callback sends them. Bit-identical to ``fpisa_seq`` (the
            zero-drop arrival order is worker-major per chunk). The host trip
            is the strategy's semantics, not a fallback; never a hot path.
+           With ``cfg.switch_shared`` set, the traffic rides the named
+           process-shared multi-tenant dataplane as tenant ``switch_job`` of
+           ``switch_jobs`` (``switchsim.tenancy``); the bits are unchanged.
 
 The encode->align before the SUM and the decode after it run as the Hopper
 kernels of ``kernels/fpisa_fused.py`` on the ``cuda`` backend, and as the
@@ -49,8 +52,7 @@ collective is launched with ``async_op=True`` and ``finish`` waits on its
 work handle.
 
 Stacked (logical-worker) variants (``stacked_*``) reduce a leading worker
-axis of k as well as the group (section doc below). Not ported yet: the
-multi-tenant ``switch_shared`` dataplane (ROADMAP.md).
+axis of k as well as the group (section doc below).
 """
 from __future__ import annotations
 
@@ -65,7 +67,9 @@ from repro_torch.core.agg import (
     AggConfig, _initialized, group_rank, register_strategy, resolve_backend, world_size,
 )
 from repro_torch.kernels import ops
-from repro_torch.switchsim import DataplaneConfig, NumpyDataplane, run_aggregation
+from repro_torch.switchsim import (
+    DataplaneConfig, NumpyDataplane, run_aggregation, shared_emulated_allreduce,
+)
 
 # ---------------------------------------------------------------------------
 # collectives (a world of one, with no process group, reduces to identity).
@@ -223,7 +227,7 @@ def switchml_allreduce(x: torch.Tensor, group, cfg: AggConfig) -> torch.Tensor:
     k1 = torch.div(k, 2, rounding_mode="floor")
     k2 = k - k1
     live = be > 0
-    q = torch.where(live, torch.round((flat * _pow2(k1)) * _pow2(k2)), 0.0).to(torch.int32)
+    q = nx.f32_to_int32(torch.where(live, torch.round((flat * _pow2(k1)) * _pow2(k2)), 0.0))
     # round 2: integer aggregation (the in-switch op)
     qsum = _all_reduce_(q, dist.ReduceOp.SUM, group)
     out = torch.where(live, (qsum.to(torch.float32) * _pow2(-k1)) * _pow2(-k2), 0.0)
@@ -277,7 +281,7 @@ def fpisa_allreduce(x: torch.Tensor, group, cfg: AggConfig) -> torch.Tensor:
     w = world_size(group)
     backend = resolve_backend(cfg.backend, x.device)
     orig_shape, orig_dtype = x.shape, x.dtype
-    flat, pad = _flatten_pad(x.to(fpisa.PACKED_DTYPE[cfg.fmt_name]), cfg.block)
+    flat, pad = _flatten_pad(fpisa.to_packed(x, cfg.fmt_name), cfg.block)
 
     shift = _wire_shift(cfg.fmt, w, cfg.wire_bits)
     man, bmax = _encode_align(flat, group, shift, cfg, backend)
@@ -341,7 +345,7 @@ def fpisa_allreduce_hierarchical(x: torch.Tensor, data_group, pod_group,
     backend = resolve_backend(cfg.backend, x.device)
     orig_shape, orig_dtype = x.shape, x.dtype
     # pad to block * w_data so the reduce-scatter tiles evenly
-    flat, pad = _flatten_pad(x.to(fpisa.PACKED_DTYPE[cfg.fmt_name]),
+    flat, pad = _flatten_pad(fpisa.to_packed(x, cfg.fmt_name),
                              cfg.block * world_size(data_group))
 
     shift = _wire_shift(cfg.fmt, w, cfg.wire_bits)
@@ -361,7 +365,7 @@ def _seq_sum(rows: torch.Tensor, cfg: AggConfig, backend: str) -> torch.Tensor:
     in the format, worker 0 first: K6 over one (W, 1, N) row on the cuda
     backend (float32 out, the format's value exactly), ``fpisa_sum_sequential``
     on torch (the format's dtype): the same values."""
-    stacked = rows.to(fpisa.PACKED_DTYPE[cfg.fmt_name])
+    stacked = fpisa.to_packed(rows, cfg.fmt_name)
     if backend == "cuda":
         return ops.accum(stacked[:, None], "fpisa_a", cfg.fmt_name).reshape(-1)
     return fpisa.fpisa_sum_sequential(stacked, cfg.fmt, variant="fpisa_a")
@@ -385,13 +389,19 @@ def _validate_switch_emu(cfg: AggConfig) -> None:
             f"fmt_name={cfg.fmt_name!r}")
 
 
-def _switch_emulate(rows: torch.Tensor) -> torch.Tensor:
+def _switch_emulate(rows: torch.Tensor, cfg: AggConfig) -> torch.Tensor:
     """(W, N) float32 rows, one per switch port in worker order -> (N,)
-    float32 through ``NumpyDataplane`` on the host, on a lossless fabric;
-    the result goes back to the rows' device."""
-    dp = NumpyDataplane(DataplaneConfig(num_workers=rows.shape[0], fmt_name="fp32",
-                                        variant="fpisa_a"))
-    out = run_aggregation(dp, rows.cpu().numpy())  # float32
+    float32 through ``NumpyDataplane`` on the host, on a lossless fabric:
+    a private one, or as tenant ``cfg.switch_job`` of the named shared one
+    (``cfg.switch_shared``). The result goes back to the rows' device."""
+    vals = rows.cpu().numpy()
+    if cfg.switch_shared is not None:
+        out = shared_emulated_allreduce(cfg.switch_shared, vals,
+                                        num_jobs=cfg.switch_jobs, job=cfg.switch_job)
+    else:
+        dp = NumpyDataplane(DataplaneConfig(num_workers=rows.shape[0], fmt_name="fp32",
+                                            variant="fpisa_a"))
+        out = run_aggregation(dp, vals)  # float32
     return torch.from_numpy(out).to(rows.device)
 
 
@@ -402,9 +412,16 @@ def switch_emu_allreduce(x: torch.Tensor, group, cfg: AggConfig) -> torch.Tensor
     reference's host callback does) and run them through ``NumpyDataplane``
     on a lossless fabric: real slot pool, worker bitmaps, streaming window
     and packetization. Bit-identical to ``fpisa_seq``. fp32 only (checked
-    when the Aggregator is built)."""
+    when the Aggregator is built).
+
+    With ``cfg.switch_shared`` set, the traffic instead rides the named
+    process-shared multi-tenant dataplane as tenant ``cfg.switch_job`` of
+    ``cfg.switch_jobs`` (``switchsim.tenancy``), as in the reference:
+    several aggregators (and query streams) then contend for one emulated
+    switch. The bits are unchanged: a lossless fabric delivers every result
+    however admission interleaves the claims."""
     rows = _all_gather_rows(x.to(torch.float32).reshape(-1), group)
-    return _switch_emulate(rows).reshape(x.shape).to(x.dtype)
+    return _switch_emulate(rows, cfg).reshape(x.shape).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -487,7 +504,8 @@ def stacked_fpisa_allreduce(x: torch.Tensor, group, cfg: AggConfig) -> torch.Ten
     w = k * world_size(group)
     backend = resolve_backend(cfg.backend, x.device)
     orig_shape, orig_dtype = x.shape[1:], x.dtype
-    rows, pad = _stacked_pad(_stacked_rows(x, fpisa.PACKED_DTYPE[cfg.fmt_name]), cfg.block)
+    rows, pad = _stacked_pad(fpisa.to_packed(x.reshape(x.shape[0], -1), cfg.fmt_name),
+                             cfg.block)
 
     shift = _wire_shift(cfg.fmt, w, cfg.wire_bits)
     man, bmax = _encode_align_stacked(rows, group, shift, cfg, backend)
@@ -515,8 +533,8 @@ def stacked_switchml_allreduce(x: torch.Tensor, group, cfg: AggConfig) -> torch.
     k1 = torch.div(kexp, 2, rounding_mode="floor")
     k2 = kexp - k1
     live = be > 0
-    q = torch.where(live[None, :], torch.round((rows * _pow2(k1)[None, :]) * _pow2(k2)[None, :]),
-                    0.0).to(torch.int32)
+    q = nx.f32_to_int32(torch.where(
+        live[None, :], torch.round((rows * _pow2(k1)[None, :]) * _pow2(k2)[None, :]), 0.0))
     qsum = _all_reduce_(q.sum(0, dtype=torch.int32), dist.ReduceOp.SUM, group)
     out = torch.where(live, (qsum.to(torch.float32) * _pow2(-k1)) * _pow2(-k2), 0.0)
     return _unflatten(out, pad, orig_shape, orig_dtype)
@@ -550,7 +568,7 @@ def stacked_switch_emu_allreduce(x: torch.Tensor, group, cfg: AggConfig) -> torc
             "switch_shared tenancy is wired for the flat switch_emu path; "
             "the stacked (elastic logical-worker) variant does not support "
             "a shared dataplane")
-    out = _switch_emulate(_gather_logical(x, group))
+    out = _switch_emulate(_gather_logical(x, group), cfg)
     return out.reshape(x.shape[1:]).to(x.dtype)
 
 

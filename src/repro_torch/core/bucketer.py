@@ -55,6 +55,7 @@ import torch
 
 from repro_torch import trace as _trace
 from repro_torch.core import agg as _agg
+from repro_torch.core import fpisa
 from repro_torch.core.agg import AggConfig
 
 
@@ -182,8 +183,9 @@ def pack_bucket(bucket: Bucket, flat_leaves, stage_dtype: torch.dtype,
     buf = torch.empty((*lead, bucket.elems), dtype=stage_dtype, device=device)
     for s in bucket.segments:
         if s.size:
-            buf[..., s.offset:s.offset + s.size].copy_(
-                flat_leaves[s.leaf][..., s.start:s.start + s.size])
+            piece = flat_leaves[s.leaf][..., s.start:s.start + s.size]
+            buf[..., s.offset:s.offset + s.size].copy_(  # XLA's cast (core/fpisa.py)
+                fpisa.to_packed(piece, fpisa.FMT_OF_DTYPE[stage_dtype]))
         if s.span > s.size:
             buf[..., s.offset + s.size:s.offset + s.span].zero_()
     return buf

@@ -31,8 +31,8 @@ from repro_torch.core import numerics as nx
 from repro_torch.core.numerics import BF16, FORMATS, FP16, FP32, FpFormat
 
 __all__ = [
-    "FP32", "FP16", "BF16", "FORMATS", "FpFormat", "Planes", "PACKED_DTYPE",
-    "encode", "renormalize", "AddStats", "fpisa_add_full", "fpisa_a_add",
+    "FP32", "FP16", "BF16", "FORMATS", "FpFormat", "Planes", "PACKED_DTYPE", "FMT_OF_DTYPE",
+    "to_packed", "encode", "renormalize", "AddStats", "fpisa_add_full", "fpisa_a_add",
     "fpisa_sum_sequential",
     "block_encode", "block_decode", "block_max_exponent",
 ]
@@ -50,11 +50,29 @@ class Planes(NamedTuple):
 # ---------------------------------------------------------------------------
 
 PACKED_DTYPE = {"fp32": torch.float32, "fp16": torch.float16, "bf16": torch.bfloat16}
+FMT_OF_DTYPE = {dtype: name for name, dtype in PACKED_DTYPE.items()}
+
+
+def to_packed(x: torch.Tensor, fmt_name: str) -> torch.Tensor:
+    """Cast ``x`` to the format's packed dtype, as XLA casts.
+
+    Torch's cast rounds to nearest even as XLA does, but its CPU cast to
+    bf16 writes 0xFFFF for every float32 NaN, where XLA keeps the sign
+    (0x7FC0 / 0xFFC0). FPISA encode clamps a NaN to +-max by its sign bit,
+    so a positive NaN would come out as -max: NaN lanes take XLA's word,
+    which gives the same bits on the CPU and the card by construction."""
+    dtype = PACKED_DTYPE[fmt_name]
+    y = x.to(dtype)
+    if dtype is not torch.bfloat16 or x.dtype == torch.bfloat16:
+        return y
+    quiet = torch.where(torch.signbit(x), -0x40, 0x7FC0)  # 0xFFC0 / 0x7FC0 as int16
+    bits = torch.where(torch.isnan(x), quiet, y.view(torch.int16))
+    return bits.to(torch.int16).view(torch.bfloat16)
 
 
 def _to_bits(x: torch.Tensor, fmt: FpFormat) -> torch.Tensor:
     """Bitcast packed FP values to an int32 tensor holding the raw bits."""
-    packed = x.to(PACKED_DTYPE[fmt.name])
+    packed = to_packed(x, fmt.name)
     if fmt.name == "fp32":
         return packed.view(torch.int32)
     return packed.view(torch.int16).to(torch.int32) & 0xFFFF

@@ -113,6 +113,21 @@ def wrap_int32(x: torch.Tensor) -> torch.Tensor:
     return (((x & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000).to(torch.int32)
 
 
+def f32_to_int32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 as XLA's convert does: NaN -> 0, values at or past
+    +-2^31 (infinities included) saturate to INT32_MAX / INT32_MIN, the rest
+    truncate toward zero. Torch's ``.to(torch.int32)`` gives INT32_MIN for
+    all of those on the CPU, and CUDA saturates: this cast gives the same
+    bits on both. Clamping in float first cannot work, because 2^31 - 1 is
+    not a float32; only the values in range are cast."""
+    nan = torch.isnan(x)
+    hi = x >= 2.0**31
+    lo = x < -(2.0**31)
+    out = torch.where(nan | hi | lo, 0.0, x).to(torch.int32)
+    out = torch.where(hi, 2**31 - 1, out)
+    return torch.where(lo, -(2**31), out)
+
+
 def required_preshift(num_workers: int, fmt: FpFormat = FP32) -> int:
     """Right-shift applied to every aligned mantissa before an integer
     reduction over `num_workers` contributions so the int32 accumulator can

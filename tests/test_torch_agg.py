@@ -29,7 +29,6 @@ torch = pytest.importorskip("torch")
 
 from repro.core import allreduce as jar  # noqa: E402
 from repro.core import fpisa as jf  # noqa: E402
-from repro_torch import NotPortedError  # noqa: E402
 from repro_torch.core import agg as tagg  # noqa: E402
 from repro_torch.core import allreduce as tar  # noqa: E402
 from repro_torch.core import fpisa as tf  # noqa: E402
@@ -253,24 +252,30 @@ def _logical_workers():
     dict(call=_bucketed_stacked), dict(call=_logical_workers),
 ], ids=["stacked", "fpisa_seq", "switch_emu", "bucketed_stacked", "logical_workers"])
 def test_unported_capabilities_refused_at_construction(kwargs):
-    """What is not ported yet is refused when the Aggregator is built:
-    switch_emu on a shared multi-tenant dataplane waits for a later slice.
-    Stacked aggregation (the stacked strategies, the bucketed stacked tree
-    and the train step's ``logical_workers``) is ported and builds;
-    tests/test_torch_stacked.py holds it against the reference."""
-    def build():
-        if "call" in kwargs:
-            kwargs["call"]()
-        else:
-            cfg = tagg.AggConfig(**kwargs.pop("cfg", {}))
-            agg = tagg.Aggregator(cfg, **kwargs)
-            assert agg.stacked and agg.allreduce(torch.ones(3, 256)).shape == (256,)
+    """Nothing here is refused any more: stacked aggregation (the stacked
+    strategies, the bucketed stacked tree and the train step's
+    ``logical_workers``) and switch_emu on a shared multi-tenant dataplane
+    are ported and build. tests/test_torch_stacked.py and
+    tests/test_torch_switch.py hold them against the reference."""
+    from repro_torch import switchsim
 
-    if "switch_shared" in kwargs.get("cfg", {}):
-        with pytest.raises(NotPortedError, match="ROADMAP.md"):
-            build()
+    if "call" in kwargs:
+        kwargs["call"]()
+    elif "switch_shared" in kwargs.get("cfg", {}):
+        switchsim.reset_shared_dataplanes()
+        try:
+            agg = tagg.Aggregator(tagg.AggConfig(**kwargs["cfg"]))
+            x = torch.arange(1.0, 301.0)
+            assert not agg.stacked and torch.equal(agg.allreduce(x), x)
+            dp = switchsim.shared_dataplane("pool", switchsim.DataplaneConfig(
+                num_workers=1, num_jobs=2, job_workers=(1, 1)))
+            assert dp.job_stats[0]["packets"] == 2  # 300 elements: 2 packets of 256
+        finally:
+            switchsim.reset_shared_dataplanes()
     else:
-        build()
+        cfg = tagg.AggConfig(**kwargs.pop("cfg", {}))
+        agg = tagg.Aggregator(cfg, **kwargs)
+        assert agg.stacked and agg.allreduce(torch.ones(3, 256)).shape == (256,)
 
 
 def test_unknown_strategy_names_options():

@@ -11,7 +11,11 @@ cuda backend against the plain per-leaf aggregation; stacked (logical-worker)
 trips of CUDA bf16 and fp32 tensors; and the backward's bits repeated under
 ``runtime.elastic.reproducible``; serving on the card (prefill, dense and
 paged decode against the CPU plain path, paged == dense and batch-invariant
-rows bit for bit) and serving telemetry through K1/K2 and K6. These tests
+rows bit for bit) and serving telemetry through K1/K2 and K6; the
+XLA-style non-finite casts (F8, F9) and non-finite aggregation against the
+CPU; the switch dataplane (``BatchedDataplane`` single- and multi-tenant)
+and the query operators on the card against the CPU and the numpy
+dataplane, also under deterministic algorithms. These tests
 need an NVIDIA GPU and nvcc;
 elsewhere they skip. They import nothing of JAX, so the GPU machine runs them with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -482,3 +486,113 @@ def test_serving_telemetry_launches_the_kernels(dev, strategy, kernel):
     assert eng.telemetry["requests"] == 5 and eng.telemetry["tokens_generated"] == 20
     for r in res:
         np.testing.assert_array_equal(r.tokens, plain[r.rid])
+
+
+# ---------------------------------------------------------------------------
+# non-finite casts, the switch dataplane and the query operators on the card
+# ---------------------------------------------------------------------------
+
+
+def test_nonfinite_casts_on_the_card_equal_the_cpu(dev):
+    """The XLA-style casts (NaN -> 0 and saturation to int32; the
+    sign-keeping bf16 NaN) give the CPU's bits on the card."""
+    rng = np.random.default_rng(0)
+    words = rng.integers(0, 2**32, 1 << 20, dtype=np.uint64).astype(np.uint32)
+    words[:6] = [0x7FC00000, 0xFFC00000, 0x7F800001, 0x7F800000, 0xFF800000, 0x4F000000]
+    x = torch.from_numpy(words.view(np.float32).copy())
+    assert torch.equal(nx.f32_to_int32(x.to(dev)).cpu(), nx.f32_to_int32(x))
+    assert torch.equal(fpisa.to_packed(x.to(dev), "bf16").cpu().view(torch.int16),
+                       fpisa.to_packed(x, "bf16").view(torch.int16))
+
+
+@pytest.mark.parametrize("strategy,fmt", [("switchml", "fp32"), ("switchml", "bf16"),
+                                          ("fpisa", "bf16"), ("fpisa_seq", "bf16")])
+def test_nonfinite_aggregation_on_the_card_equals_the_cpu(dev, strategy, fmt):
+    x = _x((4, 1000), "fp32", 3, dev)
+    x[1, 300], x[2, 600] = float("-nan"), float("inf")
+    got = Aggregator(AggConfig(strategy=strategy, fmt_name=fmt)).allreduce(x)
+    want = Aggregator(AggConfig(strategy=strategy, fmt_name=fmt, backend="torch")).allreduce(
+        x.cpu())
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("variant", ["fpisa_a", "full"])
+@pytest.mark.parametrize("pipelines", [1, 3])
+def test_batched_dataplane_on_the_card_equals_the_cpu(dev, variant, pipelines):
+    from repro_torch import switchsim
+
+    rng = np.random.default_rng(pipelines)
+    vec = (rng.standard_normal((4, 3000)) * np.exp2(rng.integers(-12, 12, (4, 3000))))
+    vec = vec.astype(np.float32)
+    kw = dict(num_workers=4, num_slots=2, elems_per_packet=64, num_pipelines=pipelines,
+              variant=variant)
+    runs = []
+    for d in (dev, "cpu"):
+        dp = switchsim.BatchedDataplane(switchsim.DataplaneConfig(**kw), device=d)
+        out = switchsim.run_aggregation(dp, vec, drop_prob=0.3, seed=7, fail_worker=1,
+                                        fail_round=4)
+        runs.append((out, dp.stats, dp.state.exp.device.type))
+    np.testing.assert_array_equal(runs[0][0].view(np.int32), runs[1][0].view(np.int32))
+    assert runs[0][1] == runs[1][1] and runs[0][2] == "cuda"
+
+
+def test_multitenant_dataplane_on_the_card_equals_numpy(dev):
+    from repro_torch import switchsim
+
+    kw = dict(num_workers=9, num_slots=8, elems_per_packet=64, num_jobs=3,
+              job_workers=(4, 4, 1), job_priorities=(1, 0, 0), job_weights=(2, 1, 1))
+    rng = np.random.default_rng(5)
+    vs = [(rng.standard_normal((w, n)) * 0.01).astype(np.float32)
+          for w, n in ((4, 2048), (4, 2048), (1, 512))]
+    fb, rb = switchsim.run_multitenant(
+        switchsim.BatchedDataplane(switchsim.DataplaneConfig(**kw), device=dev), vs,
+        drop_prob=0.2, seed=5)
+    fn, rn = switchsim.run_multitenant(switchsim.NumpyDataplane(switchsim.DataplaneConfig(**kw)),
+                                       vs, drop_prob=0.2, seed=5)
+    for a, b in zip(fb, fn):
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+    assert rb == rn
+
+
+def test_query_operators_on_the_card_equal_the_cpu(dev):
+    from repro_torch.db import query as q
+    from repro_torch.switchsim import query as swq
+
+    rng = np.random.default_rng(1)
+    vals = rng.gamma(2.0, 50.0, 200_000).astype(np.float32)
+    keys = rng.integers(0, 64, 200_000)
+    t = fpisa.encode(torch.tensor(120.0))
+    col = torch.from_numpy(vals)
+    assert torch.equal(swq.topn_keep(col.to(dev), t.exp, t.man).cpu(),
+                       swq.topn_keep(col, t.exp, t.man))
+    np.testing.assert_array_equal(q.TopNPruner(10, device=dev).run(vals, batch=8192),
+                                  q.TopNPruner(10, device="cpu").run(vals, batch=8192))
+    card, cpu = (q.GroupBySum(64, device=d) for d in (dev, "cpu"))
+    assert card.run(keys, vals, batch=16384) == cpu.run(keys, vals, batch=16384)
+    for a, b in ((card.exp, cpu.exp), (card.man, cpu.man), (card.since, cpu.since)):
+        assert a.is_cuda and torch.equal(a.cpu(), b)
+
+
+def test_dataplane_and_groupby_on_the_card_under_deterministic_algorithms(dev):
+    """The round loops use only ops that deterministic algorithms allow on
+    the card (``runtime.elastic.reproducible`` turns them on)."""
+    from repro_torch import switchsim
+    from repro_torch.db import query as q
+
+    vec = (np.random.default_rng(2).standard_normal((3, 2000)) * 0.1).astype(np.float32)
+    kw = dict(num_workers=3, num_slots=2, elems_per_packet=64, num_pipelines=2,
+              variant="full")
+    want = switchsim.run_aggregation(switchsim.BatchedDataplane(
+        switchsim.DataplaneConfig(**kw), device=dev), vec, drop_prob=0.3, seed=2)
+    keys = np.random.default_rng(3).integers(0, 8, 3000)
+    plain = q.GroupBySum(8, device=dev).run(keys, vec.reshape(-1)[:3000])
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        got = switchsim.run_aggregation(switchsim.BatchedDataplane(
+            switchsim.DataplaneConfig(**kw), device=dev), vec, drop_prob=0.3, seed=2)
+        again = q.GroupBySum(8, device=dev).run(keys, vec.reshape(-1)[:3000])
+    finally:
+        torch.use_deterministic_algorithms(before)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert again == plain

@@ -73,4 +73,7 @@ def test_guard_sees_the_whole_port():
             "src/repro_torch/serve/engine.py", "src/repro_torch/serve/scheduler.py",
             "src/repro_torch/serve/kvcache.py", "src/repro_torch/serve/loadgen.py",
             "src/repro_torch/launch/serve.py", "src/repro_torch/models/attention.py",
-            "src/repro_torch/models/transformer.py", "chip_smoke.py"} <= names
+            "src/repro_torch/models/transformer.py", "src/repro_torch/core/switch.py",
+            "src/repro_torch/switchsim/dataplane.py", "src/repro_torch/switchsim/tenancy.py",
+            "src/repro_torch/switchsim/query.py", "src/repro_torch/db/query.py",
+            "src/repro_torch/launch/query.py", "chip_smoke.py"} <= names

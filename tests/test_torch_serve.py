@@ -15,8 +15,9 @@ repro_torch.interop.params_from_jax); inputs made with numpy from seeds.
 * Continuous equal to the static engine run one request at a time, token
   for token, on the reference's mixed Poisson trace (seed 7).
 * Both engines' tokens equal the JAX engines' on the same requests.
-* Telemetry through the ``Aggregator`` facade (``fpisa``, ``fpisa_seq``)
-  equals the run without one and the JAX ``TelemetryChannel``'s totals.
+* Telemetry through the ``Aggregator`` facade (``fpisa``, ``fpisa_seq``,
+  and ``switch_emu`` on a shared multi-tenant dataplane) equals the run
+  without one and the JAX ``TelemetryChannel``'s totals.
 * ``PoissonLoadGen`` traces equal the reference's for the same seed.
 * ``python -m repro_torch.launch.serve --device cpu --smoke`` runs for both
   engines; without ``--device cpu`` and without a card it raises.
@@ -531,6 +532,37 @@ def test_telemetry_through_facade_is_exact(model, engine, strategy):
     for key in ("requests", "tokens_generated", "decode_steps", "rejected"):
         assert agg.telemetry[key] == plain.telemetry[key], key
     assert agg.telemetry["requests"] == 5 and agg.telemetry["tokens_generated"] == 20
+
+
+def test_continuous_telemetry_over_shared_multitenant_dataplane(model):
+    """The serving engine rides a shared multi-tenant dataplane as tenant 1
+    of 2 (tests/test_serve.py's case): its telemetry reductions land on the
+    named switch, the totals stay exact, and the switch's per-job counters
+    see the serving traffic."""
+    from repro_torch import switchsim
+
+    rng = np.random.default_rng(9)
+    reqs = [Request(rid=i, prompt=_prompt(rng, 5, model.cfg.vocab_size), max_new_tokens=3)
+            for i in range(3)]
+    switchsim.reset_shared_dataplanes()
+    try:
+        plain = ContinuousEngine(model, num_slots=2, max_len=16, page_size=8)
+        plain.run(_requests(reqs))
+        eng = ContinuousEngine(
+            model, num_slots=2, max_len=16, page_size=8,
+            agg=AggConfig(strategy="switch_emu", switch_shared="serve-test",
+                          switch_jobs=2, switch_job=1))
+        eng.run(_requests(reqs))
+        assert eng.telemetry["requests"] == 3 and eng.telemetry["tokens_generated"] == 9
+        for key in ("requests", "tokens_generated", "decode_steps", "rejected"):
+            assert eng.telemetry[key] == plain.telemetry[key], key
+        dp = switchsim.shared_dataplane("serve-test", switchsim.DataplaneConfig(
+            num_workers=1, num_slots=8, elems_per_packet=256, fmt_name="fp32",
+            variant="fpisa_a", num_jobs=2, job_workers=(1, 1)))
+        assert dp.job_stats[1]["packets"] > 0  # the serving tenant really used it
+        assert dp.job_stats[0]["packets"] == 0
+    finally:
+        switchsim.reset_shared_dataplanes()
 
 
 @pytest.mark.parametrize("strategy", ["fpisa", "fpisa_seq", "switchml"])

@@ -15,16 +15,18 @@
   BIT-EXACT, on backend "torch" and on the cuda backend's path (K6 through
   ops.accum, its plain version on CPU tensors); and switch_emu == fpisa_seq
   within the port.
+* ``switch_emu`` with ``switch_shared``: two jobs' aggregators on one named
+  multi-tenant dataplane give the reference's bits and per-job counters.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro import switchsim as jsw  # noqa: E402
 from repro.core import fpisa as jf  # noqa: E402
-from repro_torch import NotPortedError  # noqa: E402
 from repro_torch import switchsim as tsw  # noqa: E402
 from repro_torch.core import fpisa as tf  # noqa: E402
 from repro_torch.core.agg import AggConfig, Aggregator  # noqa: E402
@@ -153,21 +155,54 @@ def test_dataplane_arrival_order_replays_through_sequential_sum():
 
 
 def test_dataplane_shared_constants_and_refusals():
+    """The mirror contract equals the reference's (its two tenancy fields
+    included, now that the dataplane is multi-tenant); the numpy dataplane
+    and switch_emu stay fp32-only, as in the reference."""
     assert tsw.COUNTERS == jsw.COUNTERS
-    assert tsw.SLOT_STATE_FIELDS == tuple(
-        f for f in jsw.SLOT_STATE_FIELDS if f not in ("slot_job", "last_touch"))
-    cfg = tsw.DataplaneConfig(num_workers=2)
-
-    class PerPacket:  # the legacy per-packet switch interface
-        def __init__(self):
-            self.cfg = cfg
-
-    with pytest.raises(NotPortedError, match="ingest_batch"):
-        tsw.run_aggregation(PerPacket(), np.zeros((2, 256), np.float32))
+    assert tsw.SLOT_STATE_FIELDS == jsw.SLOT_STATE_FIELDS
     with pytest.raises(AssertionError, match="fp32-only"):
         tsw.NumpyDataplane(tsw.DataplaneConfig(num_workers=2, fmt_name="bf16"))
     with pytest.raises(ValueError, match="fp32-only"):
         Aggregator(AggConfig(strategy="switch_emu", fmt_name="bf16"))
+
+
+def test_switch_emu_aggregators_share_one_dataplane():
+    """Two jobs' switch_emu aggregators (``switch_job`` 0 and 1) on one named
+    dataplane: the reference's bits (tests/test_multitenant.py), which are
+    the private switch_emu path's, and both tenants' traffic on the one
+    switch, with the reference's per-job counters."""
+    from jax.sharding import PartitionSpec as P
+
+    from repro import compat
+    from repro.core.agg import AggConfig as JaxAggConfig
+    from repro.core.agg import Aggregator as JaxAggregator
+
+    jsw.reset_shared_dataplanes()
+    tsw.reset_shared_dataplanes()
+    try:
+        mesh = compat.make_mesh((1,), ("data",))
+        xs = [_grads(1, 600, seed=10 + job)[0] for job in (0, 1)]
+        for job, x in enumerate(xs):
+            kw = dict(strategy="switch_emu", switch_shared="shared-test", switch_jobs=2,
+                      switch_job=job)
+            jagg = JaxAggregator(JaxAggConfig(**kw), ("data",))
+            want = np.asarray(jax.jit(compat.shard_map(
+                jagg.allreduce, mesh=mesh, in_specs=P(), out_specs=P(),
+                check_vma=False))(jnp.asarray(x)))
+            got = Aggregator(AggConfig(**kw)).allreduce(torch.from_numpy(x)).numpy()
+            private = Aggregator(AggConfig(strategy="switch_emu")).allreduce(
+                torch.from_numpy(x)).numpy()
+            np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+            np.testing.assert_array_equal(got.view(np.int32), private.view(np.int32))
+        cfg = dict(num_workers=1, num_slots=8, elems_per_packet=256, fmt_name="fp32",
+                   variant="fpisa_a", num_jobs=2, job_workers=(1, 1))
+        mine = tsw.shared_dataplane("shared-test", tsw.DataplaneConfig(**cfg))
+        ref = jsw.shared_dataplane("shared-test", jsw.DataplaneConfig(**cfg))
+        assert mine.job_stats == ref.job_stats
+        assert mine.job_stats[0]["packets"] > 0 and mine.job_stats[1]["packets"] > 0
+    finally:
+        jsw.reset_shared_dataplanes()
+        tsw.reset_shared_dataplanes()
 
 
 # ---------------------------------------------------------------------------
