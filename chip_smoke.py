@@ -110,6 +110,29 @@ paths' rows at that step (each divergence printed); 8 requests with
 traced); a decode step and prefills on CUDA events; ``[diagnose] serve
 decode``.
 
+Then, in the same group, the model families (``models_path``, ``[models]``
+lines, each with the card's name and power limit): (a) mamba2-780m, the
+whole published config (48 layers, d_model 1536, state 128, vocab 50280;
+bf16 weights from a seed), 3 steps of 8 x 512 through ``train_loop`` with
+``fpisa`` (K1/K2 once per gradient leaf per step, the leaves counted from
+the tree), cuda == plain aggregation of its gradients, the step's breakdown
+and peak memory, ``[diagnose]`` of a forward+backward, then the static
+engine serving 8 seeded requests with ``fpisa`` telemetry (exact totals,
+K1/K2 once per flush; the ``mamba2`` path); (b) zamba2-7b at full width
+(d_model 3584, d_ff 14336, state 64, the shared attention block after every
+6 mamba blocks) with ``num_layers`` cut to 7 (one group and one tail block),
+3 steps of ``fpisa_seq`` (K6 once per leaf per step; the ``zamba2_seq``
+path), cuda == plain ``fpisa_seq`` bits, the step's breakdown; (c)
+arctic-480b at full width (128 experts top-2, d_ff 4864, moe_dense_ff 4864,
+56 / 8 heads) with ``num_layers`` cut to 1: paged == dense decode bit for
+bit at 16 rows, the continuous engine on a seeded 16-request trace with
+``fpisa`` telemetry (exact, K1 = K2 = flushes; the ``arctic_serve`` path),
+a 16-slot decode step on CUDA events against its byte bound (every step
+reads all 128 experts' weights, 26.78 GB, 7.99 ms at 3.35 TB/s) and its
+``[diagnose]``, and the expert queues that overflowed; (d) qwen1.5-0.5b's
+forward+backward with ``remat`` "full" and "none" (CUDA events, peak
+memory); the group's wall time.
+
 Then the switch dataplane (``switchsim_path``, ``[switchsim]`` lines; the
 dataplane runs as torch ops on the card, as the reference runs it as jitted
 ``jnp``): (a) the card's ``BatchedDataplane`` equals the port's numpy
@@ -143,8 +166,9 @@ printed beside the card's name and power limit.
 
 In the ``kernels`` line, ``launches`` is a kernel's launches summed over
 every path above that ran it (main, ``fpisa_seq``, bucketed, stacked
-``fpisa``, stacked ``fpisa_seq``, ``serve``, ``serve_fpisa_seq``, the
-two-pass pipeline, ``switchsim``) and ``launches_by_path`` names each
+``fpisa``, stacked ``fpisa_seq``, ``serve``, ``serve_fpisa_seq``,
+``mamba2``, ``zamba2_seq``, ``arctic_serve``, the two-pass pipeline,
+``switchsim``) and ``launches_by_path`` names each
 path's count, every path's counts zeroed just before it and read just
 after.
 
@@ -203,6 +227,8 @@ SERVE_SLOTS, SERVE_MAX_LEN, SERVE_PAGE = 16, 1024, 16
 SERVE_REQUESTS, SERVE_RATE = 32, 0.5
 SERVE_PROMPTS, SERVE_BUDGETS = (64, 256, 512), (32, 64, 128)
 ORACLE_REQUESTS, SEQ_REQUESTS = 6, 8
+# the models group: requests per served family, zamba2's depth cut
+MODEL_REQUESTS, ZAMBA_LAYERS = 8, 7
 # the switchsim phase: one full-width qwen1.5-0.5b MLP leaf (24 layers x d_model
 # 1024 x d_ff 2816) from each of 4 workers, through 4 pipelines x 256 slots
 STREAM_WORKERS, STREAM_ELEMS = 4, 24 * 1024 * 2816
@@ -538,7 +564,7 @@ def step_breakdown(torch, dev, model, opt_state, strategy="fpisa", bucket_bytes=
     held = {}
 
     def grads():
-        held["g"] = torch.autograd.grad(model.loss(tokens), params)
+        held["g"] = torch.autograd.grad(model.loss({"tokens": tokens}), params)
 
     def aggregate():
         held["a"] = aggregator.allreduce_tree(list(held["g"]))
@@ -637,7 +663,8 @@ def bucketed_path(torch, dev, model, tmpdir):
     tokens = ShardedLoader(SyntheticCorpus(cfg.vocab_size, 0), GLOBAL_BATCH,
                            SEQ_LEN).batch_at(STEPS)["tokens"]
     params = list(trained.parameters())
-    grads = list(torch.autograd.grad(trained.loss(torch.from_numpy(tokens).to(dev)), params))
+    grads = list(torch.autograd.grad(trained.loss({"tokens": torch.from_numpy(tokens).to(dev)}),
+                                     params))
 
     def same(got, want, what):
         for i, (g, w) in enumerate(zip(got, want)):
@@ -728,7 +755,7 @@ def train_stacked(torch, dev, strategy, kernels):
     losses = []
     for i in range(STEPS):
         tokens = torch.from_numpy(loader.batch_at(i)["tokens"]).to(dev)
-        opt_state, metrics = step(opt_state, tokens)
+        opt_state, metrics = step(opt_state, {"tokens": tokens})
         losses.append(float(metrics["loss"]))
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in zip(kernels, fns)}
@@ -762,7 +789,7 @@ def worker_grads(torch, dev, model):
     stacks = [torch.empty((LOGICAL_WORKERS, *p.shape), dtype=p.dtype, device=dev)
               for p in params]
     for j, mb in enumerate(tokens.to(dev).reshape(LOGICAL_WORKERS, -1, SEQ_LEN)):
-        for s, g in zip(stacks, torch.autograd.grad(model.loss(mb), params)):
+        for s, g in zip(stacks, torch.autograd.grad(model.loss({"tokens": mb}), params)):
             s[j].copy_(g)
     return stacks
 
@@ -795,7 +822,7 @@ def stacked_breakdown(torch, dev, model, opt_state, strategy):
 
     def grads():
         for j, mb in enumerate(tokens.reshape(LOGICAL_WORKERS, -1, SEQ_LEN)):
-            for s, g in zip(stacks, torch.autograd.grad(model.loss(mb), params)):
+            for s, g in zip(stacks, torch.autograd.grad(model.loss({"tokens": mb}), params)):
                 s[j].copy_(g)
 
     def aggregate():
@@ -825,7 +852,7 @@ def diagnose_passes(torch, dev, model):
                                             GLOBAL_BATCH, SEQ_LEN).batch_at(STEPS)["tokens"]).to(dev)
     params = list(model.parameters())
     share = GLOBAL_BATCH // LOGICAL_WORKERS
-    runs = {n: (lambda t=tokens[:n]: torch.autograd.grad(model.loss(t), params))
+    runs = {n: (lambda t=tokens[:n]: torch.autograd.grad(model.loss({"tokens": t}), params))
             for n in (GLOBAL_BATCH, share)}
     times = {n: median_ms(torch, fn, reps=5, warmup=1) for n, fn in runs.items()}
     log(f"[diagnose] forward+backward, same weights: {GLOBAL_BATCH} sequences "
@@ -851,7 +878,7 @@ def determinism(torch, dev, model):
     names, params = zip(*model.named_parameters())
 
     def grads():
-        return [g.clone() for g in torch.autograd.grad(model.loss(tokens), params)]
+        return [g.clone() for g in torch.autograd.grad(model.loss({"tokens": tokens}), params)]
 
     def differing(runs):
         return sorted({n for r in runs[1:] for n, a, b in zip(names, runs[0], r)
@@ -896,7 +923,7 @@ def determinism(torch, dev, model):
     for name in ("default", "reproducible") * 2:  # in turns: drift shows
         with mode(name):
             report[name]["forward_backward_ms"].append(median_ms(
-                torch, lambda: torch.autograd.grad(model.loss(tokens), params),
+                torch, lambda: torch.autograd.grad(model.loss({"tokens": tokens}), params),
                 reps=5, warmup=1))
     log("[determinism] " + json.dumps(report))
     if report["reproducible"]["backward_leaves_differing"]:
@@ -1100,7 +1127,7 @@ def read_launches():
     return {name: getattr(ops, KERNEL_WRAPPER[name]).launches for name in KERNELS}
 
 
-def check_paged_equals_dense(torch, dev, model):
+def check_paged_equals_dense(torch, dev, model, tag="[serve] check (a)"):
     """Check (a): one ``decode_step_paged`` equals ``decode_step`` bit for
     bit at B = 16 with MP x page == max_len, on caches holding the same
     prefill (the dense cache's rows copied into each slot's pages); the
@@ -1129,7 +1156,7 @@ def check_paged_equals_dense(torch, dev, model):
             view = pool[:, pages].flatten(1, 2)[:, :plen + 1]
             if not torch.equal(view.view(torch.int16), cache[:, j, :plen + 1].view(torch.int16)):
                 raise AssertionError(f"slot {j}: paged k/v differ from the dense cache's")
-    log(f"[serve] check (a): decode_step_paged == decode_step bit for bit ({b} rows, "
+    log(f"{tag}: decode_step_paged == decode_step bit for bit ({b} rows, "
         f"{SERVE_MAX_LEN // SERVE_PAGE} pages x {SERVE_PAGE} == max_len {SERVE_MAX_LEN}, "
         f"{plen}-token prefill), logits {tuple(got.shape)} {got.dtype} and every written k/v")
 
@@ -1353,6 +1380,251 @@ def serve_path(torch, dev):
     return paths
 
 
+def family_train(torch, dev, cfg, strategy):
+    """3 steps of ``cfg`` through ``train_loop`` with ``strategy`` on the
+    auto backend, every kernel's count zeroed just before and read just
+    after. Returns (launches, model, opt_state, seconds)."""
+    from repro_torch.core.agg import AggConfig
+    from repro_torch.launch.train import train_loop
+
+    zero_launches()
+    t0 = time.perf_counter()
+    model, opt_state, losses = train_loop(
+        cfg, steps=STEPS, global_batch=GLOBAL_BATCH, seq_len=SEQ_LEN,
+        agg=AggConfig(strategy=strategy, backend="auto"), device=dev, log_every=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    leaves = len(list(model.parameters()))
+    want = {"fpisa": ("fused_encode_align", "fused_decode"),
+            "fpisa_seq": ("fpisa_accum",)}[strategy]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{cfg.name}: non-finite loss {losses}")
+    for k in want:
+        if launches[k] != leaves * STEPS:
+            raise AssertionError(f"{cfg.name} {strategy}: {k} launched {launches[k]} times in "
+                                 f"{STEPS} steps, expected {leaves} per step (one per leaf)")
+    if not all(torch.isfinite(p).all() for p in model.parameters()):
+        raise AssertionError(f"{cfg.name}: non-finite parameter after training")
+    log(f"[models] {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}): {STEPS} steps "
+        f"of {GLOBAL_BATCH} x {SEQ_LEN} with {strategy} in {wall:.2f} s (init included), "
+        f"losses {losses}; {leaves} gradient leaves ({sum(p.numel() for p in model.parameters()):,}"
+        f" parameters), launches {json.dumps({k: launches[k] for k in want})} = {leaves} per "
+        f"step; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {CARD}")
+    return launches, model, opt_state, wall
+
+
+def models_mamba2(torch, dev):
+    """(a) mamba2-780m, the whole published config (48 layers, d_model 1536,
+    state 128, vocab 50280; bf16 weights from a seed): 3 steps with
+    ``fpisa`` (K1/K2 once per leaf per step), cuda == plain aggregation of
+    its gradients, the step's breakdown and peak memory, ``diagnose`` of a
+    forward+backward (kernel time by name); then the static
+    engine serves 8 seeded requests with ``fpisa`` telemetry (exact totals,
+    K1/K2 once per flush). Returns the path's launches: each run's counts,
+    zeroed (or read) just before it and read just after."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.agg import AggConfig
+    from repro_torch.data.pipeline import ShardedLoader, SyntheticCorpus
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.loadgen import PoissonLoadGen
+
+    cfg = get_config("mamba2-780m")
+    torch.cuda.reset_peak_memory_stats()
+    launches, model, opt_state, _ = family_train(torch, dev, cfg, "fpisa")
+    check_grads_cuda_equals_plain(torch, dev, model, "fpisa")
+    torch.cuda.reset_peak_memory_stats()
+    parts = step_breakdown(torch, dev, model, opt_state, "fpisa")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    total = sum(parts.values())
+    log(f"[models] (a) {cfg.name} step, CUDA events: " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in parts.items())
+        + f"; {total:.2f} ms = {GLOBAL_BATCH * SEQ_LEN / total * 1e3:,.0f} tok/s; peak memory "
+        f"of the step {peak:.2f} GiB; {CARD}")
+    del opt_state
+    torch.cuda.empty_cache()
+    tokens = torch.from_numpy(ShardedLoader(SyntheticCorpus(cfg.vocab_size, 0), GLOBAL_BATCH,
+                                            SEQ_LEN).batch_at(STEPS)["tokens"]).to(dev)
+    params = list(model.parameters())
+    diagnose(torch, lambda: torch.autograd.grad(model.loss({"tokens": tokens}), params),
+             f"{cfg.name} forward+backward of {GLOBAL_BATCH} x {SEQ_LEN} ({CARD})")
+    del tokens, params
+
+    requests = [r for _, r in PoissonLoadGen(
+        rate=SERVE_RATE, prompt_lens=SERVE_PROMPTS, max_new=(32, 64),
+        vocab_size=cfg.vocab_size, seed=1).trace(MODEL_REQUESTS)]
+    before = read_launches()
+    t0 = time.perf_counter()
+    eng = ServeEngine(model, batch_size=MODEL_REQUESTS, max_len=SERVE_MAX_LEN,
+                      agg=AggConfig(strategy="fpisa"))
+    results = eng.run(requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = read_launches()
+    flushes = check_telemetry(eng, results, f"{cfg.name} static")
+    for k in ("fused_encode_align", "fused_decode"):
+        if after[k] - before[k] != flushes:
+            raise AssertionError(f"{cfg.name} serving: {k} launched {after[k] - before[k]} "
+                                 f"times for {flushes} telemetry flushes")
+    tokens = sum(len(r.tokens) for r in results)
+    log(f"[models] (a) {cfg.name} static engine (batch {MODEL_REQUESTS}, max_len "
+        f"{SERVE_MAX_LEN}): {len(results)} requests, {tokens} tokens in {wall:.2f} s = "
+        f"{tokens / wall:.1f} tok/s, {eng.telemetry['decode_steps']} decode steps; telemetry "
+        f"through {eng.aggregator} == the host counts ({eng.telemetry['requests']} requests / "
+        f"{eng.telemetry['tokens_generated']} tokens), {flushes} flushes; {CARD}")
+    # the path: the training run's launches and the serving run's (the
+    # comparisons between them are not counted)
+    return {k: launches[k] + after[k] - before[k] for k in KERNELS}
+
+
+def models_zamba2(torch, dev):
+    """(b) zamba2-7b at full width (d_model 3584, d_ff 14336, state 64, the
+    shared attention block after every 6 mamba blocks), ``num_layers`` cut
+    to 7: one group of 6 and one tail block, so the shared block runs once.
+    3 steps with ``fpisa_seq`` (K6 once per leaf per step), cuda == plain
+    ``fpisa_seq`` aggregation of its gradients, the step's breakdown."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("zamba2-7b").with_(num_layers=ZAMBA_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    launches, model, opt_state, _ = family_train(torch, dev, cfg, "fpisa_seq")
+    check_grads_cuda_equals_plain(torch, dev, model, "fpisa_seq")
+    parts = step_breakdown(torch, dev, model, opt_state, "fpisa_seq")
+    total = sum(parts.values())
+    log(f"[models] (b) {cfg.name} (num_layers cut 81 -> {ZAMBA_LAYERS}) step, CUDA events: "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items())
+        + f"; {total:.2f} ms = {GLOBAL_BATCH * SEQ_LEN / total * 1e3:,.0f} tok/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {CARD}")
+    return launches
+
+
+def models_arctic(torch, dev):
+    """(c) arctic-480b at full width (d_model 7168, 128 experts top-2, d_ff
+    4864, moe_dense_ff 4864, 56 heads / 8 KV heads), ``num_layers`` cut to
+    1 (one layer's experts hold 13.39 B parameters, 26.8 GB in bf16).
+    ``decode_step_paged`` == ``decode_step`` bit for bit at 16 rows; the
+    continuous engine serves a seeded trace of 16 requests with ``fpisa``
+    telemetry (exact totals, K1/K2 once per flush: the path's counts zeroed
+    just before and read just after); a decode step of 16 slots on CUDA
+    events against its byte bound and its ``diagnose``; the expert
+    overflows of the run."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.agg import AggConfig
+    from repro_torch.models import moe
+    from repro_torch.models.registry import build
+    from repro_torch.serve.loadgen import PoissonLoadGen, latency_report
+    from repro_torch.serve.scheduler import ContinuousEngine, _decode_fused
+
+    cfg = get_config("arctic-480b").with_(num_layers=1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    params = sum(p.numel() for p in model.parameters())
+    experts = sum(p.numel() for n, p in model.named_parameters() if ".moe.w" in n)
+    log(f"[models] (c) {cfg.name} (num_layers cut 35 -> 1): {params:,} parameters, "
+        f"{experts:,} in the experts, built in {time.perf_counter() - t0:.2f} s; {CARD}")
+    moe.OVERFLOWS.read()
+    check_paged_equals_dense(torch, dev, model, tag=f"[models] (c) {cfg.name} check")
+    arrivals = PoissonLoadGen(rate=SERVE_RATE, prompt_lens=SERVE_PROMPTS, max_new=(32, 64),
+                              vocab_size=cfg.vocab_size, seed=2).trace(MODEL_REQUESTS * 2)
+    zero_launches()
+    moe.OVERFLOWS.read()
+    eng = ContinuousEngine(model, num_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                           page_size=SERVE_PAGE, agg=AggConfig(strategy="fpisa"))
+    results = eng.run_trace(arrivals)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    overflows = moe.OVERFLOWS.read()
+    flushes = check_telemetry(eng, results, f"{cfg.name} continuous")
+    for k in ("fused_encode_align", "fused_decode"):
+        if launches[k] != flushes:
+            raise AssertionError(f"{cfg.name} serving: {k} launched {launches[k]} times for "
+                                 f"{flushes} telemetry flushes")
+    tokens = sum(len(r.tokens) for r in results)
+    rep = latency_report(eng.latency_stats())
+    log(f"[models] (c) {cfg.name} continuous ({SERVE_SLOTS} slots, max_len {SERVE_MAX_LEN}, "
+        f"pages of {SERVE_PAGE}): {len(results)} requests, {tokens} tokens in "
+        f"{eng.last_wall_s:.2f} s = {tokens / eng.last_wall_s:.1f} tok/s, "
+        f"{eng.telemetry['decode_steps']} decode steps, {eng.telemetry['prefills']} prefill "
+        f"groups, TTFT p50 {rep['ttft_p50']:.2f} steps; telemetry == the host counts, "
+        f"{flushes} flushes, launches {json.dumps(launches)}; expert queues that overflowed "
+        f"(group, expert, summed over layers and calls): {overflows}; {CARD}")
+
+    nxt = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int32, device=dev)
+    table = eng.cache.device_table()
+    lens = torch.full((SERVE_SLOTS,), SERVE_MAX_LEN // 2, dtype=torch.int64, device=dev)
+    ms = median_ms(torch, lambda: _decode_fused(model, nxt, eng.cache.k, eng.cache.v, table,
+                                                lens), reps=10, warmup=2)
+    # bytes a decode step must move: every weight once (the embedding's 16
+    # rows only), each slot's gathered K/V view, the logits written
+    elem = 2
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    weights -= model.embed["tok"].numel() * elem - SERVE_SLOTS * cfg.d_model * elem
+    kv = 2 * SERVE_SLOTS * SERVE_MAX_LEN * cfg.num_kv_heads * cfg.resolved_head_dim * elem
+    out = SERVE_SLOTS * cfg.vocab_size * elem
+    expert_bytes = 3 * cfg.num_experts * cfg.d_model * cfg.d_ff * elem
+    bound = (weights + kv + out) / HBM_BYTES_PER_S * 1e3
+    log(f"[models] (c) {cfg.name} decode step of {SERVE_SLOTS} slots, CUDA events median of "
+        f"10: {ms:.2f} ms; byte bound {bound:.2f} ms ({(weights + kv + out) / 1e9:.2f} GB at "
+        f"3.35 TB/s; the experts alone {expert_bytes / 1e9:.2f} GB = "
+        f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms), {100 * bound / ms:.1f} % of it; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {CARD}")
+    diagnose(torch, lambda: _decode_fused(model, nxt, eng.cache.k, eng.cache.v, table, lens),
+             f"{cfg.name} decode step of {SERVE_SLOTS} slots ({CARD})")
+    return launches, {"decode_ms": ms, "bound_ms": bound, "overflows": overflows}
+
+
+def qwen_remat(torch, dev):
+    """(d) qwen1.5-0.5b at full width: forward+backward of 8 x 512 tokens
+    with ``remat="full"`` (each layer recomputed in the backward, the
+    configs' default) and ``"none"``, CUDA events, median of 5, in turns;
+    the peak memory of each."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import ShardedLoader, SyntheticCorpus
+    from repro_torch.models.registry import build
+
+    cfg = get_config("qwen1.5-0.5b")
+    model = build(cfg, device=dev, seed=0)
+    tokens = torch.from_numpy(ShardedLoader(SyntheticCorpus(cfg.vocab_size, 0), GLOBAL_BATCH,
+                                            SEQ_LEN).batch_at(0)["tokens"]).to(dev)
+    params = list(model.parameters())
+    res = {"full": [], "none": []}
+    peak = {}
+    for mode in ("full", "none") * 2:
+        model.cfg = cfg.with_(remat=mode)
+        torch.cuda.reset_peak_memory_stats()
+        res[mode].append(median_ms(
+            torch, lambda: torch.autograd.grad(model.loss({"tokens": tokens}), params),
+            reps=5, warmup=1))
+        peak[mode] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[models] (d) {cfg.name} forward+backward of {GLOBAL_BATCH} x {SEQ_LEN}, CUDA events "
+        f"(two turns each): remat full {res['full']} ms (peak {peak['full']:.2f} GiB), none "
+        f"{res['none']} ms (peak {peak['none']:.2f} GiB); {CARD}")
+    return {k: statistics.median(v) for k, v in res.items()}, peak
+
+
+def models_path(torch, dev):
+    """The seventh slice's paths (``[models]`` lines): (a) mamba2-780m
+    trained at full size and served, (b) zamba2-7b at full width trained
+    with ``fpisa_seq``, (c) arctic-480b at full width served, (d) qwen's
+    forward+backward with and without remat. Returns ({path: launches},
+    numbers)."""
+    t0 = time.perf_counter()
+    paths = {"mamba2": models_mamba2(torch, dev)}
+    torch.cuda.empty_cache()
+    paths["zamba2_seq"] = models_zamba2(torch, dev)
+    torch.cuda.empty_cache()
+    paths["arctic_serve"], arctic = models_arctic(torch, dev)
+    torch.cuda.empty_cache()
+    remat, peak = qwen_remat(torch, dev)
+    torch.cuda.empty_cache()
+    log(f"[models] the group took {time.perf_counter() - t0:.1f} s; {CARD}")
+    log(json.dumps({"models": {"arctic": arctic, "qwen_fwd_bwd_ms": remat,
+                               "qwen_fwd_bwd_peak_gib": peak}}))
+    return paths
+
+
 def diagnose(torch, run, what):
     """Where an untraced ``run()`` (an aggregation of the gradients, a
     forward+backward) spends its time: the host's issue time (the host
@@ -1398,7 +1670,7 @@ def check_grads_cuda_equals_plain(torch, dev, model, strategy):
     tokens = ShardedLoader(SyntheticCorpus(model.cfg.vocab_size, 0), GLOBAL_BATCH,
                            SEQ_LEN).batch_at(STEPS)["tokens"]
     names, params = zip(*model.named_parameters())
-    grads = torch.autograd.grad(model.loss(torch.from_numpy(tokens).to(dev)), params)
+    grads = torch.autograd.grad(model.loss({"tokens": torch.from_numpy(tokens).to(dev)}), params)
     kern, plain = (Aggregator(AggConfig(strategy=strategy, backend=b))
                    for b in ("cuda", "torch"))
     for name, g in zip(names, grads):
@@ -1407,8 +1679,9 @@ def check_grads_cuda_equals_plain(torch, dev, model, strategy):
                 and torch.isfinite(a).all()):
             raise AssertionError(f"{strategy}: aggregated gradient {name}: cuda != torch "
                                  f"backend")
-    log(f"[check] {strategy}, full-width gradients ({len(names)} leaves, bf16): cuda "
-        f"aggregation bit-equal to the plain aggregation, all finite")
+    log(f"[check] {strategy}, {model.cfg.name} full-width gradients ({len(names)} leaves, "
+        f"{sorted({str(g.dtype) for g in grads})}): cuda aggregation bit-equal to the plain "
+        f"aggregation, all finite")
 
 
 def check_against_plain(torch, dev, model):
@@ -2139,6 +2412,8 @@ def main() -> int:
         paths.update(stacked_launches)
         torch.cuda.empty_cache()
         paths.update(serve_path(torch, dev))
+        torch.cuda.empty_cache()
+        paths.update(models_path(torch, dev))
         torch.cuda.empty_cache()
         times = timing(torch, dev, leaf_sizes)
         paths["two_pass"], two_pass_times = two_pass_pipeline(torch, dev, leaf_sizes, par)

@@ -1,8 +1,10 @@
 """Architecture config registry of the port: ``get_config(name)`` /
 ``get_smoke_config(name)``.
 
-Only the architectures whose model the port runs are listed; the other
-architectures of the reference raise :class:`repro_torch.NotPortedError`.
+Every decoder-only architecture of the reference is listed, each module a
+copy of the reference's ``CONFIG`` (the published configuration) and
+``SMOKE`` (a reduced config of the same family). The encoder-decoder
+(whisper-medium) raises :class:`repro_torch.NotPortedError`.
 """
 from __future__ import annotations
 
@@ -13,12 +15,18 @@ from repro_torch.configs.base import ModelConfig
 
 ARCH_MODULES = {
     "qwen1.5-0.5b": "qwen15_0_5b",
+    "internlm2-20b": "internlm2_20b",
+    "deepseek-67b": "deepseek_67b",
+    "stablelm-3b": "stablelm_3b",
+    "arctic-480b": "arctic_480b",
+    "kimi-k2-1t-a32b": "kimi_k2",
+    "zamba2-7b": "zamba2_7b",
+    "llava-next-34b": "llava_next_34b",
+    "mamba2-780m": "mamba2_780m",
 }
 
 # the reference's other architectures, in its registry
-NOT_PORTED = ("internlm2-20b", "deepseek-67b", "stablelm-3b", "arctic-480b",
-              "kimi-k2-1t-a32b", "zamba2-7b", "llava-next-34b",
-              "whisper-medium", "mamba2-780m")
+NOT_PORTED = ("whisper-medium",)
 
 ARCH_NAMES = list(ARCH_MODULES)
 

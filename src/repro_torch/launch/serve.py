@@ -12,6 +12,12 @@ On the CPU, at smoke size (3 slots, max_len 32, pages of 8, 6 requests):
 On the card, at full width (16 slots, max_len 1024, pages of 16, 32
 requests with prompts of 64/256/512 tokens and budgets of 32/64/128):
   PYTHONPATH=src python -m repro_torch.launch.serve --engine continuous
+``--arch`` takes every decoder-only config; the ssm and hybrid families
+keep recurrent state with no sequence axis to page, so they serve through
+``--engine static`` and the continuous engine refuses them (the
+reference's error), e.g.
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
+      --arch mamba2-780m --engine static
 """
 from __future__ import annotations
 
@@ -39,7 +45,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     add_agg_args(ap)  # the shared --agg-* flags (repro_torch.core.agg)
     add_trace_args(ap)  # the shared --trace-* flags (repro_torch.trace)
-    ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--arch", default="qwen1.5-0.5b",
+                    help="any decoder-only config (repro_torch.configs)")
     ap.add_argument("--engine", choices=("static", "continuous"), default="static",
                     help="serving engine")
     ap.add_argument("--smoke", action="store_true",

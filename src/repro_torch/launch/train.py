@@ -7,6 +7,9 @@ Usage (one card):
 on the CPU, at smoke size:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --arch qwen1.5-0.5b --smoke --steps 3 --global-batch 4 --seq-len 64
+``--arch`` takes every decoder-only config (dense, moe, ssm, hybrid, vlm;
+a vlm batch carries seeded patch features, ``global_batch_at``), e.g.
+``--arch mamba2-780m``, ``zamba2-7b``, ``arctic-480b``, ``llava-next-34b``;
 and across ranks under ``torchrun`` (rank and world size from its
 environment; NCCL on the card, gloo on the CPU). Bucketed, traced and
 autotuned aggregation (``--bucket-bytes N|auto``, ``--trace-out PATH``,
@@ -34,6 +37,7 @@ import argparse
 import os
 from time import perf_counter
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -115,8 +119,10 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
     history = []
     for step in range(start_step, steps):
         t0 = perf_counter()
-        tokens = loader.batch_at(step)["tokens"][rank * local:(rank + 1) * local]
-        opt_state, metrics = step_fn(opt_state, torch.from_numpy(tokens).to(device))
+        batch = global_batch_at(cfg, loader, seed, step)
+        batch = {k: torch.from_numpy(v[rank * local:(rank + 1) * local]).to(device)
+                 for k, v in batch.items()}
+        opt_state, metrics = step_fn(opt_state, batch)
         loss = float(metrics["loss"])  # waits for the device
         dt = perf_counter() - t0
         history.append(loss)
@@ -129,6 +135,19 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
     if saver:
         saver.wait()
     return model, opt_state, history
+
+
+def global_batch_at(cfg, loader: ShardedLoader, seed: int, step: int) -> dict:
+    """The global batch of ``step``: the loader's ``tokens`` and, for vlm,
+    ``patch_embeds`` (B, num_patches, d_model) float32, standard normal from
+    numpy seeded by (seed, step): the reference's model takes precomputed
+    patch features of that shape and its data pipeline makes none."""
+    batch = loader.batch_at(step)
+    if cfg.family == "vlm":
+        rng = np.random.default_rng(np.random.SeedSequence([seed, step, 0x7A7C4]))
+        batch["patch_embeds"] = rng.standard_normal(
+            (loader.global_batch, cfg.num_patches, cfg.d_model), dtype=np.float32)
+    return batch
 
 
 def _init_from_env(device: torch.device):

@@ -29,7 +29,7 @@ def param(gen: torch.Generator, shape, dtype, scale: float | None = None) -> tor
     if scale == 0.0:
         return torch.zeros(shape, dtype=dtype, device=gen.device)
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -49,9 +49,10 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
-def init_mlp(gen: torch.Generator, cfg, lead=()) -> dict:
-    """Sorted keys: the reference's pytree flatten order."""
-    d, f = cfg.d_model, cfg.d_ff
+def init_mlp(gen: torch.Generator, cfg, lead=(), d_ff: int | None = None) -> dict:
+    """Sorted keys: the reference's pytree flatten order. ``d_ff`` replaces
+    ``cfg.d_ff`` (arctic's parallel dense MLP is ``moe_dense_ff`` wide)."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     dt = dtype_of(cfg.param_dtype)
     p = {}
     if cfg.mlp == "swiglu":
@@ -98,3 +99,10 @@ def init_embedding(gen: torch.Generator, cfg) -> dict:
 
 def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
     return F.embedding(tokens, p["tok"])
+
+
+def init_lm_head(gen: torch.Generator, cfg) -> dict:
+    """``{}`` for tied embeddings, else ``w`` (d_model, vocab)."""
+    if cfg.tie_embeddings:
+        return {}
+    return {"w": param(gen, (cfg.d_model, cfg.vocab_size), dtype_of(cfg.param_dtype))}

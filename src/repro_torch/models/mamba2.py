@@ -1,0 +1,190 @@
+"""Mamba2 (SSD, state-space duality) block: the chunked training scan and the
+recurrent decode (torch port of ``repro.models.mamba2``).
+
+Discrete SSD (Dao & Gu, 2024):
+    h_t = exp(dt_t * A) h_{t-1} + dt_t * (B_t x_t)
+    y_t = C_t . h_t + D * x_t
+Training and prefill use the chunked decomposition: the exact quadratic
+term within a chunk, the chunk-final states, the recurrence over chunks
+(the reference's ``lax.scan``; a Python loop over the chunks here) and the
+inter-chunk term. All state math is float32 (dt * A <= 0, so every exp is
+at most 1). ``_segsum`` masks with -inf BEFORE the exp, so the backward
+never sees inf * 0.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models.layers import dtype_of, param, rms_norm, silu
+
+
+def init_mamba2(gen: torch.Generator, cfg, lead=()) -> dict:
+    """in_proj emits [z (di), x (di), B (g*n), C (g*n), dt (h)]. Float32
+    leaves ``a_log``, ``d_skip``, ``dt_bias`` in a model of any dtype;
+    sorted keys."""
+    d, di, h = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_heads
+    g, n, w = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_conv_width
+    dt = dtype_of(cfg.param_dtype)
+    dev = gen.device
+    conv_ch = di + 2 * g * n
+    in_proj = param(gen, (*lead, d, 2 * di + 2 * g * n + h), dt)
+    conv_w = param(gen, (*lead, w, conv_ch), dt, scale=0.1)
+    out_proj = param(gen, (*lead, di, d), dt, scale=0.02 / math.sqrt(2 * cfg.num_layers))
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, dtype=torch.float32, device=dev))
+    return {
+        "a_log": a_log.expand(*lead, h).clone(),
+        "conv_b": torch.zeros((*lead, conv_ch), dtype=dt, device=dev),
+        "conv_w": conv_w,
+        "d_skip": torch.ones((*lead, h), dtype=torch.float32, device=dev),
+        "dt_bias": torch.zeros((*lead, h), dtype=torch.float32, device=dev),
+        "in_proj": in_proj,
+        "norm_w": torch.ones((*lead, di), dtype=dt, device=dev),
+        "out_proj": out_proj,
+    }
+
+
+def _split_proj(cfg, proj: torch.Tensor):
+    di, g, n = cfg.ssm_d_inner, cfg.ssm_groups, cfg.ssm_state
+    return proj[..., :di], proj[..., di:2 * di + 2 * g * n], proj[..., 2 * di + 2 * g * n:]
+
+
+def _causal_conv_train(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """xbc: (B, S, C); depthwise causal conv of width ``w.shape[0]``."""
+    width, s = w.shape[0], xbc.shape[1]
+    pad = torch.nn.functional.pad(xbc, (0, 0, width - 1, 0))
+    out = sum(pad[:, i:i + s] * w[i] for i in range(width))
+    return silu(out + b)
+
+
+def _segsum(da: torch.Tensor) -> torch.Tensor:
+    """da: (..., Q) -> (..., Q, Q), out[q, k] = sum_{i=k+1..q} da_i for
+    q >= k, -inf above the diagonal."""
+    css = torch.cumsum(da, dim=-1)
+    diff = css[..., :, None] - css[..., None, :]
+    q = da.shape[-1]
+    mask = torch.ones((q, q), dtype=torch.bool, device=da.device).tril()
+    return torch.where(mask, diff, -math.inf)
+
+
+def chunk_len(s: int, chunk: int) -> int:
+    """``min(chunk, s)``, halved until it divides ``s``."""
+    q = min(chunk, s)
+    while s % q:
+        q //= 2
+    return q
+
+
+def ssd_chunked(x, dt, a, bmat, cmat, d_skip, chunk: int):
+    """SSD forward.
+
+    x: (B, S, H, P); dt: (B, S, H) float32 (> 0, after softplus); a: (H,)
+    float32 (< 0); bmat/cmat: (B, S, G, N); d_skip: (H,). Returns y (B, S,
+    H, P) in x's dtype and the final state (B, H, P, N) float32."""
+    bsz, s, h, p = x.shape
+    g, n = bmat.shape[2], bmat.shape[3]
+    hg = h // g
+    q = chunk_len(s, chunk)
+    nc = s // q
+    f32 = torch.float32
+
+    xf = x.to(f32)
+    da = dt * a                       # (B, S, H), <= 0
+    xb = xf * dt[..., None]           # dt-weighted input
+
+    dac = da.reshape(bsz, nc, q, h)
+    xbc = xb.reshape(bsz, nc, q, h, p)
+    bc = bmat.reshape(bsz, nc, q, g, n).to(f32)
+    cc = cmat.reshape(bsz, nc, q, g, n).to(f32)
+
+    # intra-chunk (quadratic within a chunk)
+    lmat = torch.exp(_segsum(dac.transpose(2, 3)))                  # (B, nc, H, Q, Q)
+    scores = torch.einsum("bnqgs,bnkgs->bngqk", cc, bc)             # (B, nc, G, Q, Q)
+    scores = scores.repeat_interleave(hg, dim=2)                    # (B, nc, H, Q, Q)
+    y_diag = torch.einsum("bnhqk,bnkhp->bnqhp", lmat * scores, xbc)
+
+    # chunk-final states
+    css = torch.cumsum(dac, dim=2)                                  # (B, nc, Q, H)
+    decay_to_end = torch.exp(css[:, :, -1:, :] - css)
+    bfull = bc.repeat_interleave(hg, dim=3)                         # (B, nc, Q, H, N)
+    states = torch.einsum("bnqhs,bnqh,bnqhp->bnhps", bfull, decay_to_end, xbc)
+
+    # inter-chunk recurrence: the state entering each chunk
+    chunk_decay = torch.exp(css[:, :, -1, :])                       # (B, nc, H)
+    carry = torch.zeros((bsz, h, p, n), dtype=f32, device=x.device)
+    entering = []
+    for c in range(nc):
+        entering.append(carry)
+        carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
+    entering = torch.stack(entering, dim=1)                         # (B, nc, H, P, N)
+
+    # inter-chunk contribution
+    in_decay = torch.exp(css)
+    cfull = cc.repeat_interleave(hg, dim=3)
+    y_off = torch.einsum("bnqhs,bnqh,bnhps->bnqhp", cfull, in_decay, entering)
+
+    y = (y_diag + y_off).reshape(bsz, s, h, p)
+    y = y + xf * d_skip[None, None, :, None]
+    return y.to(x.dtype), carry
+
+
+def apply_mamba2(p: dict, x: torch.Tensor, cfg, ssm_state=None, conv_state=None,
+                 decode: bool = False):
+    """The whole block. Train / prefill (``decode=False``): x (B, S, d).
+    Decode: x (B, 1, d) with ``ssm_state`` (B, H, P, N) and ``conv_state``
+    (B, w - 1, C) carried. Returns (y, new ssm state, new conv state); the
+    conv state of a prompt shorter than w - 1 tokens is None, as in the
+    reference."""
+    di, g, n, h = cfg.ssm_d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    pdim, width = cfg.ssm_head_dim, cfg.ssm_conv_width
+
+    proj = x @ p["in_proj"]
+    z, xbc_in, dt_raw = _split_proj(cfg, proj)
+    a = -torch.exp(p["a_log"])
+    dt_in = dt_raw.to(torch.float32) + p["dt_bias"]
+    dt = torch.logaddexp(dt_in, torch.zeros_like(dt_in))           # jax.nn.softplus
+
+    if not decode:
+        xbc = _causal_conv_train(xbc_in, p["conv_w"], p["conv_b"])
+        new_conv = xbc_in[:, -(width - 1):] if xbc_in.shape[1] >= width - 1 else None
+        bsz, s = xbc.shape[:2]
+        xs = xbc[..., :di]
+        bmat = xbc[..., di:di + g * n].reshape(bsz, s, g, n)
+        cmat = xbc[..., di + g * n:].reshape(bsz, s, g, n)
+        y, final_state = ssd_chunked(xs.reshape(bsz, s, h, pdim), dt, a, bmat, cmat,
+                                     p["d_skip"], cfg.ssm_chunk)
+        y = y.reshape(bsz, s, di)
+    else:
+        # one step of the recurrence
+        cs = torch.cat([conv_state, xbc_in], dim=1)                 # (B, w, C)
+        xbc = silu(torch.einsum("bwc,wc->bc", cs, p["conv_w"]) + p["conv_b"])[:, None]
+        new_conv = cs[:, 1:]
+        bsz = xbc.shape[0]
+        xs = xbc[..., :di]
+        bmat = xbc[..., di:di + g * n].reshape(bsz, g, n).to(torch.float32)
+        cmat = xbc[..., di + g * n:].reshape(bsz, g, n).to(torch.float32)
+        xh = xs.reshape(bsz, h, pdim).to(torch.float32)
+        dt1 = dt[:, 0]                                               # (B, H)
+        da = torch.exp(dt1 * a)
+        hg = h // g
+        bfull = bmat.repeat_interleave(hg, dim=1)                    # (B, H, N)
+        cfull = cmat.repeat_interleave(hg, dim=1)
+        upd = torch.einsum("bh,bhp,bhs->bhps", dt1, xh, bfull)
+        final_state = ssm_state * da[:, :, None, None] + upd
+        yh = torch.einsum("bhs,bhps->bhp", cfull, final_state) + xh * p["d_skip"][None, :, None]
+        y = yh.reshape(bsz, 1, di).to(x.dtype)
+
+    # gated RMSNorm, then the output projection
+    y = rms_norm(y * silu(z), p["norm_w"], cfg.norm_eps)
+    return y @ p["out_proj"], final_state, new_conv
+
+
+def init_ssm_state(batch: int, cfg, device=None):
+    """Zeroed (ssm (B, H, P, N) float32, conv (B, w - 1, C) activation
+    dtype)."""
+    conv_ch = cfg.ssm_d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    return (torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                        dtype=torch.float32, device=device),
+            torch.zeros((batch, cfg.ssm_conv_width - 1, conv_ch),
+                        dtype=dtype_of(cfg.activation_dtype), device=device))

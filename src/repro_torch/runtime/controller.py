@@ -396,7 +396,8 @@ class ElasticController:
             local = self.global_batch // d
             at = self.mesh_hosts.index(self.rank) * local
             tokens = torch.from_numpy(self._global_tokens(step)[at:at + local])
-            self.opt_state, metrics = self.step_fn(self.opt_state, tokens.to(self.device))
+            self.opt_state, metrics = self.step_fn(self.opt_state,
+                                                   {"tokens": tokens.to(self.device)})
             loss = metrics["loss"].to(torch.float64)
         else:
             loss = torch.zeros((), dtype=torch.float64, device=self.device)

@@ -46,6 +46,7 @@ import torch
 
 from repro_torch import trace as _trace
 from repro_torch.core.agg import AggConfig
+from repro_torch.models.transformer import ATTN_FAMILIES
 from repro_torch.serve.engine import (Request, Result, TelemetryChannel, check_request,
                                       greedy)
 from repro_torch.serve.kvcache import PagedKVCache, pages_needed, write_pages
@@ -133,6 +134,10 @@ class ContinuousEngine:
     def __init__(self, model, num_slots: int, max_len: int, page_size: int = 16,
                  num_pages: Optional[int] = None, agg: AggConfig | None = None,
                  group=None, max_prefill_per_step: Optional[int] = None):
+        if model.cfg.family not in ATTN_FAMILIES:
+            raise ValueError(
+                f"model family {model.cfg.family!r} has no paged decode path; "
+                f"use the static ServeEngine")
         self.model = model
         self.num_slots = num_slots
         self.max_len = max_len

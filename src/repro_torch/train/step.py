@@ -16,8 +16,14 @@ aggregation IS the collective. ``group`` may be a ``(pod_group,
 data_group)`` pair (``runtime/elastic.py::make_groups``), which the
 Aggregator reduces hierarchically.
 
+A batch is a dict of tensors with a leading batch axis, as the reference's:
+``tokens`` (B, S) and, for vlm, ``patch_embeds`` (B, P, d). The loss is
+``model.loss(batch)`` (the moe family's includes its aux term).
 ``accum_steps`` > 1 splits this rank's batch into microbatches and
-accumulates their gradients in float32, as the reference's scan does.
+accumulates their gradients in float32, as the reference's scan does; the
+split (and the logical workers' below) cuts every entry of the batch into
+the reference's contiguous slices, so an MoE layer groups its tokens as
+the reference's does.
 
 Logical-worker mode (``logical_workers`` = W > 0) decouples the aggregation
 from the group for elastic fault tolerance: the global batch is owned by W
@@ -43,12 +49,19 @@ from repro_torch.core.allreduce import _all_gather_rows
 from repro_torch.optim import optimizers
 
 
+def split_batch(batch: dict, n: int) -> list:
+    """``n`` contiguous equal slices of every entry of ``batch`` along its
+    batch axis (the reference's ``reshape(n, b // n, ...)``)."""
+    parts = {k: v.reshape(n, -1, *v.shape[1:]) for k, v in batch.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
 def make_train_step(model, agg: AggConfig, opt_cfg: optimizers.OptConfig,
                     global_batch: int, group=None, accum_steps: int = 1,
                     logical_workers: int = 0):
-    """Returns ``step_fn(opt_state, tokens) -> (opt_state, metrics)``, which
-    updates the model's parameters in place. ``tokens`` is this rank's
-    (global_batch / world, S) slice of the global batch; with
+    """Returns ``step_fn(opt_state, batch) -> (opt_state, metrics)``, which
+    updates the model's parameters in place. ``batch`` is this rank's
+    (global_batch / world, ...) slice of the global batch (module doc); with
     ``accum_steps`` > 1 it is cut into that many microbatches.
 
     ``logical_workers`` > 0 selects logical-worker mode (module doc); it
@@ -79,13 +92,13 @@ def make_train_step(model, agg: AggConfig, opt_cfg: optimizers.OptConfig,
     names, params = zip(*model.named_parameters())
     groups = group if isinstance(group, tuple) else (group,)
 
-    def grads_and_loss(tokens):
+    def grads_and_loss(batch):
         if accum_steps == 1:
-            loss = model.loss(tokens)
+            loss = model.loss(batch)
             return loss.detach(), torch.autograd.grad(loss, params)
         acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in params]
-        loss_acc = torch.zeros((), dtype=torch.float32, device=tokens.device)
-        for mb in tokens.reshape(accum_steps, -1, *tokens.shape[1:]):
+        loss_acc = torch.zeros((), dtype=torch.float32, device=params[0].device)
+        for mb in split_batch(batch, accum_steps):
             loss = model.loss(mb)
             for a, g in zip(acc, torch.autograd.grad(loss, params)):
                 a += g.to(torch.float32)
@@ -93,8 +106,8 @@ def make_train_step(model, agg: AggConfig, opt_cfg: optimizers.OptConfig,
         inv = 1.0 / accum_steps
         return loss_acc * inv, [a * inv for a in acc]
 
-    def train_step(opt_state: optimizers.OptState, tokens: torch.Tensor):
-        loss, grads = grads_and_loss(tokens)
+    def train_step(opt_state: optimizers.OptState, batch: dict):
+        loss, grads = grads_and_loss(batch)
         grads = aggregator.allreduce_tree(dict(zip(names, grads)))
         if agg.strategy == "native" and world > 1:
             grads = {k: g / world for k, g in grads.items()}
@@ -120,12 +133,13 @@ def _logical_worker_step(model, agg: AggConfig, opt_cfg: optimizers.OptConfig, g
     aggregator = Aggregator(agg, group, stacked=True)
     names, params = zip(*model.named_parameters())
 
-    def train_step(opt_state: optimizers.OptState, tokens: torch.Tensor):
+    def train_step(opt_state: optimizers.OptState, batch: dict):
         # each worker's gradients go straight into its row of a preallocated
         # (k, ...) buffer: no stacked copy of k gradient trees
         stacks = [torch.empty((k, *p.shape), dtype=p.dtype, device=p.device) for p in params]
-        losses = torch.empty(k, dtype=torch.float32, device=tokens.device)
-        for j, mb in enumerate(tokens.reshape(k, -1, *tokens.shape[1:])):
+        dev = params[0].device
+        losses = torch.empty(k, dtype=torch.float32, device=dev)
+        for j, mb in enumerate(split_batch(batch, k)):
             loss = model.loss(mb)
             for stack, g in zip(stacks, torch.autograd.grad(loss, params)):
                 stack[j].copy_(g)
@@ -135,7 +149,7 @@ def _logical_worker_step(model, agg: AggConfig, opt_cfg: optimizers.OptConfig, g
         # fixed-order loss: the gathered (W,) vector has the same order on
         # every group; fold it left to right in float32, one add at a time
         # (torch.sum is a tree reduction whose grouping is not fixed)
-        loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        loss = torch.zeros((), dtype=torch.float32, device=dev)
         for v in _all_gather_rows(losses, group).reshape(-1):
             loss = loss + v
         opt_state, metrics = optimizers.update(

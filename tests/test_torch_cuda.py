@@ -15,7 +15,9 @@ rows bit for bit) and serving telemetry through K1/K2 and K6; the
 XLA-style non-finite casts (F8, F9) and non-finite aggregation against the
 CPU; the switch dataplane (``BatchedDataplane`` single- and multi-tenant)
 and the query operators on the card against the CPU and the numpy
-dataplane, also under deterministic algorithms. These tests
+dataplane, also under deterministic algorithms; the model families on the
+card: GQA at g = 7, the MoE overflow (F10) and the SSD recurrence against
+the chunked scan. These tests
 need an NVIDIA GPU and nvcc;
 elsewhere they skip. They import nothing of JAX, so the GPU machine runs them with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -412,7 +414,7 @@ def test_reproducible_repeats_the_backward_bits(dev):
     was = torch.are_deterministic_algorithms_enabled()
     with reproducible(dev):
         assert torch.are_deterministic_algorithms_enabled()
-        runs = [torch.autograd.grad(model.loss(tokens), list(model.parameters()))
+        runs = [torch.autograd.grad(model.loss({"tokens": tokens}), list(model.parameters()))
                 for _ in range(3)]
     assert torch.are_deterministic_algorithms_enabled() == was
     for r in runs[1:]:
@@ -596,3 +598,101 @@ def test_dataplane_and_groupby_on_the_card_under_deterministic_algorithms(dev):
         torch.use_deterministic_algorithms(before)
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
     assert again == plain
+
+
+def _family_pair(dev, arch, **cfg_kw):
+    """A smoke model of ``arch`` on the CPU and on the card, same weights."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import build
+
+    cfg = get_smoke_config(arch).with_(**cfg_kw)
+    params = transformer.init_lm(cfg, torch.Generator().manual_seed(0))
+    return (build(cfg, device=torch.device("cpu"), params=params),
+            build(cfg, device=dev, params=params))
+
+
+def test_gqa_ratio_seven_on_the_card_matches_cpu(dev):
+    """g = 7 (arctic's and llava's 56 / 8; here 14 heads / 2 KV heads at
+    head_dim 8): the loss and every gradient within 2e-5 of the CPU's
+    (relative to each leaf's largest |entry|), prefill, decode and paged
+    decode logits within 2e-5; on the card paged == dense bit for bit."""
+    from repro_torch.serve.kvcache import PagedKVCache
+
+    cpu_m, card_m = _family_pair(dev, "internlm2-20b", num_heads=14, num_kv_heads=2,
+                                 d_model=112)
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(0, 512, (2, 64)))
+    nxt = torch.from_numpy(np.random.default_rng(6).integers(0, 512, (2, 1)))
+    out = {}
+    for name, m, d in (("cpu", cpu_m, torch.device("cpu")), ("card", card_m, dev)):
+        loss = m.loss({"tokens": tokens.to(d)})
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        logits, cache = m.prefill(tokens.to(d), m.init_cache(2, 80))
+        paged = PagedKVCache(m.cfg, num_slots=2, max_len=80, page_size=8, device=d)
+        for j in range(2):
+            paged.grow_slot(j, 65)
+            paged.write_prompt(j, cache.kv.k[:, j, :64], cache.kv.v[:, j, :64])
+        dense, _ = m.decode_step(nxt.to(d), cache)
+        pg, _, _ = m.decode_step_paged(nxt.to(d), paged.k, paged.v, paged.device_table(),
+                                       torch.full((2,), 64, device=d))
+        out[name] = ([loss.detach()] + [g.cpu() for g in grads], (logits.cpu(), dense.cpu(),
+                                                                  pg.cpu()))
+    for a, b in zip(out["card"][0], out["cpu"][0]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
+                                   atol=2e-5 * float(b.abs().max()))
+    for a, b in zip(out["card"][1], out["cpu"][1]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=2e-5)
+    assert torch.equal(out["card"][1][1], out["card"][1][2])
+
+
+def test_moe_overflow_on_the_card_equals_the_cpu(dev):
+    """F10 on CUDA: 64 tokens all routed to expert 0 of 4 (top-1, capacity
+    24): the slot table, the overflow flags and the set of tokens served
+    (0..22) equal the CPU's exactly, the outputs within 1e-5 of the
+    largest; a scatter with duplicate indices decides nothing."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe
+
+    cfg = get_smoke_config("arctic-480b").with_(num_experts=4, num_experts_per_token=1,
+                                                moe_group_size=64)
+    p = moe.init_moe(torch.Generator().manual_seed(1), cfg)
+    p["router"].zero_()
+    p["router"][0, 0] = 50.0
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal((1, 64, cfg.d_model))
+                         .astype(np.float32))
+    x[..., 0] = x[..., 0].abs() + 1.0
+    got = {}
+    for d in (torch.device("cpu"), dev):
+        pd = {k: v.to(d) for k, v in p.items()}
+        out, _ = moe.apply_moe(pd, x.to(d), cfg)
+        r = moe.route(pd, x.to(d), cfg)
+        got[d.type] = (out.cpu(), r.slot_tok.cpu(), r.overflow.cpu())
+    (co, cs, cf), (go, gs, gf) = got["cpu"], got["cuda"]
+    assert torch.equal(cs, gs) and torch.equal(cf, gf)
+    served = lambda o: torch.nonzero(o[0].abs().amax(-1) > 0).flatten().tolist()  # noqa: E731
+    assert served(go) == served(co) == list(range(23))
+    np.testing.assert_allclose(go.numpy(), co.numpy(), rtol=0,
+                               atol=1e-5 * float(co.abs().max()))
+
+
+def test_ssd_decode_continues_prefill_on_the_card(dev):
+    """mamba2-780m at smoke size on the card: prefill of 48 tokens, then one
+    decode step (the recurrence), gives the last logits of a prefill of the
+    49 tokens (the chunked scan) within 2e-5 of their largest |logit|; the
+    SSM states within 1e-5 of the largest; and the decode logits equal the
+    CPU's within 2e-5."""
+    cpu_m, card_m = _family_pair(dev, "mamba2-780m")
+    tokens = torch.from_numpy(np.random.default_rng(8).integers(0, 512, (2, 49)))
+    out = {}
+    for name, m, d in (("cpu", cpu_m, torch.device("cpu")), ("card", card_m, dev)):
+        _, cache = m.prefill(tokens[:, :48].to(d), m.init_cache(2, 64))
+        step, cache = m.decode_step(tokens[:, 48:].to(d), cache)
+        full, whole = m.prefill(tokens.to(d), m.init_cache(2, 64))
+        out[name] = step.cpu()
+        if name == "card":
+            np.testing.assert_allclose(step.cpu().numpy(), full.cpu().numpy(), rtol=0,
+                                       atol=2e-5 * float(full.abs().max()))
+            want = whole.ssm[:, :2].cpu()
+            np.testing.assert_allclose(cache.ssm[:, :2].cpu().numpy(), want.numpy(), rtol=0,
+                                       atol=1e-5 * float(want.abs().max()))
+    np.testing.assert_allclose(out["card"].numpy(), out["cpu"].numpy(), rtol=0, atol=2e-5)

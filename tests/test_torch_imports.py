@@ -76,4 +76,14 @@ def test_guard_sees_the_whole_port():
             "src/repro_torch/models/transformer.py", "src/repro_torch/core/switch.py",
             "src/repro_torch/switchsim/dataplane.py", "src/repro_torch/switchsim/tenancy.py",
             "src/repro_torch/switchsim/query.py", "src/repro_torch/db/query.py",
-            "src/repro_torch/launch/query.py", "chip_smoke.py"} <= names
+            "src/repro_torch/launch/query.py", "src/repro_torch/models/moe.py",
+            "src/repro_torch/models/mamba2.py", "src/repro_torch/models/layers.py",
+            "src/repro_torch/models/registry.py", "src/repro_torch/interop.py",
+            "src/repro_torch/train/step.py", "src/repro_torch/launch/train.py",
+            "src/repro_torch/configs/__init__.py", "src/repro_torch/configs/arctic_480b.py",
+            "src/repro_torch/configs/kimi_k2.py", "src/repro_torch/configs/zamba2_7b.py",
+            "src/repro_torch/configs/llava_next_34b.py", "src/repro_torch/configs/mamba2_780m.py",
+            "src/repro_torch/configs/internlm2_20b.py", "src/repro_torch/configs/deepseek_67b.py",
+            "src/repro_torch/configs/stablelm_3b.py", "src/repro_torch/examples/quickstart.py",
+            "src/repro_torch/examples/train_lm.py", "src/repro_torch/examples/serve_lm.py",
+            "chip_smoke.py"} <= names

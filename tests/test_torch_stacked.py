@@ -134,7 +134,7 @@ local = {batch} // world
 losses = []
 for i in range({steps}):
     toks = loader.batch_at(i)["tokens"][rank * local:(rank + 1) * local]
-    opt, metrics = step(opt, torch.from_numpy(toks))
+    opt, metrics = step(opt, {{"tokens": torch.from_numpy(toks)}})
     losses.append(metrics["loss"].numpy())
 res["train/losses"] = np.stack(losses)
 res["train/params"] = torch.cat([p.detach().reshape(-1) for p in model.parameters()]).numpy()
@@ -354,7 +354,8 @@ def test_logical_worker_step_tracks_the_reference(reference):
     loader = ShardedLoader(SyntheticCorpus(cfg.vocab_size, 0), BATCH, SEQ)
     losses, gnorms = [], []
     for i in range(STEPS):
-        opt_state, metrics = step(opt_state, torch.from_numpy(loader.batch_at(i)["tokens"]))
+        opt_state, metrics = step(opt_state,
+                                  {"tokens": torch.from_numpy(loader.batch_at(i)["tokens"])})
         assert metrics["loss"].dtype == torch.float32
         losses.append(float(metrics["loss"]))
         gnorms.append(float(metrics["grad_norm"]))

@@ -131,7 +131,8 @@ def _port_steps(reference, strategy, model=None, **step_kw):
     loader = ShardedLoader(SyntheticCorpus(cfg.vocab_size, 0), BATCH, SEQ)
     losses, gnorms = [], []
     for i in range(STEPS):
-        opt_state, metrics = step(opt_state, torch.from_numpy(loader.batch_at(i)["tokens"]))
+        opt_state, metrics = step(opt_state,
+                                  {"tokens": torch.from_numpy(loader.batch_at(i)["tokens"])})
         losses.append(float(metrics["loss"]))
         gnorms.append(float(metrics["grad_norm"]))
     return losses, gnorms
@@ -204,7 +205,7 @@ def test_port_gradients_match_the_reference(reference):
     cfg = get_smoke_config(ARCH)
     model = _port_model(reference)
     tokens = ShardedLoader(SyntheticCorpus(cfg.vocab_size, 0), BATCH, SEQ).batch_at(0)["tokens"]
-    loss = model.loss(torch.from_numpy(tokens))
+    loss = model.loss({"tokens": torch.from_numpy(tokens)})
     names, params = zip(*model.named_parameters())
     grads = torch.autograd.grad(loss, params)
     ref = jax.tree.leaves(reference["grads"])
