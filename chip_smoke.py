@@ -133,6 +133,26 @@ reads all 128 experts' weights, 26.78 GB, 7.99 ms at 3.35 TB/s) and its
 forward+backward with ``remat`` "full" and "none" (CUDA events, peak
 memory); the group's wall time.
 
+Then, in the same group, the encoder-decoder (``encdec_path``, ``[encdec]``
+lines, each with the card's name and power limit): (a) whisper-medium at
+its published size (24 encoder and 24 decoder layers, d_model 1024, 16
+heads, d_ff 4096, vocab 51865, 1500 frames; 812,036,096 parameters in 26
+leaves, bf16 weights from a seed), 3 steps of 8 x 448 decoder tokens (its
+published ``max_target_positions``) over 8 x 1500 seeded frames through
+``train_loop`` with ``fpisa`` (K1/K2 once per leaf per step; the
+``whisper`` path), cuda == plain aggregation of its gradients on the batch
+training feeds, the step's breakdown, decoder tokens/s and frames/s, peak
+memory, ``[diagnose]`` of a forward+backward; (b) its serving half on a
+float32 copy of the trained weights (8 rows of 1500 seeded frames, a
+4-token prompt): prefill's logits == ``forward``'s last position and each
+of 32 greedy ``decode_step``s == a fresh ``forward`` over the extended
+tokens at that position, within ``WHISPER_ATOL`` (2e-4 absolute), and the
+cached cross K/V == ``encode_cross_kv`` of the encoder states bit for bit;
+then, in bf16, prefill and a decode step at 8 and 16 rows on CUDA events
+against the step's byte bound (the decoder's weights but the cross
+``wk``/``wv``, the head, and every row's cross K/V), and ``[diagnose]`` of
+the 16-row step; the group's wall time.
+
 Then the switch dataplane (``switchsim_path``, ``[switchsim]`` lines; the
 dataplane runs as torch ops on the card, as the reference runs it as jitted
 ``jnp``): (a) the card's ``BatchedDataplane`` equals the port's numpy
@@ -167,8 +187,8 @@ printed beside the card's name and power limit.
 In the ``kernels`` line, ``launches`` is a kernel's launches summed over
 every path above that ran it (main, ``fpisa_seq``, bucketed, stacked
 ``fpisa``, stacked ``fpisa_seq``, ``serve``, ``serve_fpisa_seq``,
-``mamba2``, ``zamba2_seq``, ``arctic_serve``, the two-pass pipeline,
-``switchsim``) and ``launches_by_path`` names each
+``mamba2``, ``zamba2_seq``, ``arctic_serve``, ``whisper``, the two-pass
+pipeline, ``switchsim``) and ``launches_by_path`` names each
 path's count, every path's counts zeroed just before it and read just
 after.
 
@@ -229,6 +249,16 @@ SERVE_PROMPTS, SERVE_BUDGETS = (64, 256, 512), (32, 64, 128)
 ORACLE_REQUESTS, SEQ_REQUESTS = 6, 8
 # the models group: requests per served family, zamba2's depth cut
 MODEL_REQUESTS, ZAMBA_LAYERS = 8, 7
+# the encdec group: whisper-medium's size, its published max_target_positions
+# (the decoder tokens of a training sequence), the serving checks' prompt
+# length, greedy decode steps and rows, and the rows of the timed decode steps
+WHISPER_PARAMS, WHISPER_LEAVES, WHISPER_SEQ = 812_036_096, 26, 448
+WHISPER_PROMPT, WHISPER_DECODE, WHISPER_ROWS = 4, 32, (8, 16)
+# the serving checks' tolerance on the float32 copy: prefill's and every
+# decode step's logits against a fresh forward's at that position, absolute
+# (the reference's own prefill tolerance, tests/test_models.py; its decode
+# check allows 5e-3)
+WHISPER_ATOL = 2e-4
 # the switchsim phase: one full-width qwen1.5-0.5b MLP leaf (24 layers x d_model
 # 1024 x d_ff 2816) from each of 4 workers, through 4 pipelines x 256 slots
 STREAM_WORKERS, STREAM_ELEMS = 4, 24 * 1024 * 2816
@@ -544,27 +574,38 @@ def train_seq_path(torch, dev):
     return launches, model, opt_state
 
 
-def step_breakdown(torch, dev, model, opt_state, strategy="fpisa", bucket_bytes=0):
+def training_batch(torch, dev, cfg, seq_len=SEQ_LEN):
+    """The batch ``train_loop`` would feed at step ``STEPS`` (seed 0), on
+    the card: ``tokens`` of GLOBAL_BATCH x seq_len and, for the
+    encoder-decoder, its seeded ``frames``."""
+    from repro_torch.data.pipeline import ShardedLoader, SyntheticCorpus
+    from repro_torch.launch.train import global_batch_at
+
+    loader = ShardedLoader(SyntheticCorpus(cfg.vocab_size, 0), GLOBAL_BATCH, seq_len)
+    return {k: torch.from_numpy(v).to(dev)
+            for k, v in global_batch_at(cfg, loader, 0, STEPS).items()}
+
+
+def step_breakdown(torch, dev, model, opt_state, strategy="fpisa", bucket_bytes=0,
+                   seq_len=SEQ_LEN):
     """Where a full-width training step's time goes, by layer: forward +
-    backward, the aggregation of the 14 gradient leaves (for fpisa K1, K2
+    backward, the aggregation of the gradient leaves (for fpisa K1, K2
     and the plain-torch glue between them; for fpisa_seq the all-gather,
     K6 and its casts; per leaf, or in buckets of ``bucket_bytes``), and the
     AdamW update; CUDA events, median of 5 runs each after one warm-up, on
-    the same tokens."""
+    the same batch (``training_batch``)."""
     from repro_torch.core.agg import AggConfig, Aggregator
-    from repro_torch.data.pipeline import ShardedLoader, SyntheticCorpus
     from repro_torch.optim import optimizers
 
     cfg = model.cfg
-    tokens = torch.from_numpy(ShardedLoader(SyntheticCorpus(cfg.vocab_size, 0), GLOBAL_BATCH,
-                                            SEQ_LEN).batch_at(STEPS)["tokens"]).to(dev)
+    batch = training_batch(torch, dev, cfg, seq_len)
     params = list(model.parameters())
     opt_cfg = optimizers.OptConfig(name=cfg.optimizer, lr=cfg.learning_rate)
     aggregator = Aggregator(AggConfig(strategy=strategy, bucket_bytes=bucket_bytes))
     held = {}
 
     def grads():
-        held["g"] = torch.autograd.grad(model.loss({"tokens": tokens}), params)
+        held["g"] = torch.autograd.grad(model.loss(batch), params)
 
     def aggregate():
         held["a"] = aggregator.allreduce_tree(list(held["g"]))
@@ -579,7 +620,7 @@ def step_breakdown(torch, dev, model, opt_state, strategy="fpisa", bucket_bytes=
     what = f"{strategy}, buckets of {bucket_bytes} bytes" if bucket_bytes else strategy
     log(f"[breakdown] {what}: one step, " + ", ".join(
         f"{k} {v:.2f} ms ({100 * v / total:.1f}%)" for k, v in parts.items())
-        + f"; sum {total:.2f} ms = {GLOBAL_BATCH * SEQ_LEN / total * 1e3:,.0f} tok/s")
+        + f"; sum {total:.2f} ms = {GLOBAL_BATCH * seq_len / total * 1e3:,.0f} tok/s")
     return parts
 
 
@@ -1380,17 +1421,18 @@ def serve_path(torch, dev):
     return paths
 
 
-def family_train(torch, dev, cfg, strategy):
-    """3 steps of ``cfg`` through ``train_loop`` with ``strategy`` on the
-    auto backend, every kernel's count zeroed just before and read just
-    after. Returns (launches, model, opt_state, seconds)."""
+def family_train(torch, dev, cfg, strategy, seq_len=SEQ_LEN, tag="[models]"):
+    """3 steps of ``cfg`` at GLOBAL_BATCH x ``seq_len`` through
+    ``train_loop`` with ``strategy`` on the auto backend, every kernel's
+    count zeroed just before and read just after. Returns (launches, model,
+    opt_state, seconds)."""
     from repro_torch.core.agg import AggConfig
     from repro_torch.launch.train import train_loop
 
     zero_launches()
     t0 = time.perf_counter()
     model, opt_state, losses = train_loop(
-        cfg, steps=STEPS, global_batch=GLOBAL_BATCH, seq_len=SEQ_LEN,
+        cfg, steps=STEPS, global_batch=GLOBAL_BATCH, seq_len=seq_len,
         agg=AggConfig(strategy=strategy, backend="auto"), device=dev, log_every=1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1406,8 +1448,8 @@ def family_train(torch, dev, cfg, strategy):
                                  f"{STEPS} steps, expected {leaves} per step (one per leaf)")
     if not all(torch.isfinite(p).all() for p in model.parameters()):
         raise AssertionError(f"{cfg.name}: non-finite parameter after training")
-    log(f"[models] {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}): {STEPS} steps "
-        f"of {GLOBAL_BATCH} x {SEQ_LEN} with {strategy} in {wall:.2f} s (init included), "
+    log(f"{tag} {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}): {STEPS} steps "
+        f"of {GLOBAL_BATCH} x {seq_len} with {strategy} in {wall:.2f} s (init included), "
         f"losses {losses}; {leaves} gradient leaves ({sum(p.numel() for p in model.parameters()):,}"
         f" parameters), launches {json.dumps({k: launches[k] for k in want})} = {leaves} per "
         f"step; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {CARD}")
@@ -1625,6 +1667,175 @@ def models_path(torch, dev):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# the eighth slice: the encoder-decoder (whisper-medium)
+# ---------------------------------------------------------------------------
+
+
+def encdec_train(torch, dev):
+    """(a) whisper-medium at its published size (24 encoder and 24 decoder
+    layers, d_model 1024, 16 heads, d_ff 4096, vocab 51865, 1500 frames;
+    812,036,096 parameters in 26 leaves, bf16 weights from a seed): 3 steps
+    of 8 x 448 decoder tokens over 8 x 1500 seeded frames through
+    ``train_loop`` with ``fpisa`` (K1/K2 once per leaf per step, the path's
+    counts zeroed just before and read just after), cuda == plain
+    aggregation of its gradients on the same batch, the step's breakdown,
+    decoder tokens/s and frames/s, peak memory, and ``diagnose`` of a
+    forward+backward. Returns (launches, model, numbers)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("whisper-medium")
+    torch.cuda.reset_peak_memory_stats()
+    launches, model, opt_state, _ = family_train(torch, dev, cfg, "fpisa", seq_len=WHISPER_SEQ,
+                                                 tag="[encdec] (a)")
+    size = (sum(p.numel() for p in model.parameters()), len(list(model.parameters())))
+    if size != (WHISPER_PARAMS, WHISPER_LEAVES):
+        raise AssertionError(f"{cfg.name}: {size[0]:,} parameters in {size[1]} leaves, expected "
+                             f"{WHISPER_PARAMS:,} in {WHISPER_LEAVES}")
+    check_grads_cuda_equals_plain(torch, dev, model, "fpisa", seq_len=WHISPER_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    parts = step_breakdown(torch, dev, model, opt_state, "fpisa", seq_len=WHISPER_SEQ)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    total = sum(parts.values())
+    tok_s = GLOBAL_BATCH * WHISPER_SEQ / total * 1e3
+    frames_s = GLOBAL_BATCH * cfg.num_frames / total * 1e3
+    log(f"[encdec] (a) {cfg.name} step, CUDA events: " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in parts.items())
+        + f"; {total:.2f} ms = {tok_s:,.0f} decoder tok/s, {frames_s:,.0f} frames/s; peak "
+        f"memory of the step {peak:.2f} GiB; {CARD}")
+    del opt_state
+    torch.cuda.empty_cache()
+    batch = training_batch(torch, dev, cfg, WHISPER_SEQ)
+    params = list(model.parameters())
+    diagnose(torch, lambda: torch.autograd.grad(model.loss(batch), params),
+             f"{cfg.name} forward+backward of {GLOBAL_BATCH} x {WHISPER_SEQ} tokens over "
+             f"{GLOBAL_BATCH} x {cfg.num_frames} frames ({CARD})")
+    return launches, model, {"step_ms": parts, "decoder_tok_s": tok_s, "frames_s": frames_s,
+                             "peak_gib": peak}
+
+
+def serve_inputs(torch, dev, cfg, rows):
+    """``rows`` seeded float32 frame sequences (numpy seed 5) and
+    ``WHISPER_PROMPT``-token prompts, on the card."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    frames = rng.standard_normal((rows, cfg.num_frames, cfg.d_model), dtype=np.float32)
+    prompt = rng.integers(0, cfg.vocab_size, (rows, WHISPER_PROMPT), dtype=np.int32)
+    return torch.from_numpy(frames).to(dev), torch.from_numpy(prompt).to(dev)
+
+
+def encdec_serve_checks(torch, dev, model):
+    """(b) the serving half at full width, on a float32 copy of the trained
+    weights: 8 rows of 1500 seeded frames and a 4-token prompt. Prefill's
+    last-position logits equal ``forward``'s last position, and each of 32
+    greedy ``decode_step``s equals a fresh ``forward`` over the extended
+    tokens at that position (the reference's check, tests/test_models.py),
+    within ``WHISPER_ATOL``; then the cached cross K/V equal
+    ``encode_cross_kv`` of the encoder states bit for bit (written once at
+    prefill and left alone by the decode steps)."""
+    from repro_torch.interop import params_from_jax, params_to_jax
+    from repro_torch.models import attention as attn
+    from repro_torch.models.registry import build
+
+    cfg = model.cfg.with_(param_dtype="float32", activation_dtype="float32")
+    # params_to_jax gives the bf16 leaves as float32 numpy arrays
+    m32 = build(cfg, device=dev, params=params_from_jax(params_to_jax(model)))
+    rows = WHISPER_ROWS[0]
+    frames, tokens = serve_inputs(torch, dev, cfg, rows)
+    logits, cache = m32.prefill(tokens, m32.init_cache(rows, WHISPER_PROMPT + WHISPER_DECODE),
+                                frames)
+    errs = []
+    with torch.inference_mode():
+        for step in range(WHISPER_DECODE + 1):
+            if step:
+                nxt = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+                logits, cache = m32.decode_step(nxt, cache)
+                tokens = torch.cat([tokens, nxt], dim=1)
+            full, _ = m32({"frames": frames, "tokens": tokens})
+            errs.append((logits[:, -1] - full[:, -1]).abs().max().item())
+            what = "prefill" if step == 0 else f"decode step {step}"
+            if not (errs[-1] <= WHISPER_ATOL and torch.isfinite(logits).all()):
+                raise AssertionError(f"{cfg.name} float32 {what}: logits differ from a fresh "
+                                     f"forward by {errs[-1]:.3g} (tolerance {WHISPER_ATOL})")
+        enc = m32.encode(frames)
+        for i, lp in enumerate(m32._dec_views()):
+            k, v = attn.encode_cross_kv(lp["xattn"], enc)
+            if not (torch.equal(cache.cross_kv[0][i], k) and torch.equal(cache.cross_kv[1][i], v)):
+                raise AssertionError(f"{cfg.name}: cached cross K/V of decoder layer {i} differ "
+                                     f"from encode_cross_kv of the encoder states")
+    log(f"[encdec] (b) {cfg.name} serving checks on a float32 copy ({rows} rows x "
+        f"{cfg.num_frames} frames, {WHISPER_PROMPT}-token prompt): prefill == forward's last "
+        f"position (max |diff| {errs[0]:.3g}), {WHISPER_DECODE} greedy decode steps == a fresh "
+        f"forward over the extended tokens (max |diff| {max(errs[1:]):.3g}; tolerance "
+        f"{WHISPER_ATOL} absolute, largest |logit| {full.abs().max().item():.3g}); the cached "
+        f"cross K/V of all {cfg.num_layers} layers == encode_cross_kv bit for bit; {CARD}")
+    return {"prefill_max_abs_diff": errs[0], "decode_max_abs_diff": max(errs[1:])}
+
+
+def decode_bytes(model, rows, pos):
+    """Bytes a decode step at ``pos`` must move for ``rows`` rows: every
+    decoder weight it uses once (not the cross ``wk``/``wv``, which only
+    prefill uses), the final norm, the head and the rows' embeddings; each
+    row's cross K/V (every layer, every frame) and self K/V at [0, pos]
+    read; the logits written. Returns (total, weights, cross K/V)."""
+    cfg = model.cfg
+    skip = ("dec_layers.xattn.wk", "dec_layers.xattn.wv")
+    weights = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+                  if (n.startswith("dec_layers.") and n not in skip)
+                  or n in ("final_norm.w", "head.w"))
+    elem = model.embed["tok"].element_size()
+    weights += rows * cfg.d_model * elem
+    kv = cfg.num_kv_heads * cfg.resolved_head_dim * elem   # one position of one layer
+    cross = 2 * cfg.num_layers * rows * cfg.num_frames * kv
+    self_kv = 2 * cfg.num_layers * rows * (pos + 1) * kv
+    return weights + cross + self_kv + rows * cfg.vocab_size * elem, weights, cross
+
+
+def encdec_serve_timing(torch, dev, model):
+    """The bf16 model's serving half on CUDA events: prefill (4-token
+    prompts over 1500 frames) and a decode step at 8 and 16 rows, each
+    against the decode step's byte bound (``decode_bytes`` over 3.35
+    TB/s), and ``diagnose`` of the 16-row decode step."""
+    cfg = model.cfg
+    out = {}
+    for rows in WHISPER_ROWS:
+        frames, prompt = serve_inputs(torch, dev, cfg, rows)
+        cache = model.init_cache(rows, WHISPER_PROMPT + WHISPER_DECODE)
+        prefill_ms = median_ms(torch, lambda: model.prefill(prompt, cache, frames), reps=5,
+                               warmup=1)
+        _, cache = model.prefill(prompt, cache, frames)
+        nxt = prompt[:, -1:]
+        ms = median_ms(torch, lambda: model.decode_step(nxt, cache), reps=10, warmup=2)
+        total, weights, cross = decode_bytes(model, rows, cache.pos)
+        bound = total / HBM_BYTES_PER_S * 1e3
+        log(f"[encdec] (b) {cfg.name} {cfg.param_dtype}, {rows} rows: prefill {prefill_ms:.2f} ms; decode "
+            f"step {ms:.2f} ms, CUDA events median of 10; byte bound {bound:.3f} ms "
+            f"({total / 1e9:.3f} GB at 3.35 TB/s: weights {weights / 1e9:.3f} GB, cross K/V "
+            f"{cross / 1e9:.3f} GB), {100 * bound / ms:.1f} % of it; {CARD}")
+        out[rows] = {"prefill_ms": prefill_ms, "decode_ms": ms, "bound_ms": bound}
+    diagnose(torch, lambda: model.decode_step(nxt, cache),
+             f"{cfg.name} decode step of {rows} rows ({CARD})")
+    return out
+
+
+def encdec_path(torch, dev):
+    """The eighth slice's path (``[encdec]`` lines): (a) whisper-medium
+    trained at its published size, (b) its serving half checked on a
+    float32 copy and timed in bf16. Returns {"whisper": launches}."""
+    t0 = time.perf_counter()
+    launches, model, train = encdec_train(torch, dev)
+    torch.cuda.empty_cache()
+    checks = encdec_serve_checks(torch, dev, model)
+    torch.cuda.empty_cache()
+    serve = encdec_serve_timing(torch, dev, model)
+    del model
+    torch.cuda.empty_cache()
+    log(f"[encdec] the group took {time.perf_counter() - t0:.1f} s; {CARD}")
+    log(json.dumps({"encdec": {"train": train, "checks": checks, "serve": serve}}))
+    return {"whisper": launches}
+
+
 def diagnose(torch, run, what):
     """Where an untraced ``run()`` (an aggregation of the gradients, a
     forward+backward) spends its time: the host's issue time (the host
@@ -1661,16 +1872,15 @@ def diagnose(torch, run, what):
         if busy else "not measured (the profiler recorded no device time)"))
 
 
-def check_grads_cuda_equals_plain(torch, dev, model, strategy):
-    """On the trained full-width model's gradients, the cuda aggregation
-    of ``strategy`` equals the plain one bit for bit, all finite."""
+def check_grads_cuda_equals_plain(torch, dev, model, strategy, seq_len=SEQ_LEN):
+    """On the trained full-width model's gradients (of the batch
+    ``train_loop`` feeds, ``training_batch``), the cuda aggregation of
+    ``strategy`` equals the plain one bit for bit, all finite."""
     from repro_torch.core.agg import AggConfig, Aggregator
-    from repro_torch.data.pipeline import ShardedLoader, SyntheticCorpus
 
-    tokens = ShardedLoader(SyntheticCorpus(model.cfg.vocab_size, 0), GLOBAL_BATCH,
-                           SEQ_LEN).batch_at(STEPS)["tokens"]
+    batch = training_batch(torch, dev, model.cfg, seq_len)
     names, params = zip(*model.named_parameters())
-    grads = torch.autograd.grad(model.loss({"tokens": torch.from_numpy(tokens).to(dev)}), params)
+    grads = torch.autograd.grad(model.loss(batch), params)
     kern, plain = (Aggregator(AggConfig(strategy=strategy, backend=b))
                    for b in ("cuda", "torch"))
     for name, g in zip(names, grads):
@@ -2414,6 +2624,8 @@ def main() -> int:
         paths.update(serve_path(torch, dev))
         torch.cuda.empty_cache()
         paths.update(models_path(torch, dev))
+        torch.cuda.empty_cache()
+        paths.update(encdec_path(torch, dev))
         torch.cuda.empty_cache()
         times = timing(torch, dev, leaf_sizes)
         paths["two_pass"], two_pass_times = two_pass_pipeline(torch, dev, leaf_sizes, par)

@@ -1,10 +1,11 @@
 """Architecture config registry of the port: ``get_config(name)`` /
 ``get_smoke_config(name)``.
 
-Every decoder-only architecture of the reference is listed, each module a
+Every architecture of the reference is listed, in its order, each module a
 copy of the reference's ``CONFIG`` (the published configuration) and
-``SMOKE`` (a reduced config of the same family). The encoder-decoder
-(whisper-medium) raises :class:`repro_torch.NotPortedError`.
+``SMOKE`` (a reduced config of the same family). ``NOT_PORTED`` names the
+reference's architectures that the port lacks (none now); asking for one
+raises :class:`repro_torch.NotPortedError`.
 """
 from __future__ import annotations
 
@@ -22,11 +23,12 @@ ARCH_MODULES = {
     "kimi-k2-1t-a32b": "kimi_k2",
     "zamba2-7b": "zamba2_7b",
     "llava-next-34b": "llava_next_34b",
+    "whisper-medium": "whisper_medium",
     "mamba2-780m": "mamba2_780m",
 }
 
 # the reference's other architectures, in its registry
-NOT_PORTED = ("whisper-medium",)
+NOT_PORTED: tuple = ()
 
 ARCH_NAMES = list(ARCH_MODULES)
 

@@ -18,6 +18,8 @@ keep recurrent state with no sequence axis to page, so they serve through
 reference's error), e.g.
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
       --arch mamba2-780m --engine static
+The encoder-decoder (whisper-medium) needs audio frames at prefill, which
+neither engine feeds: it is a usage error (``serve.engine.check_servable``).
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ from repro_torch import NotPortedError, resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.agg import AggConfig, add_agg_args
 from repro_torch.models.registry import build, param_count
-from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.engine import ServeEngine, check_servable
 from repro_torch.serve.loadgen import PoissonLoadGen, latency_report
 from repro_torch.serve.scheduler import ContinuousEngine
 from repro_torch.trace import add_trace_args
@@ -61,6 +63,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     try:
         cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+        check_servable(cfg)
         agg = AggConfig.from_args(args)
     except (ValueError, KeyError, NotPortedError) as e:
         ap.error(str(e))

@@ -7,9 +7,11 @@ Usage (one card):
 on the CPU, at smoke size:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --arch qwen1.5-0.5b --smoke --steps 3 --global-batch 4 --seq-len 64
-``--arch`` takes every decoder-only config (dense, moe, ssm, hybrid, vlm;
-a vlm batch carries seeded patch features, ``global_batch_at``), e.g.
-``--arch mamba2-780m``, ``zamba2-7b``, ``arctic-480b``, ``llava-next-34b``;
+``--arch`` takes every config (dense, moe, ssm, hybrid, vlm and the
+encoder-decoder; a vlm batch carries seeded patch features and an
+encoder-decoder batch seeded audio frames, ``global_batch_at``), e.g.
+``--arch mamba2-780m``, ``zamba2-7b``, ``arctic-480b``, ``llava-next-34b``,
+``whisper-medium``;
 and across ranks under ``torchrun`` (rank and world size from its
 environment; NCCL on the card, gloo on the CPU). Bucketed, traced and
 autotuned aggregation (``--bucket-bytes N|auto``, ``--trace-out PATH``,
@@ -139,14 +141,21 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
 
 def global_batch_at(cfg, loader: ShardedLoader, seed: int, step: int) -> dict:
     """The global batch of ``step``: the loader's ``tokens`` and, for vlm,
-    ``patch_embeds`` (B, num_patches, d_model) float32, standard normal from
-    numpy seeded by (seed, step): the reference's model takes precomputed
-    patch features of that shape and its data pipeline makes none."""
+    ``patch_embeds`` (B, num_patches, d_model), for the encoder-decoder
+    ``frames`` (B, num_frames, d_model); float32, standard normal from numpy
+    seeded by (seed, step) under a tag of their own: the reference's models
+    take precomputed features of those shapes (its conv frontend is a stub)
+    and its data pipeline makes none."""
     batch = loader.batch_at(step)
+
+    def features(rows: int, tag: int) -> np.ndarray:
+        rng = np.random.default_rng(np.random.SeedSequence([seed, step, tag]))
+        return rng.standard_normal((loader.global_batch, rows, cfg.d_model), dtype=np.float32)
+
     if cfg.family == "vlm":
-        rng = np.random.default_rng(np.random.SeedSequence([seed, step, 0x7A7C4]))
-        batch["patch_embeds"] = rng.standard_normal(
-            (loader.global_batch, cfg.num_patches, cfg.d_model), dtype=np.float32)
+        batch["patch_embeds"] = features(cfg.num_patches, 0x7A7C4)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = features(cfg.num_frames, 0xF4A3E)
     return batch
 
 

@@ -1,12 +1,18 @@
-"""Causal GQA attention for training and serving (torch port of
-``repro.models.attention``).
+"""GQA attention for training and serving, and the encoder-decoder's
+cross-attention (torch port of ``repro.models.attention``).
 
-``causal_attention`` computes what the reference's ``chunked_attention``
-computes, as one full (S, S) score matrix: scores from the compute-dtype
-product, upcast to float32 and scaled, the causal mask at -1e30, a float32
-softmax, and the weights cast back to the compute dtype before the product
-with V. The reference streams (q, kv) chunk pairs with an online softmax;
-the two agree to float rounding. A fast attention kernel is later work.
+``softmax_attention`` computes what the reference's ``chunked_attention``
+computes, as one full (S, Sk) score matrix: scores from the compute-dtype
+product, upcast to float32 and scaled, the causal mask at -1e30 (when
+causal), a float32 softmax, and the weights cast back to the compute dtype
+before the product with V. The reference streams (q, kv) chunk pairs with
+an online softmax; the two agree to float rounding. A fast attention kernel
+is later work.
+
+Cross-attention (``cross_attention``, ``encode_cross_kv``): q from the
+decoder states alone, with no bias and no RoPE, over K/V projected once
+from the encoder states; every frame is attended, in training, prefill and
+decode alike (the reference calls the one function in all three).
 
 Serving: ``attention_prefill`` (full-sequence attention that writes K/V at
 [0, S) of a dense cache), ``attention_decode`` (one new token per row at a
@@ -77,13 +83,17 @@ def _repeat_kv(k: torch.Tensor, v: torch.Tensor, cfg):
     return k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
 
 
-def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """q, k, v: (B, S, H, hd) with equal head counts -> (B, S, H, hd)."""
-    s, hd = q.shape[1], q.shape[-1]
+def softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True) -> torch.Tensor:
+    """q: (B, S, H, hd); k, v: (B, Sk, H, hd) with equal head counts ->
+    (B, S, H, hd). ``causal`` (S == Sk) masks the keys after each query."""
+    hd = q.shape[-1]
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, S, hd)
     scores = (qh @ kh.transpose(-1, -2)).to(torch.float32) * (1.0 / math.sqrt(hd))
-    keep = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
-    scores = torch.where(keep, scores, NEG_INF)
+    if causal:
+        s = q.shape[1]
+        keep = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        scores = torch.where(keep, scores, NEG_INF)
     w = torch.softmax(scores, dim=-1)
     return (w.to(v.dtype) @ vh).transpose(1, 2)
 
@@ -94,10 +104,14 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return out.flatten(-2) @ wo.reshape(h * hd, d)
 
 
-def attention_train(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor) -> torch.Tensor:
-    q, k, v = _qkv(p, x, cfg, positions)
+def attention_train(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
+                    causal: bool = True, rope: bool = True) -> torch.Tensor:
+    """Self-attention over the whole sequence; the encoder calls it with
+    ``causal=False`` and keeps RoPE over the frame positions, as the
+    reference does."""
+    q, k, v = _qkv(p, x, cfg, positions if rope else None)
     k, v = _repeat_kv(k, v, cfg)
-    return _out_proj(causal_attention(q, k, v), p["wo"])
+    return _out_proj(softmax_attention(q, k, v, causal), p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -125,7 +139,7 @@ def attention_prefill(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     cache.k[:, :s] = k.to(cache.k.dtype)
     cache.v[:, :s] = v.to(cache.v.dtype)
     k, v = _repeat_kv(k, v, cfg)
-    return _out_proj(causal_attention(q, k, v), p["wo"]), cache
+    return _out_proj(softmax_attention(q, k, v), p["wo"]), cache
 
 
 def _attend_one(p: dict, q: torch.Tensor, keys: torch.Tensor, values: torch.Tensor,
@@ -208,3 +222,25 @@ def attention_decode_paged(p: dict, x: torch.Tensor, cfg, k_pool: torch.Tensor,
     keys = k_pool[index.page_table].reshape(b, -1, kvh, hd)  # (B, MP*page, K, hd)
     values = v_pool[index.page_table].reshape(b, -1, kvh, hd)
     return _attend_one(p, q, keys, values, index.valid, cfg), k_pool, v_pool
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (the encoder-decoder's decoder)
+# ---------------------------------------------------------------------------
+
+
+def init_cross_attention(gen: torch.Generator, cfg, lead=()) -> dict:
+    return init_attention(gen, cfg, lead)
+
+
+def cross_attention(p: dict, x: torch.Tensor, enc_kv, cfg) -> torch.Tensor:
+    """x: (B, S, d) decoder states; enc_kv: (k, v), each (B, F, K, hd),
+    from :func:`encode_cross_kv`. Returns (B, S, d)."""
+    q = _project(x, p["wq"])
+    k, v = _repeat_kv(enc_kv[0], enc_kv[1], cfg)
+    return _out_proj(softmax_attention(q, k, v, causal=False), p["wo"])
+
+
+def encode_cross_kv(p: dict, enc_out: torch.Tensor):
+    """Encoder states (B, F, d) -> cross (k, v), each (B, F, K, hd)."""
+    return _project(enc_out, p["wk"]), _project(enc_out, p["wv"])

@@ -1,24 +1,30 @@
-"""Model registry of the port (torch counterpart of ``repro.models.registry``)."""
+"""Model registry of the port (torch counterpart of ``repro.models.registry``):
+``TransformerLM`` for the decoder-only families, ``EncDecLM`` for the
+encoder-decoder (which, as in the reference, has no paged decode path)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 
 def build(cfg: ModelConfig, *, device: torch.device, seed: int = 0,
-          params: dict | None = None) -> transformer.TransformerLM:
+          params: dict | None = None) -> torch.nn.Module:
     """The model for ``cfg`` on ``device``: weights drawn from a
     ``torch.Generator`` seeded with ``seed``, or the given parameter tree
     (e.g. ``repro_torch.interop.params_from_jax``), moved to ``device``."""
+    if cfg.is_encoder_decoder:
+        init, model = encdec.init_encdec, encdec.EncDecLM
+    else:
+        init, model = transformer.init_lm, transformer.TransformerLM
     if params is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
-        params = transformer.init_lm(cfg, gen)
+        params = init(cfg, gen)
     else:
         params = _to_device(params, device)
-    return transformer.TransformerLM(cfg, params)
+    return model(cfg, params)
 
 
 def _to_device(tree, device):

@@ -142,13 +142,13 @@ def _tree_map(fn, tree):
     return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
-def _unstack(node, detach: bool = False) -> list:
+def unstack(node, detach: bool = False) -> list:
     """Split a stacked tree along its first axis into per-layer trees of
     views (one ``unbind`` per leaf, whose backward stacks the per-layer
     gradients back; ``detach``: views outside autograd, for serving)."""
     if isinstance(node, torch.Tensor):
         return list((node.detach() if detach else node).unbind(0))
-    parts = {k: _unstack(v, detach) for k, v in node.items()}
+    parts = {k: unstack(v, detach) for k, v in node.items()}
     n = len(next(iter(parts.values())))
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
@@ -244,27 +244,36 @@ def _serve_mamba_layer(lp: dict, xs: list, cfg, run) -> list:
     return [x + run(i, rms_norm(x, lp["ln1"]["w"], cfg.norm_eps)) for i, x in enumerate(xs)]
 
 
-class TransformerLM(nn.Module):
-    """Decoder LM of any decoder-only family; ``loss(batch)`` is the
-    training objective, ``batch`` a dict of ``tokens`` (B, S) and, for vlm,
-    ``patch_embeds`` (B, P, d)."""
+class TreeLM(nn.Module):
+    """What the port's models share: the reference's parameter tree,
+    registered in sorted-key order (the reference's flatten order), and
+    remat "none" or "full" (``_remat`` checkpoints one layer's body)."""
 
     def __init__(self, cfg, params: dict):
         super().__init__()
         if cfg.remat not in ("none", "full"):
             raise NotPortedError(f"remat={cfg.remat!r}")
         self.cfg = cfg
-        # registration order = the reference's flatten order
         for k in sorted(params):
             setattr(self, k, _tree_module(params[k]))
         self._views, self._views_key = None, None
-
-    # --- training ------------------------------------------------------------
 
     def _remat(self, fn, *args):
         if self.cfg.remat == "none" or not torch.is_grad_enabled():
             return fn(*args)
         return checkpoint(fn, *args, use_reentrant=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed["tok"].device
+
+
+class TransformerLM(TreeLM):
+    """Decoder LM of any decoder-only family; ``loss(batch)`` is the
+    training objective, ``batch`` a dict of ``tokens`` (B, S) and, for vlm,
+    ``patch_embeds`` (B, P, d)."""
+
+    # --- training ------------------------------------------------------------
 
     def _input_embeds(self, tokens: torch.Tensor, patch_embeds=None) -> torch.Tensor:
         x = embed(self.embed, tokens)
@@ -287,21 +296,21 @@ class TransformerLM(nn.Module):
         positions = torch.arange(x.shape[1], device=x.device)
         auxes = []
         if cfg.family in ATTN_FAMILIES:
-            for lp in _unstack(self.layers):
+            for lp in unstack(self.layers):
                 x, aux = self._remat(lambda y, lp=lp: _dense_block(lp, y, cfg, positions), x)
                 auxes.append(aux)
         elif cfg.family == "ssm":
-            for lp in _unstack(self.layers):
+            for lp in unstack(self.layers):
                 x = self._remat(lambda y, lp=lp: _mamba_block(lp, y, cfg), x)
         else:  # hybrid
             def group(y, glp):
-                for lp in _unstack(glp):
+                for lp in unstack(glp):
                     y = _mamba_block(lp, y, cfg)
                 return _dense_block(self.shared, y, cfg, positions)[0]
 
-            for glp in _unstack(self.layers):
+            for glp in unstack(self.layers):
                 x = self._remat(lambda y, glp=glp: group(y, glp), x)
-            for lp in _unstack(self.tail_layers):
+            for lp in unstack(self.tail_layers):
                 x = self._remat(lambda y, lp=lp: _mamba_block(lp, y, cfg), x)
         aux = (torch.stack(auxes).sum() if auxes
                else torch.zeros((), dtype=torch.float32, device=x.device))
@@ -319,10 +328,6 @@ class TransformerLM(nn.Module):
 
     # --- serving -----------------------------------------------------------
 
-    @property
-    def device(self) -> torch.device:
-        return self.embed["tok"].device
-
     def _serving_views(self) -> dict:
         """Per-layer views of the stacked weights, built once and kept while
         the leaves keep their storage (in-place updates show through):
@@ -330,11 +335,11 @@ class TransformerLM(nn.Module):
         and ``shared``."""
         key = tuple(t.data_ptr() for t in self.parameters())
         if key != self._views_key:
-            layers = _unstack(self.layers, detach=True)
+            layers = unstack(self.layers, detach=True)
             views = {"layers": layers}
             if self.cfg.family == "hybrid":
-                views = {"layers": [_unstack(g) for g in layers],
-                         "tail": _unstack(self.tail_layers, detach=True),
+                views = {"layers": [unstack(g) for g in layers],
+                         "tail": unstack(self.tail_layers, detach=True),
                          "shared": self.shared}
             self._views, self._views_key = views, key
         return self._views

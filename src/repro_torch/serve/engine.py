@@ -98,6 +98,18 @@ def check_request(r: Request, max_len: int, count) -> Request | None:
     return r
 
 
+def check_servable(cfg) -> None:
+    """The engines feed prompts alone to ``prefill``. The encoder-decoder
+    (audio) family's prefill also needs audio frames, so both engines
+    refuse it, as the reference's cannot serve it either (its static
+    engine fails on the missing frames, its continuous engine refuses a
+    family without a paged decode path)."""
+    if cfg.is_encoder_decoder:
+        raise ValueError(
+            f"model family {cfg.family!r} ({cfg.name}) is an encoder-decoder whose prefill "
+            f"needs audio frames; the serving engines feed prompts only and cannot serve it")
+
+
 def greedy(logits: torch.Tensor) -> torch.Tensor:
     """(B, 1, V) logits -> (B, 1) int32 argmax tokens, on their device."""
     return logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
@@ -115,6 +127,7 @@ class ServeEngine:
 
     def __init__(self, model, batch_size: int, max_len: int,
                  agg: AggConfig | None = None, group=None):
+        check_servable(model.cfg)
         self.model = model
         self.batch_size = batch_size
         self.max_len = max_len

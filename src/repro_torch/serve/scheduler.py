@@ -48,7 +48,7 @@ from repro_torch import trace as _trace
 from repro_torch.core.agg import AggConfig
 from repro_torch.models.transformer import ATTN_FAMILIES
 from repro_torch.serve.engine import (Request, Result, TelemetryChannel, check_request,
-                                      greedy)
+                                      check_servable, greedy)
 from repro_torch.serve.kvcache import PagedKVCache, pages_needed, write_pages
 
 __all__ = ["ContinuousEngine", "RequestStats"]
@@ -134,6 +134,7 @@ class ContinuousEngine:
     def __init__(self, model, num_slots: int, max_len: int, page_size: int = 16,
                  num_pages: Optional[int] = None, agg: AggConfig | None = None,
                  group=None, max_prefill_per_step: Optional[int] = None):
+        check_servable(model.cfg)
         if model.cfg.family not in ATTN_FAMILIES:
             raise ValueError(
                 f"model family {model.cfg.family!r} has no paged decode path; "

@@ -17,7 +17,8 @@ CPU; the switch dataplane (``BatchedDataplane`` single- and multi-tenant)
 and the query operators on the card against the CPU and the numpy
 dataplane, also under deterministic algorithms; the model families on the
 card: GQA at g = 7, the MoE overflow (F10) and the SSD recurrence against
-the chunked scan. These tests
+the chunked scan; the encoder-decoder's training and serving against the
+CPU. These tests
 need an NVIDIA GPU and nvcc;
 elsewhere they skip. They import nothing of JAX, so the GPU machine runs them with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -696,3 +697,41 @@ def test_ssd_decode_continues_prefill_on_the_card(dev):
             np.testing.assert_allclose(cache.ssm[:, :2].cpu().numpy(), want.numpy(), rtol=0,
                                        atol=1e-5 * float(want.abs().max()))
     np.testing.assert_allclose(out["card"].numpy(), out["cpu"].numpy(), rtol=0, atol=2e-5)
+
+
+def test_encoder_decoder_on_the_card_matches_cpu(dev):
+    """whisper-medium at smoke size (2 + 2 layers, 24 frames) on the card:
+    the loss and every gradient within 2e-5 of the CPU's (relative to each
+    leaf's largest |entry|); prefill of 16 tokens and 4 decode steps (the
+    prompt's next tokens) with logits within 2e-5 of the CPU's, the cross
+    K/V within 1e-6."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import encdec
+    from repro_torch.models.registry import build
+
+    cfg = get_smoke_config("whisper-medium")
+    params = encdec.init_encdec(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(9)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32)))
+    frames = torch.from_numpy(rng.standard_normal((2, cfg.num_frames, cfg.d_model))
+                              .astype(np.float32))
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        m = build(cfg, device=d, params=params)
+        batch = {"tokens": tokens.to(d), "frames": frames.to(d)}
+        loss = m.loss(batch)
+        grads = [loss.detach()] + list(torch.autograd.grad(loss, list(m.parameters())))
+        logits, cache = m.prefill(batch["tokens"][:, :16], m.init_cache(2, 24), batch["frames"])
+        served = [logits]
+        for t in range(16, 20):
+            logits, cache = m.decode_step(batch["tokens"][:, t:t + 1], cache)
+            served.append(logits)
+        out[d.type] = ([g.cpu() for g in grads], [s.cpu() for s in served],
+                       [c.cpu() for c in cache.cross_kv])
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                   atol=2e-5 * float(b.abs().max()))
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=2e-5)
+    for a, b in zip(out["cuda"][2], out["cpu"][2]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-6)

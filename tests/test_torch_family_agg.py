@@ -1,4 +1,4 @@
-"""FPISA aggregation of every decoder-only family's gradient tree over 2
+"""FPISA aggregation of every family's gradient tree over 2
 ranks: the port's Aggregator on 2 gloo processes against the reference's,
 fed the same per-worker gradients (the port's, on two halves of a smoke
 batch, in the train step's leaf order; for the hybrid also a bf16 model's,
@@ -21,7 +21,7 @@ from torch_model_parity import make_batch, torch_batch  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FAMILY_ARCH = {"dense": "internlm2-20b", "moe": "arctic-480b", "ssm": "mamba2-780m",
-               "hybrid": "zamba2-7b", "vlm": "llava-next-34b"}
+               "hybrid": "zamba2-7b", "vlm": "llava-next-34b", "audio": "whisper-medium"}
 
 AGG_TORCH = """
 import os, numpy as np, torch, torch.distributed as dist

@@ -6,8 +6,8 @@ the shared harness and its tolerances in torch_model_parity.py (logits,
 loss and every gradient leaf 2e-5 relative; serving logits 2e-5, caches
 1e-6).
 
-* Every decoder-only config (CONFIG and SMOKE) is a field-for-field copy of
-  the reference's; only whisper-medium raises NotPortedError.
+* Every config (CONFIG and SMOKE), whisper-medium's too, is a
+  field-for-field copy of the reference's; none raises NotPortedError.
 * The dense configs and the vlm (patch prefix) at seq 64, two attention
   chunks of the reference's ``attn_q_chunk=32``: forward, loss and
   gradients; prefill, decode and paged decode.
@@ -19,7 +19,10 @@ loss and every gradient leaf 2e-5 relative; serving logits 2e-5, caches
   float32 leaves of a bf16 model in float32.
 * One FPISA aggregation per family over 2 gloo ranks, fed the same
   per-worker gradients: bit-exact with the reference's aggregation.
-* ``launch.train`` trains, and ``launch.serve`` serves, every config.
+* ``launch.train`` trains every config, whisper-medium too (its
+  encoder-decoder is held to the reference in test_torch_encdec.py), and
+  ``launch.serve`` serves every decoder-only config; both engines refuse
+  the encoder-decoder.
 """
 import dataclasses
 import os
@@ -44,7 +47,8 @@ from torch_model_parity import (check_forward_and_grads, check_paged_decode,  # 
                                 check_prefill_and_decode, make_batch, pair, torch_batch)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-DECODER_ARCHS = [a for a in jax_configs.ARCH_NAMES if a != "whisper-medium"]
+ARCHS = jax_configs.ARCH_NAMES
+DECODER_ARCHS = [a for a in ARCHS if a != "whisper-medium"]
 DENSE_VLM = ["qwen1.5-0.5b", "internlm2-20b", "deepseek-67b", "stablelm-3b", "llava-next-34b"]
 # one arch per family for the layout and aggregation checks
 FAMILY_ARCH = {"dense": "internlm2-20b", "moe": "arctic-480b", "ssm": "mamba2-780m",
@@ -52,13 +56,13 @@ FAMILY_ARCH = {"dense": "internlm2-20b", "moe": "arctic-480b", "ssm": "mamba2-78
 
 
 def test_configs_copy_the_reference():
-    assert configs.ARCH_NAMES == DECODER_ARCHS
-    for arch in DECODER_ARCHS:
+    assert configs.ARCH_NAMES == ARCHS
+    assert configs.NOT_PORTED == ()
+    for arch in ARCHS:
         for mine, ref in ((configs.get_config(arch), jax_configs.get_config(arch)),
                           (configs.get_smoke_config(arch), jax_configs.get_smoke_config(arch))):
             assert dataclasses.asdict(mine) == dataclasses.asdict(ref), arch
-    with pytest.raises(NotPortedError, match="whisper-medium"):
-        configs.get_config("whisper-medium")
+    assert configs.get_config("whisper-medium").is_encoder_decoder
     with pytest.raises(KeyError):
         configs.get_config("no-such-arch")
     from repro.configs import base as jax_base
@@ -205,7 +209,7 @@ def test_weights_carry_across_in_the_reference_layout(family):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", DECODER_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_train_cli_trains_every_config(arch, capsys):
     train_cli.main(["--device", "cpu", "--arch", arch, "--smoke", "--steps", "2",
                     "--global-batch", "2", "--seq-len", "32", "--agg", "fpisa"])
@@ -215,13 +219,33 @@ def test_train_cli_trains_every_config(arch, capsys):
     assert all(np.isfinite(float(ln.split()[4])) for ln in lines)
 
 
-@pytest.mark.parametrize("arch", DECODER_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_serve_cli_serves_every_config(arch, capsys):
     """The continuous engine for the attention families; ssm and hybrid
     refuse it (the reference's error) and serve through the static
-    engine."""
-    family = configs.get_smoke_config(arch).family
+    engine. The encoder-decoder needs audio frames at prefill: the CLI
+    refuses it as a usage error with either engine, and both engines
+    refuse its model."""
+    cfg = configs.get_smoke_config(arch)
+    family = cfg.family
     argv = ["--device", "cpu", "--smoke", "--arch", arch, "--requests", "3"]
+    if cfg.is_encoder_decoder:
+        from repro_torch.models.registry import build
+        from repro_torch.serve.engine import ServeEngine
+        from repro_torch.serve.scheduler import ContinuousEngine
+
+        refusal = "is an encoder-decoder whose prefill needs audio frames"
+        for engine in ("static", "continuous"):
+            with pytest.raises(SystemExit) as exc:
+                serve_cli.main(argv + ["--engine", engine])
+            assert exc.value.code == 2
+            assert refusal in capsys.readouterr().err
+        model = build(cfg, device=torch.device("cpu"))
+        with pytest.raises(ValueError, match=refusal):
+            ServeEngine(model, batch_size=2, max_len=16)
+        with pytest.raises(ValueError, match=refusal):
+            ContinuousEngine(model, num_slots=2, max_len=16, page_size=8)
+        return
     if family in ("ssm", "hybrid"):
         with pytest.raises(ValueError, match="has no paged decode path"):
             serve_cli.main(argv + ["--engine", "continuous"])

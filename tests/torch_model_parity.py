@@ -1,8 +1,8 @@
 """Shared harness of the model-family parity tests (``test_torch_models``,
-``test_torch_moe``, ``test_torch_mamba2``): one smoke config built on both
-sides from the SAME weights (the JAX init, optionally edited, carried over
-with ``repro_torch.interop.params_from_jax``), inputs from numpy seeds, and
-the checks every family shares.
+``test_torch_moe``, ``test_torch_mamba2``, ``test_torch_encdec``): one
+smoke config built on both sides from the SAME weights (the JAX init,
+optionally edited, carried over with ``repro_torch.interop.params_from_jax``),
+inputs from numpy seeds, and the checks every family shares.
 
 Tolerances (float32 smoke configs; two frameworks differ in summation order
 and transcendentals, and the reference streams attention in (q, kv) chunks
@@ -61,6 +61,9 @@ def make_batch(cfg, b: int, s: int, seed: int) -> dict:
     if cfg.family == "vlm":
         batch["patch_embeds"] = rng.standard_normal(
             (b, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = rng.standard_normal(
+            (b, cfg.num_frames, cfg.d_model)).astype(np.float32)
     return batch
 
 
