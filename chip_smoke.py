@@ -153,6 +153,25 @@ against the step's byte bound (the decoder's weights but the cross
 ``wk``/``wv``, the head, and every row's cross K/V), and ``[diagnose]`` of
 the 16-row step; the group's wall time.
 
+Then, in the same group, the sharding rules, pipeline stages and dry run
+(``sharding_path``, ``[sharding]`` lines, each with the card's name and
+power limit): (a) qwen1.5-0.5b at full width, 3 steps of ``fpisa``
+through ``train_loop`` twice from seed 0 under deterministic algorithms:
+plain tensors, then on the card's ``("data", "model")`` = (1, 1)
+``DeviceMesh`` with the parameters and AdamW moments DTensors placed by
+``sharding/rules.py`` (the ``sharded`` path: K1/K2 once per leaf per step,
+counted from zero over the mesh run); losses, parameters, moments and the
+aggregated gradients of the training batch held bit for bit to the plain
+run's; the two steps' and forward+backwards' times; (b) the GPipe loss
+(``train/pipeline.py``) at full width, one stage, 4 microbatches, against
+``model.loss`` (2e-3 on the loss; rtol 2e-2, atol 2e-4 on every gradient,
+the reference test's tolerances); (c) ``launch/opscan.py`` over one mesh
+step: flops, bytes, ``compute_s`` and ``memory_s`` at the H100 constants
+(``launch/mesh.py``) beside the measured step; and ``python -m
+repro_torch.launch.dryrun`` of qwen1.5-0.5b and kimi-k2 (multi-pod)
+``train_4k``, traced on the host beside the card's work, their
+``per_device.arg_bytes`` against the card's memory.
+
 Then the switch dataplane (``switchsim_path``, ``[switchsim]`` lines; the
 dataplane runs as torch ops on the card, as the reference runs it as jitted
 ``jnp``): (a) the card's ``BatchedDataplane`` equals the port's numpy
@@ -187,8 +206,8 @@ printed beside the card's name and power limit.
 In the ``kernels`` line, ``launches`` is a kernel's launches summed over
 every path above that ran it (main, ``fpisa_seq``, bucketed, stacked
 ``fpisa``, stacked ``fpisa_seq``, ``serve``, ``serve_fpisa_seq``,
-``mamba2``, ``zamba2_seq``, ``arctic_serve``, ``whisper``, the two-pass
-pipeline, ``switchsim``) and ``launches_by_path`` names each
+``mamba2``, ``zamba2_seq``, ``arctic_serve``, ``whisper``, ``sharded``,
+the two-pass pipeline, ``switchsim``) and ``launches_by_path`` names each
 path's count, every path's counts zeroed just before it and read just
 after.
 
@@ -212,7 +231,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+HBM_BYTES_PER_S = None        # repro_torch.launch.mesh.HBM_BW, read in main()
 # Integer operations. Each SM has 4 warp schedulers, each issuing at most one
 # warp instruction (32 lanes) per clock: 128 lane-operations per clock per
 # SM, 132 SMs x 128 x 1.98 GHz (SXM boost) = 33.45 TOP/s, the most any
@@ -1836,6 +1855,195 @@ def encdec_path(torch, dev):
     return {"whisper": launches}
 
 
+def sharding_plain_and_mesh(torch, dev):
+    """(a): the same 3 full-width qwen steps twice, plain tensors and on the
+    card's (data, model) = (1, 1) DeviceMesh (``sharding.rules.distribute``,
+    the mesh step), under deterministic algorithms (both runs repeat their
+    bits). K1/K2 counted from zero over the mesh run. Returns (launches,
+    the two models and optimizer states, their losses)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.agg import AggConfig
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.launch.train import train_loop
+    from repro_torch.runtime.elastic import reproducible
+
+    cfg = get_config("qwen1.5-0.5b")
+    agg = AggConfig(strategy="fpisa", backend="auto")
+    mesh = make_mesh_for(1, model_parallel=1)
+    runs = {}
+    with reproducible(dev):
+        runs["plain"] = train_loop(cfg, steps=STEPS, global_batch=GLOBAL_BATCH, seq_len=SEQ_LEN,
+                                   agg=agg, device=dev, log_every=1)
+        torch.cuda.synchronize()
+        zero_launches()
+        runs["mesh"] = train_loop(cfg, steps=STEPS, global_batch=GLOBAL_BATCH, seq_len=SEQ_LEN,
+                                  agg=agg, device=dev, log_every=1, mesh=mesh)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    return launches, runs, mesh
+
+
+def equal_bits(torch, got, want, what):
+    """``got`` and ``want`` hold the same bits (integer views)."""
+    ints = {4: torch.int32, 2: torch.int16, 1: torch.int8}
+    if not (got.dtype == want.dtype and got.shape == want.shape
+            and torch.equal(got.view(ints[got.element_size()]),
+                            want.view(ints[want.element_size()]))):
+        raise AssertionError(f"{what}: the bits differ")
+
+
+def sharding_path(torch, dev):
+    """The ninth slice's path (``[sharding]`` lines): (a) full-width
+    qwen1.5-0.5b trained through a (1, 1) DeviceMesh with K1/K2 (path
+    ``sharded``) held to the plain-tensor run's losses, parameters and
+    aggregated gradient bits, step times beside each other; (b) the GPipe
+    loss (``train/pipeline.py``) at full width, one stage, 4
+    microbatches, against ``model.loss`` and its gradients; (c) ``opscan``
+    of the mesh step against its measured time, and the dry run's
+    per-device bytes of qwen1.5-0.5b and kimi-k2 (multi-pod) against the
+    card's memory. Returns {"sharded": launches}."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.core.agg import AggConfig, Aggregator
+    from repro_torch.launch import opscan
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+    from repro_torch.optim import optimizers
+    from repro_torch.runtime.elastic import reproducible
+    from repro_torch.sharding import hints
+    from repro_torch.train.pipeline import make_pp_loss, param_tree, split_stages
+    from repro_torch.train.step import MeshGrads, _swapped, make_train_step
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(SRC) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    dry_cmds = {"qwen1.5-0.5b": ["--arch", "qwen1.5-0.5b", "--shape", "train_4k"],
+                "kimi-k2-1t-a32b": ["--arch", "kimi-k2-1t-a32b", "--shape", "train_4k",
+                                    "--multi-pod"]}
+    # the dry runs trace on the host's CPU, beside the card's work
+    dry = {k: subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *a],
+                               cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+                               stderr=subprocess.PIPE, text=True)
+           for k, a in dry_cmds.items()}
+    try:
+        launches, runs, mesh = sharding_plain_and_mesh(torch, dev)
+        (plain, p_opt, p_losses), (meshed, m_opt, m_losses) = runs["plain"], runs["mesh"]
+        leaves = len(list(meshed.parameters()))
+        log(f"[sharding] (a) {STEPS} steps on mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}: "
+            f"losses {m_losses}, plain {p_losses}; K1/K2 launches {launches['fused_encode_align']}"
+            f"/{launches['fused_decode']} ({leaves} leaves); {CARD}")
+        for k in ("fused_encode_align", "fused_decode"):
+            if launches[k] != leaves * STEPS:
+                raise AssertionError(f"[sharding] {k} launched {launches[k]} times, expected "
+                                     f"{leaves * STEPS}")
+        if m_losses != p_losses:
+            raise AssertionError(f"[sharding] mesh losses {m_losses} != plain {p_losses}")
+        for (name, a), b in zip(meshed.named_parameters(), plain.parameters()):
+            if not isinstance(a, DTensor):
+                raise AssertionError(f"[sharding] {name} is not a DTensor")
+            equal_bits(torch, a.full_tensor(), b.detach(), f"[sharding] parameter {name}")
+        for a, b in zip(m_opt.m + m_opt.v, p_opt.m + p_opt.v):
+            equal_bits(torch, a.full_tensor(), b, "[sharding] AdamW moment")
+        batch = training_batch(torch, dev, plain.cfg)
+        agg = AggConfig(strategy="fpisa", backend="auto")
+        plan = MeshGrads(meshed, mesh, agg)
+        with reproducible(dev):
+            want = Aggregator(agg).allreduce_tree(
+                list(torch.autograd.grad(plain.loss(batch), list(plain.parameters()))))
+            v = plan.views()
+            with _swapped(meshed, v), hints.use_mesh(mesh), implicit_replication():
+                grads = torch.autograd.grad(meshed.loss(batch), list(v.values()))
+            pairs = [plan.local(g, p) for g, p in zip(grads, v.values())]
+            got = plan.aggregate([g for g, _ in pairs], [t for _, t in pairs], v)
+        for (name, _), a, b in zip(meshed.named_parameters(), got, want):
+            equal_bits(torch, a.full_tensor(), b, f"[sharding] aggregated gradient {name}")
+        log(f"[sharding] (a) losses, parameters, AdamW moments and the aggregated gradients "
+            f"of all {leaves} leaves: mesh == plain, bit for bit")
+
+        cfg = plain.cfg
+        opt_cfg = optimizers.OptConfig(name=cfg.optimizer, lr=cfg.learning_rate)
+        p_step = make_train_step(plain, agg, opt_cfg, GLOBAL_BATCH)
+        m_step = make_train_step(meshed, agg, opt_cfg, GLOBAL_BATCH, mesh=mesh)
+
+        def fwd_bwd_mesh():
+            vv = plan.views()
+            with _swapped(meshed, vv), hints.use_mesh(mesh), implicit_replication():
+                torch.autograd.grad(meshed.loss(batch), list(vv.values()))
+
+        def fwd_bwd_plain():
+            torch.autograd.grad(plain.loss(batch), list(plain.parameters()))
+
+        times = {"step_plain": median_ms(torch, lambda: p_step(p_opt, batch), reps=3, warmup=1),
+                 "step_mesh": median_ms(torch, lambda: m_step(m_opt, batch), reps=3, warmup=1),
+                 "fwd_bwd_plain": median_ms(torch, fwd_bwd_plain, reps=3, warmup=1),
+                 "fwd_bwd_mesh": median_ms(torch, fwd_bwd_mesh, reps=3, warmup=1)}
+        log(f"[sharding] (a) step {times['step_mesh']:.2f} ms on the mesh, "
+            f"{times['step_plain']:.2f} ms plain (main path); forward+backward "
+            f"{times['fwd_bwd_mesh']:.2f} / {times['fwd_bwd_plain']:.2f} ms; median of 3, "
+            f"CUDA events; {CARD}")
+
+        # (c) opscan of the mesh step, on the card's own cell
+        with opscan.OpScan() as scan:
+            m_step(m_opt, batch)
+        torch.cuda.synchronize()
+        an = scan.analysis
+        compute_s, memory_s = an.flops / PEAK_FLOPS_BF16, an.hbm_bytes / HBM_BW
+        bound_ms = max(compute_s, memory_s) * 1e3
+        log(f"[sharding] (c) opscan of one mesh step: {an.flops:.4e} flops "
+            f"({an.product_flops:.4e} in products), {an.hbm_bytes:.4e} bytes; "
+            f"compute_s {compute_s * 1e3:.2f} ms at 989 TFLOP/s, memory_s "
+            f"{memory_s * 1e3:.2f} ms at 3.35 TB/s; measured step {times['step_mesh']:.2f} ms = "
+            f"{times['step_mesh'] / bound_ms:.2f}x the bound, forward+backward "
+            f"{times['fwd_bwd_mesh']:.2f} ms; {CARD}")
+        del p_opt, m_opt, p_step, m_step, plan, meshed, v, grads, pairs, got, want
+        torch.cuda.empty_cache()
+
+        # (b) the pipeline loss at full width, one stage
+        model = plain
+        params = list(model.parameters())
+        ref = model.loss(batch)
+        ref_g = torch.autograd.grad(ref, params)
+        pp_loss = make_pp_loss(cfg, None, n_micro=4)
+        pp = pp_loss(split_stages(param_tree(model), 1), batch)
+        pp_g = torch.autograd.grad(pp, params)
+        dl = abs(float(pp.detach()) - float(ref.detach()))
+        worst = max(float(((a.float() - b.float()).abs()
+                           - 2e-2 * b.float().abs()).max()) for a, b in zip(pp_g, ref_g))
+        pp_ms = median_ms(torch, lambda: torch.autograd.grad(
+            pp_loss(split_stages(param_tree(model), 1), batch), params), reps=3, warmup=1)
+        log(f"[sharding] (b) pipeline loss (1 stage, 4 microbatches) {float(pp.detach()):.6f} "
+            f"vs model.loss {float(ref.detach()):.6f} (|diff| {dl:.3e}, tolerance 2e-3); "
+            f"gradients: largest |diff| - 2e-2 |ref| = {worst:.3e} (tolerance atol 2e-4); "
+            f"forward+backward {pp_ms:.2f} ms; {CARD}")
+        if dl > 2e-3:
+            raise AssertionError(f"[sharding] pipeline loss off by {dl}")
+        for (name, _), a, b in zip(model.named_parameters(), pp_g, ref_g):
+            torch.testing.assert_close(a, b, rtol=2e-2, atol=2e-4,
+                                       msg=lambda m, name=name: f"[sharding] (b) {name}: {m}")
+        del model, plain, params, ref_g, pp_g, runs
+        torch.cuda.empty_cache()
+    finally:
+        outs = {}
+        for k, proc in dry.items():
+            out, err = proc.communicate(timeout=600)
+            outs[k] = (proc.returncode, out, err)
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    for k, (rc, out, err) in outs.items():
+        if rc != 0:
+            raise AssertionError(f"[sharding] dry run of {k} failed (rc {rc}): {err[-2000:]}")
+        rec = json.loads(out.strip().splitlines()[-1])
+        if rec["status"] != "ok":
+            raise AssertionError(f"[sharding] dry run of {k}: {rec.get('error')}")
+        arg = rec["per_device"]["arg_bytes"]
+        log(f"[sharding] (c) dry run {k} train_4k on {rec['mesh']}: per_device.arg_bytes "
+            f"{arg / 1e9:.2f} GB = {100 * arg / card_bytes:.1f} % of this card's "
+            f"{card_bytes / 2**30:.1f} GiB; roofline compute_s {rec['roofline']['compute_s']:.3f}, "
+            f"memory_s {rec['roofline']['memory_s']:.3f}, collective_s "
+            f"{rec['roofline']['collective_s']:.3f} ({rec['roofline']['bottleneck']}), "
+            f"traced in {rec['trace_s']} s")
+    log(f"[sharding] the group took {time.perf_counter() - t0:.1f} s; {CARD}")
+    return {"sharded": {k: launches[k] for k in ("fused_encode_align", "fused_decode")}}
+
+
 def diagnose(torch, run, what):
     """Where an untraced ``run()`` (an aggregation of the gradients, a
     forward+backward) spends its time: the host's issue time (the host
@@ -2582,6 +2790,11 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     import torch
 
+    from repro_torch.launch.mesh import HBM_BW
+
+    global HBM_BYTES_PER_S
+    HBM_BYTES_PER_S = HBM_BW  # H100 SXM data sheet
+
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; this script drives the port on a GPU",
               file=sys.stderr)
@@ -2626,6 +2839,8 @@ def main() -> int:
         paths.update(models_path(torch, dev))
         torch.cuda.empty_cache()
         paths.update(encdec_path(torch, dev))
+        torch.cuda.empty_cache()
+        paths.update(sharding_path(torch, dev))
         torch.cuda.empty_cache()
         times = timing(torch, dev, leaf_sizes)
         paths["two_pass"], two_pass_times = two_pass_pipeline(torch, dev, leaf_sizes, par)

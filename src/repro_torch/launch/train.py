@@ -32,6 +32,15 @@ survivors, with deterministic algorithms on the card
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
       --device cpu --arch qwen1.5-0.5b --smoke --steps 10 --global-batch 8 \
       --seq-len 32 --fault-plan kill:2@4 --num-hosts 4
+
+``--model-parallel M`` and ``--pods P`` train on a ``DeviceMesh``
+(``launch/mesh.py::make_mesh_for``): the weights are placed by
+``sharding/rules.py`` and the step is ``train/step.py``'s mesh step, e.g.
+tensor parallelism over 2 of 4 gloo ranks on the CPU
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --device cpu --arch qwen1.5-0.5b --smoke --steps 3 --global-batch 8 \
+      --seq-len 32 --model-parallel 2
+With neither flag the run is the plain data-parallel one.
 """
 from __future__ import annotations
 
@@ -47,9 +56,11 @@ from repro_torch import NotPortedError, resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.agg import AggConfig, add_agg_args, group_rank, world_size
 from repro_torch.data.pipeline import ShardedLoader, SyntheticCorpus
+from repro_torch.launch.mesh import make_mesh_for, mesh_shape
 from repro_torch.models.registry import build, param_count
 from repro_torch.optim import optimizers
 from repro_torch.runtime import checkpoint as ckpt
+from repro_torch.sharding import rules
 from repro_torch.trace import add_trace_args
 from repro_torch.trace import from_args as trace_from_args
 from repro_torch.train.step import make_train_step
@@ -59,7 +70,7 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
                agg: AggConfig | None = None, device=None, group=None,
                ckpt_dir: str | None = None, ckpt_every: int = 50,
                log_every: int = 10, opt_overrides: dict | None = None,
-               seed: int = 0, params: dict | None = None):
+               seed: int = 0, params: dict | None = None, mesh=None):
     """Plain data-parallel training loop; returns (model, opt_state, losses),
     the losses of the steps this call ran.
 
@@ -79,11 +90,20 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
     mode with or without ``ckpt_dir``: a resumed run repeats the
     uninterrupted one bit for bit where the step's ops repeat their bits,
     which ``chip_smoke.py`` checks on the card (``[determinism]``,
-    ``[ckpt]``)."""
+    ``[ckpt]``).
+
+    ``mesh`` (a ``DeviceMesh`` of ``launch/mesh.py``, instead of
+    ``group``): the parameters and the optimizer's moments are placed on
+    it by ``sharding.rules.distribute`` (after a restore too: checkpoints
+    hold whole tensors), each rank trains on its ``rules.batch_slice`` of
+    the global batch, and the step is ``train/step.py``'s mesh step. A
+    checkpoint is gathered whole on every rank and written by rank 0."""
     device = resolve_device(device)
     agg = agg or AggConfig()
+    if mesh is not None and group is not None:
+        raise ValueError("pass a mesh or a group, not both")
     world = world_size(group)
-    rank = group_rank(group)
+    rank = group_rank(group) if mesh is None else dist.get_rank()
     model = build(cfg, device=device, seed=seed, params=params)
     opt_kw = {"name": cfg.optimizer, "lr": cfg.learning_rate}
     opt_kw.update(opt_overrides or {})
@@ -111,19 +131,23 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
             start_step = latest + 1
             say(f"[train] resumed from step {latest}")
 
-    step_fn = make_train_step(model, agg, opt_cfg, global_batch, group)
+    if mesh is not None:
+        opt_state = rules.distribute(model, cfg, mesh, opt_state)
+        rows = rules.batch_slice(mesh, global_batch)
+    else:
+        rows = slice(rank * (global_batch // world), (rank + 1) * (global_batch // world))
+    step_fn = make_train_step(model, agg, opt_cfg, global_batch, group, mesh=mesh)
     loader = ShardedLoader(SyntheticCorpus(cfg.vocab_size, seed), global_batch, seq_len)
-    local = global_batch // world
 
     say(f"[train] {cfg.name}: {param_count(model)/1e6:.1f}M params, "
         f"device={device}, world={world}, agg={agg.strategy}, "
-        f"bucket_bytes={agg.bucket_bytes}")
+        f"bucket_bytes={agg.bucket_bytes}"
+        + ("" if mesh is None else f", mesh={dict(mesh_shape(mesh).shape)}"))
     history = []
     for step in range(start_step, steps):
         t0 = perf_counter()
         batch = global_batch_at(cfg, loader, seed, step)
-        batch = {k: torch.from_numpy(v[rank * local:(rank + 1) * local]).to(device)
-                 for k, v in batch.items()}
+        batch = {k: torch.from_numpy(v[rows]).to(device) for k, v in batch.items()}
         opt_state, metrics = step_fn(opt_state, batch)
         loss = float(metrics["loss"])  # waits for the device
         dt = perf_counter() - t0
@@ -132,8 +156,12 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
             tok_s = global_batch * seq_len / dt
             say(f"[train] step {step:5d} loss {loss:.4f} "
                 f"gnorm {float(metrics['grad_norm']):.3f} {tok_s:,.0f} tok/s")
-        if saver and step > 0 and step % ckpt_every == 0:
-            saver.save_bundle(step, ckpt.state_trees(model, opt_state), {"loss": loss})
+        if ckpt_dir and step > 0 and step % ckpt_every == 0:
+            trees = ckpt.state_trees(model, opt_state)
+            if mesh is not None:  # collective: every rank gathers
+                trees = ckpt.map_tensors(lambda t: t.full_tensor(), trees)
+            if saver:
+                saver.save_bundle(step, trees, {"loss": loss})
     if saver:
         saver.wait()
     return model, opt_state, history
@@ -191,6 +219,11 @@ def main(argv=None):
                     help="logical worker / host count for the elastic "
                          "controller (default: one per rank); implies the "
                          "controller path even without --fault-plan")
+    ap.add_argument("--model-parallel", type=int, default=None,
+                    help="train on a (data, model) DeviceMesh with this 'model' axis "
+                         "(tensor parallelism; sharding/rules.py places the weights)")
+    ap.add_argument("--pods", type=int, default=None,
+                    help="train on a (pod, data, model) DeviceMesh with this many pods")
     args = ap.parse_args(argv)
 
     try:
@@ -202,6 +235,9 @@ def main(argv=None):
     if elastic and agg.chunk_elems:
         ap.error("--agg-chunk is not supported on the elastic controller path "
                  "(stacked aggregation; use --bucket-bytes instead)")
+    meshed = args.model_parallel is not None or args.pods is not None
+    if elastic and meshed:
+        ap.error("--model-parallel / --pods do not combine with the elastic controller")
     if elastic:
         # cuBLAS reads its workspace setting when CUDA starts; the
         # controller's deterministic mode needs it (runtime.elastic.reproducible)
@@ -221,9 +257,16 @@ def main(argv=None):
             except ValueError as e:
                 ap.error(str(e))
             return
+        mesh = None
+        if meshed:
+            try:
+                mesh = make_mesh_for(int(os.environ.get("WORLD_SIZE", "1")),
+                                     args.model_parallel or 1, args.pods or 1)
+            except (ValueError, RuntimeError) as e:  # a layout, or no torchrun group
+                ap.error(str(e))
         train_loop(cfg, steps=args.steps, global_batch=args.global_batch,
                    seq_len=args.seq_len, agg=agg, device=device,
-                   ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
+                   ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, mesh=mesh)
     finally:
         session.finish()
         if dist.is_initialized():

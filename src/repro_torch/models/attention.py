@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.models.layers import apply_rope, dtype_of, param, rope_angles
+from repro_torch.sharding.hints import local_product
 
 NEG_INF = -1e30
 
@@ -56,7 +57,41 @@ def init_attention(gen: torch.Generator, cfg, lead=()) -> dict:
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matrix product."""
     d, h, hd = w.shape
-    return (x @ w.reshape(d, h * hd)).unflatten(-1, (h, hd))
+    if hasattr(w, "device_mesh") and not _splits(w, 1):
+        return _project_local(x, w)
+    y = x @ w.reshape(d, h * hd)
+    if hasattr(y, "device_mesh"):
+        # heads split where the weight splits them, nowhere else
+        from torch.distributed.tensor import Replicate, Shard
+
+        y = y.redistribute(y.device_mesh, [
+            Shard(2) if getattr(wp, "dim", None) == 1
+            else (yp if getattr(yp, "dim", None) == 0 else Replicate())
+            for wp, yp in zip(w.placements, y.placements)])
+    return y.unflatten(-1, (h, hd))
+
+
+def _splits(w, dim: int) -> bool:
+    """Whether DTensor ``w`` splits dimension ``dim`` over the mesh."""
+    return hasattr(w, "device_mesh") and any(
+        getattr(p, "dim", None) == dim and w.device_mesh.size(i) > 1
+        for i, p in enumerate(w.placements))
+
+
+def _project_local(x, w):
+    """``_project`` of a DTensor weight whose heads are whole: head_dim
+    split (the 'hdim' mode) or not split at all (replicated K/V), on each
+    rank's local tensors (``hints.local_product``): merging (h, hd) with hd
+    split would make a strided shard, and DTensor may split the merged
+    columns across a head."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    d, h, hd = w.shape
+    y = local_product(x, w, 2)
+    local = y.to_local()
+    pls = [Shard(3) if getattr(p, "dim", None) == y.ndim - 1 else p for p in y.placements]
+    return DTensor.from_local(local.unflatten(-1, (h, local.shape[-1] // h)), y.device_mesh,
+                              pls, run_check=False)
 
 
 def _qkv(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor | None = None,
@@ -86,7 +121,25 @@ def _repeat_kv(k: torch.Tensor, v: torch.Tensor, cfg):
 def softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       causal: bool = True) -> torch.Tensor:
     """q: (B, S, H, hd); k, v: (B, Sk, H, hd) with equal head counts ->
-    (B, S, H, hd). ``causal`` (S == Sk) masks the keys after each query."""
+    (B, S, H, hd). ``causal`` (S == Sk) masks the keys after each query.
+
+    DTensors (a step on a mesh): the heads and the batch rows attend
+    independently, so every rank attends with its own rows and heads, on
+    its local tensors, and the result keeps those placements; a sequence
+    or head_dim split is gathered first. DTensor's own products would merge
+    the batch and a sharded head axis into one strided-sharded axis."""
+    if hasattr(q, "device_mesh"):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        mesh = q.device_mesh
+        pl = [p if getattr(p, "dim", None) in (0, 2) else Replicate() for p in q.placements]
+        q, k, v = (t.redistribute(mesh, pl).to_local() for t in (q, k, v))
+        return DTensor.from_local(_softmax_attention(q, k, v, causal), mesh, pl,
+                                  run_check=False)
+    return _softmax_attention(q, k, v, causal)
+
+
+def _softmax_attention(q, k, v, causal: bool) -> torch.Tensor:
     hd = q.shape[-1]
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, S, hd)
     scores = (qh @ kh.transpose(-1, -2)).to(torch.float32) * (1.0 / math.sqrt(hd))
@@ -101,6 +154,23 @@ def softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """einsum("bshk,hkd->bsd") as one matrix product."""
     h, hd, d = wo.shape
+    if _splits(wo, 1):  # 'hdim' mode: each rank's columns (see _project_local)
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+        mesh = wo.device_mesh
+        wo = wo.redistribute(mesh, [p if getattr(p, "dim", None) == 1 else Replicate()
+                                    for p in wo.placements])
+        split = [getattr(p, "dim", None) == 1 for p in wo.placements]
+        out = out.redistribute(mesh, [Shard(3) if sp else (p if getattr(p, "dim", None) == 0
+                                                           else Replicate())
+                                      for sp, p in zip(split, out.placements)])
+        rows = [getattr(p, "dim", None) == 0 for p in out.placements]
+        wl = wo.to_local(grad_placements=[Partial() if r else p
+                                          for r, p in zip(rows, wo.placements)])
+        y = out.to_local().flatten(-2) @ wl.reshape(-1, d)
+        return DTensor.from_local(y, mesh, [Partial() if sp else p
+                                            for sp, p in zip(split, out.placements)],
+                                  run_check=False)
     return out.flatten(-2) @ wo.reshape(h * hd, d)
 
 
@@ -146,14 +216,32 @@ def _attend_one(p: dict, q: torch.Tensor, keys: torch.Tensor, values: torch.Tens
                 valid: torch.Tensor, cfg) -> torch.Tensor:
     """One query token per row over a cache view: q (B, 1, H, hd); keys,
     values (B, S, K, hd); valid bool (B or 1, S). Returns (B, 1, d)."""
-    b, hd, kvh = q.shape[0], cfg.resolved_head_dim, cfg.num_kv_heads
-    qf = q.reshape(b, kvh, cfg.num_heads // kvh, hd)
+    if hasattr(q, "device_mesh"):
+        # DTensors: each rank attends with its own heads (q's split matches
+        # the cache's K split, group for group); a cache whose sequence is
+        # split over 'model' (K not divisible) is gathered first
+        from torch.distributed.tensor import DTensor, Replicate
+
+        mesh = q.device_mesh
+        pl = [p_ if getattr(p_, "dim", None) in (0, 2) else Replicate()
+              for p_ in keys.placements]
+        q, keys, values = (t.redistribute(mesh, pl).to_local() for t in (q, keys, values))
+        out = DTensor.from_local(_attend_local(q, keys, values, valid), mesh, pl,
+                                 run_check=False)
+        return _out_proj(out, p["wo"])
+    return _out_proj(_attend_local(q, keys, values, valid), p["wo"])
+
+
+def _attend_local(q, keys, values, valid) -> torch.Tensor:
+    b, _, h, hd = q.shape
+    kvh = keys.shape[2]
+    qf = q.reshape(b, kvh, h // kvh, hd)
     scores = torch.einsum("bkgh,bskh->bkgs", qf, keys).to(torch.float32)
     scores = scores / math.sqrt(hd)
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskh->bkgh", w.to(values.dtype), values)
-    return _out_proj(out.reshape(b, 1, cfg.num_heads, hd), p["wo"])
+    return out.reshape(b, 1, h, hd)
 
 
 def attention_decode(p: dict, x: torch.Tensor, cfg, cache: KVCache, pos: int,

@@ -49,7 +49,8 @@ from repro_torch.models.layers import (
     rms_norm,
     rope_angles,
 )
-from repro_torch.models.transformer import TreeLM, unstack
+from repro_torch.models.transformer import TreeLM, next_token_nll, reduced, unstack
+from repro_torch.sharding.hints import constrain, entering
 
 
 def _init_enc_layer(gen: torch.Generator, cfg, lead) -> dict:
@@ -85,18 +86,20 @@ def init_encdec(cfg, gen: torch.Generator) -> dict:
 
 def _enc_block(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor) -> torch.Tensor:
     eps = cfg.norm_eps
-    x = x + attn.attention_train(lp["attn"], rms_norm(x, lp["ln1"]["w"], eps), cfg, positions,
-                                 causal=False)
-    return x + apply_mlp(lp["mlp"], rms_norm(x, lp["ln2"]["w"], eps), cfg)
+    x = x + reduced(attn.attention_train(lp["attn"], entering(rms_norm(x, lp["ln1"]["w"], eps)),
+                                         cfg, positions, causal=False))
+    return x + reduced(apply_mlp(lp["mlp"], entering(rms_norm(x, lp["ln2"]["w"], eps)), cfg))
 
 
 def _dec_block(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
                enc: torch.Tensor) -> torch.Tensor:
     eps = cfg.norm_eps
     kv = attn.encode_cross_kv(lp["xattn"], enc)
-    x = x + attn.attention_train(lp["attn"], rms_norm(x, lp["ln1"]["w"], eps), cfg, positions)
-    x = x + attn.cross_attention(lp["xattn"], rms_norm(x, lp["lnx"]["w"], eps), kv, cfg)
-    return x + apply_mlp(lp["mlp"], rms_norm(x, lp["ln2"]["w"], eps), cfg)
+    x = x + reduced(attn.attention_train(lp["attn"], entering(rms_norm(x, lp["ln1"]["w"], eps)),
+                                         cfg, positions))
+    x = x + reduced(attn.cross_attention(lp["xattn"], entering(rms_norm(x, lp["lnx"]["w"], eps)),
+                                         kv, cfg))
+    return x + reduced(apply_mlp(lp["mlp"], entering(rms_norm(x, lp["ln2"]["w"], eps)), cfg))
 
 
 class EncDecCache(NamedTuple):
@@ -120,7 +123,7 @@ class EncDecLM(TreeLM):
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """frames (B, F, d_model) -> encoder states (B, F, d_model)."""
         cfg = self.cfg
-        x = self._act(frames) @ self.frame_proj["w"]
+        x = constrain(self._act(frames) @ self.frame_proj["w"], "batch", None, None)
         positions = torch.arange(x.shape[1], device=x.device)
         for lp in unstack(self.enc_layers):
             x = self._remat(lambda y, lp=lp: _enc_block(lp, y, cfg, positions), x)
@@ -130,7 +133,7 @@ class EncDecLM(TreeLM):
         """batch -> (logits (B, S, V), aux 0)."""
         cfg = self.cfg
         enc = self.encode(batch["frames"])
-        x = self._act(embed(self.embed, batch["tokens"]))
+        x = constrain(self._act(embed(self.embed, batch["tokens"])), "batch", None, None)
         positions = torch.arange(x.shape[1], device=x.device)
         for lp in unstack(self.dec_layers):
             x = self._remat(lambda y, e, lp=lp: _dec_block(lp, y, cfg, positions, e), x, enc)
@@ -140,9 +143,7 @@ class EncDecLM(TreeLM):
         """Mean next-token NLL of ``tokens[:, 1:]`` from float32
         log-probabilities."""
         logits, _ = self(batch)
-        lp = torch.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)
-        nll = -lp.gather(-1, batch["tokens"][:, 1:, None].long())[..., 0]
-        return nll.mean()
+        return next_token_nll(logits, batch["tokens"]).mean()
 
     # --- serving -----------------------------------------------------------
 

@@ -23,7 +23,11 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def param(gen: torch.Generator, shape, dtype, scale: float | None = None) -> torch.Tensor:
-    """N(0, scale^2) drawn in float32 on the generator's device, then cast."""
+    """N(0, scale^2) drawn in float32 on the generator's device, then cast.
+    On the ``meta`` device (``launch/specs.py``) nothing is drawn: the
+    tensor has the shape and dtype alone."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     if scale is None:
         scale = 0.02
     if scale == 0.0:
@@ -98,7 +102,15 @@ def init_embedding(gen: torch.Generator, cfg) -> dict:
 
 
 def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, p["tok"])
+    """Row lookup. A DTensor table is gathered whole first: DTensor's own
+    lookup in a vocab-sharded table leaves a masked partial sum whose
+    backward it cannot take from a plain partial gradient."""
+    w = p["tok"]
+    if hasattr(w, "device_mesh"):
+        from torch.distributed.tensor import Replicate
+
+        w = w.redistribute(w.device_mesh, [Replicate()] * w.device_mesh.ndim)
+    return F.embedding(tokens, w)
 
 
 def init_lm_head(gen: torch.Generator, cfg) -> dict:

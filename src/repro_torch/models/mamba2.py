@@ -135,7 +135,32 @@ def apply_mamba2(p: dict, x: torch.Tensor, cfg, ssm_state=None, conv_state=None,
     Decode: x (B, 1, d) with ``ssm_state`` (B, H, P, N) and ``conv_state``
     (B, w - 1, C) carried. Returns (y, new ssm state, new conv state); the
     conv state of a prompt shorter than w - 1 tokens is None, as in the
-    reference."""
+    reference.
+
+    A DTensor ``x`` (a step on a mesh) runs the block whole on every rank
+    of the mesh's non-batch axes: the weights are gathered and the block
+    runs on local tensors (its projection splits and scan have no DTensor
+    rules that keep them sharded), so the mamba blocks are not tensor
+    parallel in the port."""
+    if hasattr(x, "device_mesh"):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        mesh = x.device_mesh
+        rows = [p_ if getattr(p_, "dim", None) == 0 else Replicate() for p_ in x.placements]
+
+        def whole(t):  # a weight or carried state, gathered whole
+            return t.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+
+        local = {k: whole(v) for k, v in p.items()}
+        carried = [whole(t) if hasattr(t, "device_mesh") else t for t in (ssm_state, conv_state)]
+        y, state, conv = apply_mamba2(local, x.redistribute(mesh, rows).to_local(), cfg,
+                                      *carried, decode)
+        # new states in the carried states' layout (a sharded serving cache)
+        state, conv = (t if t is None or not hasattr(c, "device_mesh") else
+                       DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+                       .redistribute(mesh, c.placements)
+                       for t, c in ((state, ssm_state), (conv, conv_state)))
+        return DTensor.from_local(y, mesh, rows, run_check=False), state, conv
     di, g, n, h = cfg.ssm_d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     pdim, width = cfg.ssm_head_dim, cfg.ssm_conv_width
 

@@ -34,6 +34,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.models.layers import dtype_of, param, silu
+from repro_torch.sharding.hints import constrain
 
 
 def init_moe(gen: torch.Generator, cfg, lead=()) -> dict:
@@ -93,6 +94,14 @@ class _Overflows:
 OVERFLOWS = _Overflows()
 
 
+def _count(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``bincount(idx, minlength=n)`` for indices below ``n``, with an
+    output shape that does not depend on the values (the dry run traces
+    with fake tensors, which have none)."""
+    return torch.zeros(n, dtype=torch.int64, device=idx.device).scatter_add_(
+        0, idx, torch.ones_like(idx))
+
+
 def route(p: dict, xg: torch.Tensor, cfg) -> Routing:
     """Router, top-k, aux loss and the (group, expert, capacity) slot table
     of grouped tokens ``xg`` (ng, tg, d)."""
@@ -108,7 +117,7 @@ def route(p: dict, xg: torch.Tensor, cfg) -> Routing:
 
     # load-balance auxiliary loss (Switch Transformer style)
     me = probs.mean(dim=(0, 1))
-    ce = torch.bincount(eidx.reshape(-1), minlength=e).to(torch.float32) / (ng * tg * k)
+    ce = _count(eidx.reshape(-1), e).to(torch.float32) / (ng * tg * k)
     aux = e * torch.sum(me * ce)
 
     # rank of each (token, slot) in its expert's queue: stable sort, then
@@ -132,14 +141,56 @@ def route(p: dict, xg: torch.Tensor, cfg) -> Routing:
     slot_tok = table[:, :e * cap].reshape(ng, e, cap)
     # F10: an overflowing expert's slot cap - 1 holds the sentinel (module doc)
     groups = torch.arange(ng, device=xg.device)[:, None] * e
-    counts = torch.bincount((groups + flat).reshape(-1), minlength=ng * e).reshape(ng, e)
+    counts = _count((groups + flat).reshape(-1), ng * e).reshape(ng, e)
     overflow = counts > cap
     slot_tok[..., cap - 1] = torch.where(overflow, tg, slot_tok[..., cap - 1])
     return Routing(gates, eidx, pos, keep, slot_tok, overflow, aux)
 
 
 def apply_moe(p: dict, x: torch.Tensor, cfg):
-    """x: (B, S, d) -> (out (B, S, d), aux_loss scalar float32)."""
+    """x: (B, S, d) -> (out (B, S, d), aux_loss scalar float32). A DTensor
+    ``x`` (a step on a mesh) goes through ``_apply_moe_sharded``."""
+    if hasattr(x, "device_mesh"):
+        return _apply_moe_sharded(p, x, cfg)
+    return _apply_moe(p, x, cfg, p["wi"], p["wg"], p["wo"], 0)
+
+
+def _apply_moe_sharded(p: dict, x, cfg):
+    """Expert parallelism on the DTensors of a mesh step. The tokens of the
+    compute mesh and the router are gathered whole on every rank, which
+    routes them all (routing is cheap and its sorts and scatters have no
+    DTensor rules); each rank then runs only its shard of the expert bank
+    (experts over 'model', expert ff over 'data', ``sharding/rules.py``),
+    so its output is a partial sum over the mesh dimensions that split the
+    bank, and DTensor reduces it into ``x``'s layout. The gradients the
+    local region sends back to the gathered tokens and router are partial
+    sums over those dimensions too, so the aux loss, which every rank
+    computes whole, enters divided by their size (a power of two here, so
+    exactly)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.sharding.rules import local_range
+
+    mesh = x.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    wi = p["wi"]
+    # mesh dims that split the bank: Shard(0) (experts) or Shard(2) (ff)
+    split = [isinstance(pl, Shard) and pl.dim in (0, 2) for pl in wi.placements]
+    grad_pl = [Partial() if sp else Replicate() for sp in split]
+    parts = math.prod(mesh.size(i) for i, sp in enumerate(split) if sp)
+    xl = x.redistribute(mesh, rep).to_local(grad_placements=grad_pl)
+    router = p["router"].redistribute(mesh, rep).to_local(grad_placements=grad_pl)
+    e0, _ = local_range(wi.shape[0], mesh, wi.placements, 0, wi.ndim)
+    out, aux = _apply_moe({"router": router}, xl, cfg, wi.to_local(), p["wg"].to_local(),
+                          p["wo"].to_local(), e0)
+    out = DTensor.from_local(out, mesh, grad_pl, run_check=False)
+    aux = DTensor.from_local(aux / parts, mesh, grad_pl, run_check=False)
+    return out.redistribute(mesh, x.placements), aux.redistribute(mesh, rep)
+
+
+def _apply_moe(p: dict, x: torch.Tensor, cfg, wi, wg, wo, e0: int):
+    """The expert layer with the bank's experts [e0, e0 + wi.shape[0]) (the
+    whole bank, or a rank's shard)."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.num_experts_per_token
     tg = group_size(cfg, b * s)
@@ -151,18 +202,28 @@ def apply_moe(p: dict, x: torch.Tensor, cfg):
         OVERFLOWS.add(r.overflow.sum())
 
     # gather tokens into expert buffers (row tg of the padded group: zeros)
-    xg_pad = torch.cat([xg, xg.new_zeros((ng, 1, d))], dim=1)
+    # Sharding: token groups follow the batch axes, experts ride 'model'
+    xg_pad = constrain(torch.cat([xg, xg.new_zeros((ng, 1, d))], dim=1), "batch", None, None)
+    slot_tok = constrain(r.slot_tok, "batch", "model", None)
     groups = torch.arange(ng, device=x.device)[:, None, None]
-    buf = xg_pad[groups, r.slot_tok]                            # (ng, E, cap, d)
+    buf = constrain(xg_pad[groups, slot_tok], "batch", "model", None, None)  # (ng, E, cap, d)
 
     # expert FFN (swiglu), one batched product per expert weight
-    h = torch.einsum("gecd,edf->gecf", buf, p["wi"])
-    hg = silu(torch.einsum("gecd,edf->gecf", buf, p["wg"]))
-    eout = torch.einsum("gecf,efd->gecd", h * hg, p["wo"])     # (ng, E, cap, d)
+    el = wi.shape[0]
+    if el != e:  # a shard of the bank: the others' outputs are zero here
+        buf = buf[:, e0:e0 + el]
+    h = torch.einsum("gecd,edf->gecf", buf, wi)
+    hg = silu(torch.einsum("gecd,edf->gecf", buf, wg))
+    eout = torch.einsum("gecf,efd->gecd", h * hg, wo)          # (ng, E, cap, d)
+    if el != e:
+        eout = torch.cat([eout.new_zeros((ng, e0, cap, d)), eout,
+                          eout.new_zeros((ng, e - e0 - el, cap, d))], dim=1)
+    eout = constrain(eout, "batch", "model", None, None)
 
     # combine: each (token, slot)'s expert output, gate-weighted
     src = r.experts.reshape(ng, tg * k) * cap + torch.where(r.keep, r.pos, 0)
-    picked = eout.reshape(ng, e * cap, d).gather(1, src[..., None].expand(-1, -1, d))
+    eflat = constrain(eout.reshape(ng, e * cap, d), "batch", None, None)
+    picked = eflat.gather(1, src[..., None].expand(-1, -1, d))
     picked = torch.where(r.keep[..., None], picked, 0.0).reshape(ng, tg, k, d)
     out = torch.einsum("gtk,gtkd->gtd", r.gates.to(picked.dtype), picked)
     return out.reshape(b, s, d), r.aux

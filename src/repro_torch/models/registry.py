@@ -9,16 +9,26 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, transformer
 
 
+class ShapesOnly:
+    """The generator the init functions get on the ``meta`` device: they
+    read its ``device``, and ``layers.param`` draws nothing there."""
+    device = torch.device("meta")
+
+
 def build(cfg: ModelConfig, *, device: torch.device, seed: int = 0,
           params: dict | None = None) -> torch.nn.Module:
     """The model for ``cfg`` on ``device``: weights drawn from a
     ``torch.Generator`` seeded with ``seed``, or the given parameter tree
-    (e.g. ``repro_torch.interop.params_from_jax``), moved to ``device``."""
+    (e.g. ``repro_torch.interop.params_from_jax``), moved to ``device``. On
+    the ``meta`` device the weights have shapes and dtypes only, and nothing
+    is drawn (``torch.Generator`` has no meta device)."""
     if cfg.is_encoder_decoder:
         init, model = encdec.init_encdec, encdec.EncDecLM
     else:
         init, model = transformer.init_lm, transformer.TransformerLM
-    if params is None:
+    if params is None and torch.device(device).type == "meta":
+        params = init(cfg, ShapesOnly())
+    elif params is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         params = init(cfg, gen)

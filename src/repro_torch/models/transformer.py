@@ -72,6 +72,7 @@ from repro_torch.models.layers import (
     rms_norm,
     rope_angles,
 )
+from repro_torch.sharding.hints import constrain, entering, local_product
 
 # the row tile of a decode step (module doc, "Batch invariance")
 DECODE_ROWS = 16
@@ -168,16 +169,34 @@ def _ffn(lp: dict, y: torch.Tensor, cfg):
     return apply_mlp(lp["mlp"], y, cfg), torch.zeros((), dtype=torch.float32, device=y.device)
 
 
+def _sp(x: torch.Tensor, cfg) -> torch.Tensor:
+    """Sequence parallelism (Megatron SP): between the TP segments the
+    residual stream shards its seq axis over 'model'."""
+    if not cfg.seq_parallel:
+        return x
+    return constrain(x, "batch", "model", None)
+
+
+def reduced(h: torch.Tensor) -> torch.Tensor:
+    """A block's output in the residual stream's layout (batch over the
+    replica axes, the rest replicated). On a mesh, a product that contracts
+    a 'model'-sharded axis leaves a partial sum; it is reduced here, where
+    the reference's partitioner reduces it, so that the next products see
+    a replicated input and keep their weights sharded."""
+    return constrain(h, "batch", None, None)
+
+
 def _dense_block(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor):
-    x = x + attn.attention_train(lp["attn"], rms_norm(x, lp["ln1"]["w"], cfg.norm_eps), cfg,
-                                 positions)
-    out, aux = _ffn(lp, rms_norm(x, lp["ln2"]["w"], cfg.norm_eps), cfg)
-    return x + out, aux
+    h = attn.attention_train(lp["attn"], entering(rms_norm(x, lp["ln1"]["w"], cfg.norm_eps)),
+                             cfg, positions)
+    x = _sp(x + reduced(h), cfg)
+    out, aux = _ffn(lp, entering(rms_norm(x, lp["ln2"]["w"], cfg.norm_eps)), cfg)
+    return _sp(x + reduced(out), cfg), aux
 
 
 def _mamba_block(lp: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     h, _, _ = mamba2.apply_mamba2(lp["mamba"], rms_norm(x, lp["ln1"]["w"], cfg.norm_eps), cfg)
-    return x + h
+    return x + reduced(h)
 
 
 # ---------------------------------------------------------------------------
@@ -244,6 +263,60 @@ def _serve_mamba_layer(lp: dict, xs: list, cfg, run) -> list:
     return [x + run(i, rms_norm(x, lp["ln1"]["w"], cfg.norm_eps)) for i, x in enumerate(xs)]
 
 
+def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """(B, T - 1) NLL of ``tokens[:, 1:]`` under the logits of the last T
+    positions (a vlm's patch prefix comes first). DTensor logits are never
+    sliced: DTensor's slice backward gathers a vocab-sharded gradient
+    whole, so every position is scored (the prefix and the last against a
+    padding target) and the (B, S) result is sliced instead."""
+    prefix = logits.shape[1] - tokens.shape[1]
+    if _vocab_split(logits):  # targets as this rank's rows of plain tokens
+        local = tokens.to_local() if hasattr(tokens, "device_mesh") else tokens
+        targets = torch.nn.functional.pad(local[:, 1:], (prefix, 1))
+        return token_nll(logits, targets)[:, prefix:-1]
+    return token_nll(logits[:, prefix:][:, :-1], tokens[:, 1:])
+
+
+def _vocab_split(logits) -> bool:
+    """Whether DTensor logits split their vocab axis over more than one
+    rank."""
+    return hasattr(logits, "device_mesh") and any(
+        getattr(p, "dim", None) in (-1, logits.ndim - 1) and logits.device_mesh.size(i) > 1
+        for i, p in enumerate(logits.placements))
+
+
+def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """-log softmax(logits)[target] per position, from float32 logits.
+    DTensor logits whose vocab axis is split (a mesh step; ``targets`` then
+    plain, this rank's rows) take the vocab-parallel form: the max and the sum of exponentials reduce over
+    the vocab shards, and each rank contributes its shard's target logits
+    (others zero), so the logits are never gathered whole."""
+    if _vocab_split(logits):
+        return _vocab_parallel_nll(logits, targets)
+    lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return -lp.gather(-1, targets[..., None].long())[..., 0]
+
+
+def _vocab_parallel_nll(logits, targets: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor, Partial, Shard
+
+    from repro_torch.sharding.rules import local_range
+
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    x = logits.to(torch.float32)
+    m = x.detach().amax(dim=-1, keepdim=True).full_tensor()
+    lse = torch.log(torch.exp(x - m).sum(dim=-1)) + m[..., 0]
+    v0, vn = local_range(x.shape[last], mesh, x.placements, last, x.ndim)
+    vocab_pl = [Partial() if isinstance(p, Shard) and p.dim in (-1, last) else p
+                for p in x.placements]
+    local = x.to_local(grad_placements=x.placements)
+    t = targets.long() - v0
+    mine = (t >= 0) & (t < vn)
+    picked = local.gather(-1, t.clamp(0, vn - 1)[..., None])[..., 0]
+    picked = DTensor.from_local(torch.where(mine, picked, 0.0), mesh, vocab_pl, run_check=False)
+    return lse - picked
+
+
 class TreeLM(nn.Module):
     """What the port's models share: the reference's parameter tree,
     registered in sorted-key order (the reference's flatten order), and
@@ -280,13 +353,18 @@ class TransformerLM(TreeLM):
         if self.cfg.family == "vlm" and patch_embeds is not None:
             patches = patch_embeds.to(x.dtype) @ self.vlm_proj["w"]
             x = torch.cat([patches, x], dim=1)
+        # anchor the activation layout: batch over replica axes, d_model
+        # replicated (TP reshards at the products)
+        x = constrain(x, "batch", None, None)
         return x.to(dtype_of(self.cfg.activation_dtype))
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         x = rms_norm(x, self.final_norm["w"], cfg.norm_eps)
         w = self.embed["tok"].T if cfg.tie_embeddings else self.head["w"]
-        return x @ w
+        if hasattr(w, "device_mesh"):  # vocab split over 'model' at most
+            return constrain(local_product(x, w, 1), "batch", None, "model")
+        return constrain(x @ w, "batch", None, "model")
 
     def forward(self, batch: dict):
         """batch -> (logits (B, S', V), aux_loss), S' counting a vlm's
@@ -321,10 +399,7 @@ class TransformerLM(TreeLM):
         float32 log-probabilities."""
         logits, aux = self(batch)
         tokens = batch["tokens"]
-        logits = logits[:, logits.shape[1] - tokens.shape[1]:]
-        lp = torch.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)
-        nll = -lp.gather(-1, tokens[:, 1:, None].long())[..., 0]
-        return nll.mean() + 0.01 * aux
+        return next_token_nll(logits, tokens).mean() + 0.01 * aux
 
     # --- serving -----------------------------------------------------------
 

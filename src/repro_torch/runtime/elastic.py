@@ -1,11 +1,11 @@
 """Process-group layouts and elastic resume (torch port of
 ``repro.runtime.elastic``).
 
-``make_groups(pods)`` is the counterpart of ``make_mesh_for(pods=...)``: the
-reference lays the devices out as a ``("pod", "data")`` mesh; the port
-builds, over the ranks of the default group, one data group per pod and one
-pod group per data index, with the mesh's layout: global rank =
-``pod * w_data + data``, so each group rank is that axis's index.
+``make_groups(pods)`` is the counterpart of ``make_mesh_for(pods=...)``: it
+lays the ranks of the default group out as a ``("pod", "data")``
+``DeviceMesh`` (``launch/mesh.py``; global rank = ``pod * w_data + data``,
+so each group rank is that axis's index) and returns the mesh's pod and
+data groups.
 
 ``make_data_group(ranks)`` is the counterpart of ``make_mesh_for(devices,
 data_only=True)``: a data group over the given ranks, which the elastic
@@ -25,33 +25,24 @@ import os
 import torch
 import torch.distributed as dist
 
+from repro_torch.launch.mesh import MeshShape, device_mesh
 from repro_torch.runtime import checkpoint as ckpt
 
 
 def make_groups(pods: int = 1):
     """(pod_group, data_group) of this rank over the default process group,
     laid out as ``pods`` x (world / pods). Every rank must call it, with the
-    same ``pods`` (``torch.distributed.new_group`` is collective over the
-    default group). Pass the pair to ``Aggregator`` for hierarchical
+    same ``pods`` (building a mesh's groups is collective over the default
+    group). Pass the pair to ``Aggregator`` for hierarchical
     aggregation."""
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError("make_groups needs an initialised default process group")
-    world, rank = dist.get_world_size(), dist.get_rank()
+    world = dist.get_world_size()
     if pods <= 0 or world % pods:
         raise ValueError(f"cannot lay {world} ranks out as pods={pods} x data: "
                          f"{world} % {pods} != 0")
-    w_data = world // pods
-    pod_group = data_group = None
-    # every rank creates every group, in the same order
-    for p in range(pods):
-        g = dist.new_group([p * w_data + d for d in range(w_data)])
-        if rank // w_data == p:
-            data_group = g
-    for d in range(w_data):
-        g = dist.new_group([p * w_data + d for p in range(pods)])
-        if rank % w_data == d:
-            pod_group = g
-    return pod_group, data_group
+    mesh = device_mesh(MeshShape(("pod", "data"), (pods, world // pods)))
+    return mesh["pod"].get_group(), mesh["data"].get_group()
 
 
 def make_data_group(ranks):

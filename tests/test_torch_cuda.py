@@ -337,6 +337,50 @@ def test_hierarchical_cuda_equals_per_leaf_plain(dev, pod_wire, tmp_path):
         dist.destroy_process_group()
 
 
+def test_mesh_aggregation_equals_plain(dev, tmp_path):
+    """On a ("data", "model") = (1, 1) DeviceMesh over a one-rank NCCL
+    group, a smoke model placed by ``sharding.rules.distribute``: the
+    mesh step's gradients (DTensor views, ``MeshGrads``) aggregated on the
+    cuda backend (K1/K2) equal the plain model's gradients aggregated per
+    leaf, bit for bit, and the losses are equal."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models.registry import build
+    from repro_torch.sharding import hints, rules
+    from repro_torch.train.step import MeshGrads, _swapped
+
+    assert not dist.is_initialized()
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg", rank=0, world_size=1)
+    try:
+        cfg = get_smoke_config("qwen1.5-0.5b").with_(param_dtype="bfloat16",
+                                                       activation_dtype="bfloat16")
+        model = build(cfg, device=dev, seed=0)
+        gen = torch.Generator().manual_seed(2)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 64), generator=gen).to(dev)}
+        agg = AggConfig(backend="cuda")
+        loss = model.loss(batch)
+        want = Aggregator(agg).allreduce_tree(
+            list(torch.autograd.grad(loss, list(model.parameters()))))
+        mesh = make_mesh_for(1)
+        rules.distribute(model, cfg, mesh)
+        plan = MeshGrads(model, mesh, agg)
+        views = plan.views()
+        before = ops.encode_align.launches
+        with _swapped(model, views), hints.use_mesh(mesh), implicit_replication():
+            got_loss = model.loss(batch)
+            grads = torch.autograd.grad(got_loss, list(views.values()))
+        pairs = [plan.local(g, p) for g, p in zip(grads, views.values())]
+        got = plan.aggregate([g for g, _ in pairs], [t for _, t in pairs], views)
+        assert ops.encode_align.launches == before + len(want)
+        assert torch.equal(got_loss.full_tensor(), loss)
+        _same_bits(dict(enumerate(g.full_tensor() for g in got)), dict(enumerate(want)))
+    finally:
+        dist.destroy_process_group()
+
+
 # ---------------------------------------------------------------------------
 # stacked (logical-worker) aggregation and checkpoints on the card
 # ---------------------------------------------------------------------------
