@@ -29,8 +29,9 @@ Phases (each prints on its own lines; any failure raises, exit code != 0):
    batch 8 x seq 512 through ``train_loop`` with FPISA aggregation on the
    ``auto`` backend, inside an NCCL process group of one rank so the
    collectives really run. The kernels' launch counts are zeroed just
-   before and read just after: each must have launched once per gradient
-   leaf per step. Then, on the trained model's gradients, the cuda and the
+   before and read just after: K1/K2 must have launched once per gradient
+   leaf per step, A1 (the attention) forward twice per layer per step (the
+   remat recompute) and backward once. Then, on the trained model's gradients, the cuda and the
    plain aggregation must give the same bits, and the loss of the smoke
    config must agree between the two backends.
    A breakdown of one step by layer (forward+backward, aggregation,
@@ -172,6 +173,39 @@ repro_torch.launch.dryrun`` of qwen1.5-0.5b and kimi-k2 (multi-pod)
 ``train_4k``, traced on the host beside the card's work, their
 ``per_device.arg_bytes`` against the card's memory.
 
+Then, in the same group, long context through A1, the port's CUDA kernel for
+the reference's chunked (online-softmax) attention (``longctx_path``,
+``[longctx]`` lines, each with the card's name and power limit): (a) A1
+forward and backward against its plain version (the reference's loop,
+``kernels/attention.py::chunked_attention_ref``) on the same card tensors:
+output and q/k/v gradients, causal and not, float32 and bf16, at qwen's 16
+heads of 64, batch 2, S = 512, 1,024 and 4,096 with cq = ck = 32, then in
+bf16 at the shapes the training paths give A1 (the main path's 8 x 512 in
+one chunk, (b)'s 4 x 4,096 in chunks of 2,048, whisper's 1,500-frame
+encoder, 448-token decoder and cross-attention), within ``A1_TOL`` of the
+plain result's largest |entry|, and in bf16 each of the two against the
+plain version in float32; (b) qwen1.5-0.5b at full width
+trained at the reference's train_4k length: 3 steps of 4 x 4,096 with
+``fpisa`` and remat "full" (path ``longctx``: K1/K2 once per leaf per step,
+A1 forward twice and backward once per layer per step), the step's
+breakdown, tok/s, peak memory beside the float32 logits' bytes, A1's share
+of a profiled forward+backward; (c) one 32,768-token qwen row (prefill_32k's
+length): ``prefill`` into a decode cache and 64 greedy ``decode_step``s
+(path ``prefill_32k``: A1 once per layer), prefill and decode times, the
+row's and the cache's K/V bytes, A1 against its plain version at the
+prefill's attention shape, and on a float32 copy prefill's last logits
+against a fresh ``forward``'s within ``PREFILL_ATOL``; (d) whisper-medium's
+1500-frame encoder at its published size (path ``whisper_encoder``: A1
+once per layer), its time, its float32 copy through A1 against the same
+encoder with the plain attention within ``ENCODER_RTOL``, the bf16
+encoder's distance from the copy; then A1 timed at (b)'s shape (the
+kernels line), at (a)'s and at the main path's 8 x 512, against its bound
+(flops at 989 TFLOP/s, bytes at 3.35 TB/s), its plain version and
+``scaled_dot_product_attention`` (timed as the yardstick, used nowhere in
+the port). (e) After the main path's breakdown, a ``[longctx] (e)`` line
+puts its forward+backward, now through A1, beside the 147-186 ms that
+the whole (S, S) float32 softmax took before it (PERF.md §5).
+
 Then the switch dataplane (``switchsim_path``, ``[switchsim]`` lines; the
 dataplane runs as torch ops on the card, as the reference runs it as jitted
 ``jnp``): (a) the card's ``BatchedDataplane`` equals the port's numpy
@@ -207,9 +241,13 @@ In the ``kernels`` line, ``launches`` is a kernel's launches summed over
 every path above that ran it (main, ``fpisa_seq``, bucketed, stacked
 ``fpisa``, stacked ``fpisa_seq``, ``serve``, ``serve_fpisa_seq``,
 ``mamba2``, ``zamba2_seq``, ``arctic_serve``, ``whisper``, ``sharded``,
-the two-pass pipeline, ``switchsim``) and ``launches_by_path`` names each
-path's count, every path's counts zeroed just before it and read just
-after.
+``longctx``, ``prefill_32k``, ``whisper_encoder``, the two-pass pipeline,
+``switchsim``) and ``launches_by_path`` names each path's count, every
+path's counts zeroed just before it and read just after. A1 has two
+entries, ``chunked_attention_fwd`` and ``chunked_attention_bwd`` (its dQ
+and dK/dV kernels, one launch of the pair per backward); their
+``library_ms`` is ``scaled_dot_product_attention``'s forward and
+backward, the K1-K6 entries' null.
 
 The line before the last is ``{"kernels": [...]}`` with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -250,7 +288,8 @@ INT32_PIPE_OPS_PER_S = 132 * 64 * 1.98e9
 OPS_PER_ELEM = {"fused_encode_align": 16, "fused_decode": 34, "fpisa_extract": 14,
                 "fpisa_align": 5, "fpisa_decode": 34}
 KERNELS = ("fused_encode_align", "fused_decode", "fpisa_extract", "fpisa_align",
-           "fpisa_decode", "fpisa_accum")
+           "fpisa_decode", "fpisa_accum", "chunked_attention_fwd", "chunked_attention_bwd")
+A1 = ("chunked_attention_fwd", "chunked_attention_bwd")  # the port's kernel for a jnp function
 
 SWEEP = [(1, 256), (8, 128), (256, 256), (300, 512), (513, 128), (64, 512)]
 EMBED_ROWS = 607744           # the embedding gradient: 151936 x 1024 / 256
@@ -260,7 +299,8 @@ ACCUM_WORKERS = (1, 2, 4, 8)
 LOGICAL_WORKERS = 4           # the stacked phase: W = 4 logical workers on one rank
 KERNEL_WRAPPER = {"fused_encode_align": "encode_align", "fused_decode": "decode_fused",
                   "fpisa_extract": "extract", "fpisa_align": "align", "fpisa_decode": "decode",
-                  "fpisa_accum": "accum"}
+                  "fpisa_accum": "accum", "chunked_attention_fwd": "attention_forward",
+                  "chunked_attention_bwd": "attention_backward"}
 # the serve phase: engines' sizes and the Poisson trace
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_PAGE = 16, 1024, 16
 SERVE_REQUESTS, SERVE_RATE = 32, 0.5
@@ -285,6 +325,22 @@ SWITCH_SLOTS, SWITCH_PIPES = 256, 4
 # the query phase: the uservisits adRevenue column (AMPLab Big Data Benchmark)
 QUERY_ROWS, QUERY_BATCH = 50_000_000, 1_048_576
 GROUPS, GROUP_ROWS = 64, 2_000_000
+# the longctx group: qwen1.5-0.5b at the reference's train_4k and prefill_32k
+# lengths (configs/base.py SHAPES), A1 against its plain version at qwen's
+# heads (16 x 64) and batch 2 with cq = 32, whisper's 1500-frame encoder
+LONG_TRAIN_BATCH, LONG_TRAIN_SEQ = 4, 4096
+LONG_PREFILL, LONG_DECODE = 32768, 64
+A1_SEQS, A1_BATCH, A1_CHUNK = (512, 1024, 4096), 2, 32
+# A1 against its plain version, relative to the plain result's largest |entry|
+# (output, gradients); tests/test_torch_cuda.py states the same and why
+A1_TOL = {"float32": (1e-5, 2e-5), "bfloat16": (1e-2, 6e-2)}
+# the 32,768-token prefill against a fresh forward, on a float32 copy: absolute,
+# the reference's own prefill tolerance (as WHISPER_ATOL)
+PREFILL_ATOL = 2e-4
+# whisper's encoder on a float32 copy through A1 against the same encoder with
+# the plain attention, relative to the largest |state|: 24 layers of A1's
+# float32 rounding (at most 3.1e-6 a call)
+ENCODER_RTOL = 1e-4
 CARD = "card not read yet"    # nvidia-smi's name and power limit, beside every number
 
 
@@ -530,19 +586,17 @@ def train_main_path(torch, dev):
 
     from repro_torch.configs import get_config
     from repro_torch.core.agg import AggConfig
-    from repro_torch.kernels import ops
     from repro_torch.launch.train import train_loop
 
     cfg = get_config("qwen1.5-0.5b")
-    ops.encode_align.launches = 0
-    ops.decode_fused.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     model, opt_state, losses = train_loop(
         cfg, steps=STEPS, global_batch=GLOBAL_BATCH, seq_len=SEQ_LEN,
         agg=AggConfig(strategy="fpisa", backend="auto"), device=dev, log_every=1)
     torch.cuda.synchronize()
-    launches = {"fused_encode_align": ops.encode_align.launches,
-                "fused_decode": ops.decode_fused.launches}
+    counts = read_launches()
+    launches = {k: counts[k] for k in ("fused_encode_align", "fused_decode")}
     wall = time.perf_counter() - t0
     leaves = len(list(model.parameters()))
     log(f"[train] {STEPS} steps of {cfg.name} in {wall:.2f} s (init included), "
@@ -558,6 +612,7 @@ def train_main_path(torch, dev):
                                  f"{leaves} per step (one per gradient leaf)")
     if not all(torch.isfinite(p).all() for p in model.parameters()):
         raise AssertionError("non-finite parameter after training")
+    launches.update(check_a1_launches(counts, cfg, STEPS, "main"))
     return launches, model, opt_state
 
 
@@ -593,20 +648,20 @@ def train_seq_path(torch, dev):
     return launches, model, opt_state
 
 
-def training_batch(torch, dev, cfg, seq_len=SEQ_LEN):
+def training_batch(torch, dev, cfg, seq_len=SEQ_LEN, batch=GLOBAL_BATCH):
     """The batch ``train_loop`` would feed at step ``STEPS`` (seed 0), on
-    the card: ``tokens`` of GLOBAL_BATCH x seq_len and, for the
+    the card: ``tokens`` of ``batch`` x seq_len and, for the
     encoder-decoder, its seeded ``frames``."""
     from repro_torch.data.pipeline import ShardedLoader, SyntheticCorpus
     from repro_torch.launch.train import global_batch_at
 
-    loader = ShardedLoader(SyntheticCorpus(cfg.vocab_size, 0), GLOBAL_BATCH, seq_len)
+    loader = ShardedLoader(SyntheticCorpus(cfg.vocab_size, 0), batch, seq_len)
     return {k: torch.from_numpy(v).to(dev)
             for k, v in global_batch_at(cfg, loader, 0, STEPS).items()}
 
 
 def step_breakdown(torch, dev, model, opt_state, strategy="fpisa", bucket_bytes=0,
-                   seq_len=SEQ_LEN):
+                   seq_len=SEQ_LEN, batch_size=GLOBAL_BATCH):
     """Where a full-width training step's time goes, by layer: forward +
     backward, the aggregation of the gradient leaves (for fpisa K1, K2
     and the plain-torch glue between them; for fpisa_seq the all-gather,
@@ -617,7 +672,7 @@ def step_breakdown(torch, dev, model, opt_state, strategy="fpisa", bucket_bytes=
     from repro_torch.optim import optimizers
 
     cfg = model.cfg
-    batch = training_batch(torch, dev, cfg, seq_len)
+    batch = training_batch(torch, dev, cfg, seq_len, batch_size)
     params = list(model.parameters())
     opt_cfg = optimizers.OptConfig(name=cfg.optimizer, lr=cfg.learning_rate)
     aggregator = Aggregator(AggConfig(strategy=strategy, bucket_bytes=bucket_bytes))
@@ -639,7 +694,7 @@ def step_breakdown(torch, dev, model, opt_state, strategy="fpisa", bucket_bytes=
     what = f"{strategy}, buckets of {bucket_bytes} bytes" if bucket_bytes else strategy
     log(f"[breakdown] {what}: one step, " + ", ".join(
         f"{k} {v:.2f} ms ({100 * v / total:.1f}%)" for k, v in parts.items())
-        + f"; sum {total:.2f} ms = {GLOBAL_BATCH * seq_len / total * 1e3:,.0f} tok/s")
+        + f"; sum {total:.2f} ms = {batch_size * seq_len / total * 1e3:,.0f} tok/s")
     return parts
 
 
@@ -794,7 +849,6 @@ def train_stacked(torch, dev, strategy, kernels):
     from repro_torch.configs import get_config
     from repro_torch.core.agg import AggConfig
     from repro_torch.data.pipeline import ShardedLoader, SyntheticCorpus
-    from repro_torch.kernels import ops
     from repro_torch.models.registry import build
     from repro_torch.optim import optimizers
     from repro_torch.train.step import make_train_step
@@ -808,7 +862,7 @@ def train_stacked(torch, dev, strategy, kernels):
     loader = ShardedLoader(SyntheticCorpus(cfg.vocab_size, 0), GLOBAL_BATCH, SEQ_LEN)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fns = [getattr(ops, KERNEL_WRAPPER[k]) for k in kernels]
+    fns = [wrapper(k) for k in kernels]
     for fn in fns:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -1174,17 +1228,21 @@ def stacked_path(torch, dev, tmpdir, leaf_sizes):
     return launches, times
 
 
-def zero_launches():
-    from repro_torch.kernels import ops
+def wrapper(name):
+    """The launch function that counts kernel ``name``'s launches: A1's in
+    ``kernels/attention.py``, K1-K6's in ``kernels/ops.py``."""
+    from repro_torch.kernels import attention, ops
 
+    return getattr(attention if name in A1 else ops, KERNEL_WRAPPER[name])
+
+
+def zero_launches():
     for name in KERNELS:
-        getattr(ops, KERNEL_WRAPPER[name]).launches = 0
+        wrapper(name).launches = 0
 
 
 def read_launches():
-    from repro_torch.kernels import ops
-
-    return {name: getattr(ops, KERNEL_WRAPPER[name]).launches for name in KERNELS}
+    return {name: wrapper(name).launches for name in KERNELS}
 
 
 def check_paged_equals_dense(torch, dev, model, tag="[serve] check (a)"):
@@ -2041,7 +2099,442 @@ def sharding_path(torch, dev):
             f"{rec['roofline']['collective_s']:.3f} ({rec['roofline']['bottleneck']}), "
             f"traced in {rec['trace_s']} s")
     log(f"[sharding] the group took {time.perf_counter() - t0:.1f} s; {CARD}")
-    return {"sharded": {k: launches[k] for k in ("fused_encode_align", "fused_decode")}}
+    return {"sharded": {k: launches[k] for k in ("fused_encode_align", "fused_decode") + A1}}
+
+
+# ---------------------------------------------------------------------------
+# the tenth slice: long context through the chunked attention kernel (A1)
+# ---------------------------------------------------------------------------
+
+
+def check_a1_launches(counts, cfg, steps, path):
+    """A1's launches over ``steps`` training steps of the dense ``cfg`` with
+    remat "full": the forward once per layer per step and once more in the
+    layer's recompute, the backward once per layer per step. Returns A1's
+    counts."""
+    want = {"chunked_attention_fwd": 2 * cfg.num_layers * steps,
+            "chunked_attention_bwd": cfg.num_layers * steps}
+    got = {k: counts[k] for k in A1}
+    if got != want:
+        raise AssertionError(f"{path}: A1 launched {got} in {steps} steps of {cfg.name}, "
+                             f"expected {want}")
+    return got
+
+
+def a1_inputs(torch, dev, b, s, sk, h, hd, dtype, seed=0):
+    """q, k, v, dout from numpy seed ``seed``: standard normal, on the card."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev).to(dtype)
+            for shape in ((b, s, h, hd), (b, sk, h, hd), (b, sk, h, hd), (b, s, h, hd))]
+
+
+def a1_grads(torch, fn, q, k, v, dout):
+    """[output, dq, dk, dv] of ``fn(q, k, v)`` against the cotangent ``dout``."""
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out = fn(q, k, v)
+    return [out.detach()] + list(torch.autograd.grad(out, (q, k, v), dout))
+
+
+def a1_parity_cases():
+    """(a)'s cases, (dtype name, B, S, Sk, cq, ck, causal) at qwen's 16 heads
+    of 64: the grid (batch ``A1_BATCH``, S in ``A1_SEQS``, cq = ck =
+    ``A1_CHUNK``, causal and not, float32 and bf16), then in bf16 the shapes
+    the driven training paths give A1 at the full configs' chunk
+    (``attn_q_chunk`` 2,048): the main path's 8 x 512 (one chunk each way),
+    (b)'s 4 x 4,096 (chunks of 2,048) and whisper's 8-row step (the
+    1,500-frame encoder, the 448-token decoder and its cross-attention over
+    the frames; whisper-medium's heads are qwen's 16 of 64)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import chunk_sizes
+
+    cases = [(name, A1_BATCH, s, s, A1_CHUNK, A1_CHUNK, causal)
+             for name in ("float32", "bfloat16") for s in A1_SEQS for causal in (True, False)]
+    chunk = get_config("qwen1.5-0.5b").attn_q_chunk
+    frames = get_config("whisper-medium").num_frames
+    for b, s, sk, causal in ((GLOBAL_BATCH, SEQ_LEN, SEQ_LEN, True),
+                             (LONG_TRAIN_BATCH, LONG_TRAIN_SEQ, LONG_TRAIN_SEQ, True),
+                             (GLOBAL_BATCH, frames, frames, False),
+                             (GLOBAL_BATCH, WHISPER_SEQ, WHISPER_SEQ, True),
+                             (GLOBAL_BATCH, WHISPER_SEQ, frames, False)):
+        cases.append(("bfloat16", b, s, sk, *chunk_sizes(s, sk, chunk), causal))
+    return cases
+
+
+def longctx_parity(torch, dev, par):
+    """(a) A1 against its plain version on the same card tensors: output and
+    q/k/v gradients (the kernel's recomputing backward against the plain
+    loop's autograd) at ``a1_parity_cases()``; within ``A1_TOL`` of the
+    plain result's largest |entry|. Records the largest absolute difference
+    of outputs (forward) and of gradients (backward). For bfloat16 both are
+    also held against the plain version in float32 on the same (bf16)
+    values, printed: which of the two the bf16 distance comes from."""
+    from repro_torch.kernels import attention, ops
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()) / float(b.float().abs().max())
+
+    worst, truth = {}, {}
+    for name, b, s, sk, cq, ck, causal in a1_parity_cases():
+        q, k, v, dout = a1_inputs(torch, dev, b, s, sk, 16, 64, getattr(torch, name))
+
+        def plain(*t):
+            return attention.chunked_attention_ref(*t, causal=causal, cq=cq, ck=ck,
+                                                   remat_step=False)
+
+        got = a1_grads(torch, lambda *t: ops.chunked_attention(
+            *t, causal=causal, cq=cq, ck=ck), q, k, v, dout)
+        want = a1_grads(torch, plain, q, k, v, dout)
+        torch.cuda.synchronize()
+        case = f"{name}_B{b}_S{s}_Sk{sk}_cq{cq}_ck{ck}_{'causal' if causal else 'full'}"
+        worst[case] = []
+        for i, (a, w) in enumerate(zip(got, want)):
+            err = float((a.float() - w.float()).abs().max())
+            top = float(w.float().abs().max())
+            kernel = A1[min(i, 1)]
+            par.err[kernel] = max(par.err[kernel], err)
+            par.cases[kernel] += 1
+            worst[case].append(err / top)
+            if not (err <= A1_TOL[name][min(i, 1)] * top and torch.isfinite(a).all()):
+                raise AssertionError(
+                    f"A1 {case} {['out', 'dq', 'dk', 'dv'][i]}: kernel vs plain {err:.3g} > "
+                    f"{A1_TOL[name][min(i, 1)]} x {top:.3g}")
+        if name == "bfloat16":
+            exact = a1_grads(torch, plain, *(t.float() for t in (q, k, v, dout)))
+            truth[case] = {"kernel": [rel(a, w) for a, w in zip(got, exact)],
+                           "plain": [rel(a, w) for a, w in zip(want, exact)]}
+            del exact
+        del q, k, v, dout, got, want
+        torch.cuda.empty_cache()
+    log(f"[longctx] (a) A1 vs its plain version on the card (16 heads of 64; output, dq, dk, "
+        f"dv relative to the plain result's largest |entry|, tolerance {A1_TOL}): " + "; ".join(
+            f"{k} " + "/".join(f"{e:.2e}" for e in v) for k, v in worst.items()) + f"; {CARD}")
+    log("[longctx] (a) bf16 kernel and bf16 plain version, each against the plain version in "
+        "float32 on the same values (output, dq, dk, dv): " + "; ".join(
+            f"{k} kernel " + "/".join(f"{e:.2e}" for e in v["kernel"]) + " plain "
+            + "/".join(f"{e:.2e}" for e in v["plain"]) for k, v in truth.items()))
+    return {"vs_plain": worst, "bf16_vs_float32": truth}
+
+
+def a1_work(b, s, sk, h, hd, causal, itemsize):
+    """What one call must do: (forward flops, forward bytes, backward flops,
+    backward bytes). Flops count the (query, key) pairs the mask keeps
+    (causal: S (S + 1) / 2), 4 hd per pair forward (QK^T and PV), 10 hd
+    backward (the scores again, dP, dV, dQ, dK); bytes read each input
+    once and write each output once (forward: q, k, v in, out and the
+    per-row m and l out; backward: q, k, v, out, dout, m, l in, dq, dk, dv
+    out)."""
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * sk)
+    q_bytes, kv_bytes, stats = b * s * h * hd * itemsize, b * sk * h * hd * itemsize, b * h * s * 4
+    fwd_bytes = 2 * q_bytes + 2 * kv_bytes + 2 * stats
+    bwd_bytes = 3 * q_bytes + 2 * kv_bytes + 2 * stats + q_bytes + 2 * kv_bytes
+    return 4 * hd * pairs, fwd_bytes, 10 * hd * pairs, bwd_bytes
+
+
+def a1_timing(torch, dev, b, s, ck, what):
+    """A1 forward and backward at qwen's heads (16 x 64), bf16, causal, on
+    CUDA events: kernel, plain version (the loop at the same chunks),
+    ``scaled_dot_product_attention`` (the library call for the same
+    function, timed here and used nowhere in the port), each against the
+    bound: the larger of the flops at 989 TFLOP/s (dense bf16) and the
+    bytes at the memory rate. Returns {kernel name: numbers}."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from repro_torch.kernels import attention
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16
+
+    q, k, v, dout = a1_inputs(torch, dev, b, s, s, 16, 64, torch.bfloat16, seed=1)
+    out, m, l = attention.attention_forward(q, k, v, True, ck)
+    qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    lib_out = sdpa(qs, ks, vs, is_causal=True)
+    plain_in = [t.detach().requires_grad_() for t in (q, k, v)]
+    plain_out = attention.chunked_attention_ref(*plain_in, causal=True, cq=ck, ck=ck,
+                                                remat_step=False)
+    runs = {
+        "chunked_attention_fwd": (
+            lambda: attention.attention_forward(q, k, v, True, ck),
+            lambda: attention.chunked_attention_ref(q, k, v, causal=True, cq=ck, ck=ck),
+            lambda: sdpa(qs.detach(), ks.detach(), vs.detach(), is_causal=True)),
+        "chunked_attention_bwd": (
+            lambda: attention.attention_backward(q, k, v, out, dout, m, l, True),
+            lambda: torch.autograd.grad(plain_out, plain_in, dout, retain_graph=True),
+            lambda: torch.autograd.grad(lib_out, (qs, ks, vs), dout.transpose(1, 2),
+                                        retain_graph=True))}
+    fwd_flops, fwd_bytes, bwd_flops, bwd_bytes = a1_work(b, s, s, 16, 64, True, 2)
+    work = {"chunked_attention_fwd": (fwd_flops, fwd_bytes),
+            "chunked_attention_bwd": (bwd_flops, bwd_bytes)}
+    times = {}
+    for name, (kernel, plain, library) in runs.items():
+        k1 = median_ms(torch, kernel, reps=10, warmup=2)
+        p = median_ms(torch, plain, reps=3, warmup=1)
+        lib = median_ms(torch, library, reps=10, warmup=2)
+        k2 = median_ms(torch, kernel, reps=10, warmup=2)
+        flops, bytes_ = work[name]
+        flops_ms, bytes_ms = flops / PEAK_FLOPS_BF16 * 1e3, bytes_ / HBM_BYTES_PER_S * 1e3
+        times[name] = {"ms": min(k1, k2), "ms_runs": [k1, k2], "plain_ms": p,
+                       "library_ms": lib, "bound_ms": max(flops_ms, bytes_ms),
+                       "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
+                       "flops": flops, "bytes": bytes_}
+        log(f"[time] {name} ({what}: B {b}, S {s}, 16 heads of 64, bf16, causal, ck {ck}): "
+            f"kernel {k1:.3f} / {k2:.3f} ms ({flops / (min(k1, k2) * 1e-3) / 1e12:.2f} TFLOP/s), "
+            f"plain {p:.3f} ms, scaled_dot_product_attention {lib:.3f} ms, bound "
+            f"{max(flops_ms, bytes_ms):.4f} ms ({flops / 1e9:.1f} GFLOP at 989 TFLOP/s "
+            f"{flops_ms:.4f} ms, {bytes_ / 1e6:.1f} MB at 3.35 TB/s {bytes_ms:.4f} ms); {CARD}")
+    return times
+
+
+def longctx_train(torch, dev):
+    """(b) qwen1.5-0.5b at full width trained at the reference's train_4k
+    length: 3 steps of ``LONG_TRAIN_BATCH`` x 4,096 through ``train_loop``
+    with ``fpisa`` and remat "full" (the config's), every count zeroed just
+    before and read just after: K1/K2 once per leaf per step, A1 forward
+    twice per layer per step (the layer's recompute), backward once. Then
+    the step's breakdown, tok/s, the forward+backward's peak memory beside
+    the float32 logits' bytes, and A1's share of a profiled
+    forward+backward. Returns (launches, numbers)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.agg import AggConfig
+    from repro_torch.launch.train import train_loop
+
+    cfg = get_config("qwen1.5-0.5b")
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, opt_state, losses = train_loop(
+        cfg, steps=STEPS, global_batch=LONG_TRAIN_BATCH, seq_len=LONG_TRAIN_SEQ,
+        agg=AggConfig(strategy="fpisa", backend="auto"), device=dev, log_every=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    leaves = len(list(model.parameters()))
+    launches = {k: counts[k] for k in ("fused_encode_align", "fused_decode")}
+    if not all(v == leaves * STEPS for v in launches.values()):
+        raise AssertionError(f"longctx: K1/K2 launched {launches}, expected {leaves} per step")
+    launches.update(check_a1_launches(counts, cfg, STEPS, "longctx"))
+    if not (all(math.isfinite(v) for v in losses)
+            and all(torch.isfinite(p).all() for p in model.parameters())):
+        raise AssertionError(f"longctx: non-finite loss or parameter ({losses})")
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    tokens = LONG_TRAIN_BATCH * LONG_TRAIN_SEQ
+    logits_gb = cfg.vocab_size * tokens * 4 / 1e9
+    log(f"[longctx] (b) {cfg.name} at full width: {STEPS} steps of {LONG_TRAIN_BATCH} x "
+        f"{LONG_TRAIN_SEQ} with fpisa, remat {cfg.remat}, attn_q_chunk {cfg.attn_q_chunk}, in "
+        f"{wall:.2f} s (init included), losses {losses}; launches {json.dumps(launches)}; peak "
+        f"memory {train_peak:.2f} GiB; float32 logits {cfg.vocab_size} x {tokens} x 4 B = "
+        f"{logits_gb:.2f} GB; {CARD}")
+    torch.cuda.reset_peak_memory_stats()
+    parts = step_breakdown(torch, dev, model, opt_state, "fpisa", seq_len=LONG_TRAIN_SEQ,
+                           batch_size=LONG_TRAIN_BATCH)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del opt_state
+    torch.cuda.empty_cache()
+    batch = training_batch(torch, dev, cfg, LONG_TRAIN_SEQ, LONG_TRAIN_BATCH)
+    params = list(model.parameters())
+    events = profiled_events(torch, lambda: torch.autograd.grad(model.loss(batch), params))
+    share = None
+    if events is not None:
+        from torch.autograd import DeviceType
+
+        kern = [e for e in events if e.device_type == DeviceType.CUDA]
+        busy = sum(getattr(e, "self_device_time_total", 0) for e in kern) / 1e3
+        a1 = sum(getattr(e, "self_device_time_total", 0) for e in kern
+                 if "attn_fwd" in e.key or "attn_bwd" in e.key) / 1e3
+        share = {"kernels_ms": busy, "a1_ms": a1}
+    total = sum(parts.values())
+    log(f"[longctx] (b) step, CUDA events: " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in parts.items()) + f"; {total:.2f} ms = "
+        f"{tokens / total * 1e3:,.0f} tok/s; peak memory of the step {peak:.2f} GiB; profiled "
+        f"forward+backward: " + (f"{share['kernels_ms']:.2f} ms of kernels, A1 {share['a1_ms']:.2f}"
+                                 f" ms ({100 * share['a1_ms'] / share['kernels_ms']:.1f} %)"
+                                 if share and share["kernels_ms"] else "not measured")
+        + f"; {CARD}")
+    del model
+    torch.cuda.empty_cache()
+    return launches, {"losses": losses, "step_ms": parts, "tok_s": tokens / total * 1e3,
+                      "train_peak_gib": train_peak, "step_peak_gib": peak,
+                      "logits_gb": logits_gb, "profile": share}
+
+
+def longctx_prefill(torch, dev):
+    """(c) one 32,768-token qwen row at full width (bf16 weights from a
+    seed): ``prefill`` into a decode cache, then 64 greedy ``decode_step``s,
+    every count zeroed just before and read just after (A1 once per layer,
+    forward only); prefill and decode times, the row's K/V bytes and the
+    cache's (a decode cache holds ``DECODE_ROWS`` rows), peak memory. The
+    checks: A1 against its plain version at the prefill's attention shape
+    (bf16, ``A1_TOL``); on a float32 copy, prefill's last logits against a
+    fresh ``forward``'s last position within ``PREFILL_ATOL``. Returns
+    (launches, numbers)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.interop import params_from_jax, params_to_jax
+    from repro_torch.kernels import attention
+    from repro_torch.models.registry import build
+
+    cfg = get_config("qwen1.5-0.5b")
+    model = build(cfg, device=dev, seed=0)
+    rng = np.random.default_rng(11)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, LONG_PREFILL))).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    cache = model.init_cache(1, LONG_PREFILL + LONG_DECODE)
+    (logits, cache), prefill_s, prefill_dev = timed(torch, lambda: model.prefill(tokens, cache))
+    decode_ms = []
+    with torch.inference_mode():
+        for _ in range(LONG_DECODE):
+            nxt = logits[:, -1].argmax(-1, keepdim=True)
+            (logits, cache), _, dev_s = timed(torch, lambda: model.decode_step(nxt, cache))
+            decode_ms.append(dev_s * 1e3)
+            if not torch.isfinite(logits).all():
+                raise AssertionError("longctx prefill: non-finite decode logits")
+    counts = read_launches()
+    launches = {k: counts[k] for k in A1}
+    if launches != {"chunked_attention_fwd": cfg.num_layers, "chunked_attention_bwd": 0}:
+        raise AssertionError(f"prefill_32k: A1 launched {launches}, expected once per layer")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    kv = cache.kv.k
+    row_bytes = 2 * cfg.num_layers * (LONG_PREFILL + LONG_DECODE) * kv.shape[-2] * kv.shape[-1] \
+        * kv.element_size()
+    cache_bytes = 2 * kv.numel() * kv.element_size()
+    del cache, logits
+    torch.cuda.empty_cache()
+    log(f"[longctx] (c) {cfg.name} prefill of 1 x {LONG_PREFILL} tokens (attn_q_chunk "
+        f"{cfg.attn_q_chunk}): {prefill_dev * 1e3:.1f} ms on CUDA events ({prefill_s:.2f} s host "
+        f"wall, {LONG_PREFILL / prefill_dev:,.0f} tok/s), then {LONG_DECODE} greedy decode "
+        f"steps: median {statistics.median(decode_ms):.2f} ms a step; A1 launches "
+        f"{json.dumps(launches)}; K/V of the row {row_bytes / 1e9:.2f} GB in bf16 (the decode "
+        f"cache's {kv.shape[1]} rows {cache_bytes / 1e9:.2f} GB); peak memory {peak:.2f} GiB; "
+        f"{CARD}")
+    # A1 against its plain version at the prefill's attention shape
+    cq, ck = attention.chunk_sizes(LONG_PREFILL, LONG_PREFILL, cfg.attn_q_chunk)
+    q, k, v, _ = a1_inputs(torch, dev, 1, LONG_PREFILL, LONG_PREFILL, cfg.num_heads,
+                           cfg.resolved_head_dim, torch.bfloat16, seed=2)
+    with torch.no_grad():
+        got = attention.attention_forward(q, k, v, True, ck)[0]
+        want = attention.chunked_attention_ref(q, k, v, causal=True, cq=cq, ck=ck)
+    a1_err = float((got.float() - want.float()).abs().max()) / float(want.float().abs().max())
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
+    if not a1_err <= A1_TOL["bfloat16"][0]:
+        raise AssertionError(f"A1 at 1 x {LONG_PREFILL}: kernel vs plain {a1_err:.3g} relative")
+    # the float32 copy: prefill == a fresh forward's last position
+    c32 = cfg.with_(param_dtype="float32", activation_dtype="float32")
+    m32 = build(c32, device=dev, params=params_from_jax(params_to_jax(model)))
+    del model
+    with torch.inference_mode():
+        last, _ = m32.prefill(tokens, m32.init_cache(1, LONG_PREFILL, rows=1))
+        full = m32({"tokens": tokens})[0][:, -1:]
+    err = float((last - full).abs().max())
+    top = float(full.abs().max())
+    del m32, last, full
+    torch.cuda.empty_cache()
+    if not err <= PREFILL_ATOL:
+        raise AssertionError(f"prefill_32k float32: last logits differ from a fresh forward by "
+                             f"{err:.3g} (tolerance {PREFILL_ATOL})")
+    log(f"[longctx] (c) checks: A1 vs plain at 1 x {LONG_PREFILL} (bf16, ck {ck}) "
+        f"{a1_err:.3g} relative (tolerance {A1_TOL['bfloat16'][0]}); float32 copy: prefill's "
+        f"last logits == a fresh forward's last position, max |diff| {err:.3g} (tolerance "
+        f"{PREFILL_ATOL} absolute, largest |logit| {top:.3g}); {CARD}")
+    return launches, {"prefill_ms": prefill_dev * 1e3, "decode_ms": statistics.median(decode_ms),
+                      "kv_row_gb": row_bytes / 1e9, "kv_cache_gb": cache_bytes / 1e9,
+                      "peak_gib": peak, "a1_vs_plain": a1_err, "prefill_vs_forward": err}
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The models' attention through A1's plain version, on any device
+    (the checks' reference; nothing in the port does this)."""
+    from repro_torch.kernels import attention, ops
+
+    kernel = ops.chunked_attention
+    ops.chunked_attention = lambda q, k, v, **kw: attention.chunked_attention_ref(q, k, v, **kw)
+    try:
+        yield
+    finally:
+        ops.chunked_attention = kernel
+
+
+def longctx_encoder(torch, dev):
+    """(d) whisper-medium's encoder at its published size (bf16 weights from
+    a seed) over 8 x 1500 seeded frames through A1 (non-causal, one block of
+    1500 frames: two passes of 64-key tiles), counts zeroed just before and
+    read just after (A1 once per encoder layer); its time. Held to its
+    float32 copy: the copy's encoder through A1 against the same encoder
+    with the plain attention within ``ENCODER_RTOL`` of the largest |state|,
+    and the bf16 encoder's distance from the copy's printed. Returns
+    (launches, numbers)."""
+    from repro_torch.configs import get_config
+    from repro_torch.interop import params_from_jax, params_to_jax
+    from repro_torch.models.registry import build
+
+    cfg = get_config("whisper-medium")
+    model = build(cfg, device=dev, seed=0)
+    frames, _ = serve_inputs(torch, dev, cfg, WHISPER_ROWS[0])
+    with torch.inference_mode():
+        zero_launches()
+        enc, _, enc_s = timed(torch, lambda: model.encode(frames))
+        launches = {k: read_launches()[k] for k in A1}
+        enc_ms = median_ms(torch, lambda: model.encode(frames), reps=3, warmup=0)
+    if launches != {"chunked_attention_fwd": cfg.num_encoder_layers,
+                    "chunked_attention_bwd": 0}:
+        raise AssertionError(f"whisper encoder: A1 launched {launches}, expected once per layer")
+    c32 = cfg.with_(param_dtype="float32", activation_dtype="float32")
+    m32 = build(c32, device=dev, params=params_from_jax(params_to_jax(model)))
+    del model
+    with torch.inference_mode():
+        enc32 = m32.encode(frames)
+        with plain_attention():
+            ref32 = m32.encode(frames)
+    top = float(ref32.abs().max())
+    err = float((enc32 - ref32).abs().max()) / top
+    drift = float((enc.float() - ref32).abs().max()) / top
+    del m32, enc, enc32, ref32
+    torch.cuda.empty_cache()
+    if not err <= ENCODER_RTOL:
+        raise AssertionError(f"whisper encoder float32: A1 vs plain attention {err:.3g} > "
+                             f"{ENCODER_RTOL} relative")
+    rows = WHISPER_ROWS[0]
+    log(f"[longctx] (d) {cfg.name} encoder, {rows} x {cfg.num_frames} frames through A1 "
+        f"(launches {json.dumps(launches)}): bf16 {enc_ms:.2f} ms on CUDA events "
+        f"({rows * cfg.num_frames / enc_ms * 1e3:,.0f} frames/s); float32 copy through A1 vs the "
+        f"plain attention {err:.3g} of the largest |state| (tolerance {ENCODER_RTOL}); the bf16 "
+        f"encoder is {drift:.3g} of it from the float32 copy; {CARD}")
+    return launches, {"encoder_ms": enc_ms, "fp32_a1_vs_plain": err, "bf16_vs_fp32": drift}
+
+
+def longctx_path(torch, dev, par):
+    """The tenth slice's paths (``[longctx]`` lines): (a) A1 against its
+    plain version, (b) qwen trained at 4,096 tokens (path ``longctx``), (c)
+    a 32,768-token prefill and 64 decode steps (path ``prefill_32k``), (d)
+    whisper's encoder (path ``whisper_encoder``); then A1's times at (b)'s
+    shape (the kernels line) and at (c)'s (forward). Returns ({path:
+    launches}, {kernel: times})."""
+    t0 = time.perf_counter()
+    parity = longctx_parity(torch, dev, par)
+    torch.cuda.empty_cache()
+    paths, numbers = {}, {"parity": parity}
+    paths["longctx"], numbers["train"] = longctx_train(torch, dev)
+    paths["prefill_32k"], numbers["prefill"] = longctx_prefill(torch, dev)
+    paths["whisper_encoder"], numbers["encoder"] = longctx_encoder(torch, dev)
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import chunk_sizes
+
+    ck = chunk_sizes(LONG_TRAIN_SEQ, LONG_TRAIN_SEQ, get_config("qwen1.5-0.5b").attn_q_chunk)[1]
+    times = a1_timing(torch, dev, LONG_TRAIN_BATCH, LONG_TRAIN_SEQ, ck, "(b)'s shape")
+    torch.cuda.empty_cache()
+    numbers["a1_at_train_4k_cq32"] = a1_timing(torch, dev, A1_BATCH, 4096, A1_CHUNK,
+                                               "(a)'s shape")
+    torch.cuda.empty_cache()
+    # (e): at the main path's 8 x 512 one chunk is the whole row, and the plain
+    # version is the one-block branch, the (S, S) softmax A1 replaced
+    numbers["a1_at_main_8x512"] = a1_timing(torch, dev, GLOBAL_BATCH, SEQ_LEN, SEQ_LEN,
+                                            "(e), the main path's shape")
+    torch.cuda.empty_cache()
+    log(f"[longctx] the group took {time.perf_counter() - t0:.1f} s; {CARD}")
+    log(json.dumps({"longctx": numbers}))
+    return paths, times
 
 
 def diagnose(torch, run, what):
@@ -2819,7 +3312,10 @@ def main() -> int:
         paths = {}  # path -> {kernel: launches}, each counted from zero over its run
         paths["main"], model, opt_state = train_main_path(torch, dev)
         check_against_plain(torch, dev, model)
-        step_breakdown(torch, dev, model, opt_state, "fpisa")
+        parts = step_breakdown(torch, dev, model, opt_state, "fpisa")
+        log(f"[longctx] (e) {model.cfg.name} forward+backward of {GLOBAL_BATCH} x {SEQ_LEN} "
+            f"through A1 (remat full): {parts['forward+backward']:.2f} ms; with the whole (S, S) "
+            f"float32 softmax in its place it took 147-186 ms (PERF.md §5); {CARD}")
         leaf_sizes = [p.numel() for p in model.parameters()]
         del model, opt_state
         torch.cuda.empty_cache()
@@ -2842,7 +3338,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         paths.update(sharding_path(torch, dev))
         torch.cuda.empty_cache()
+        longctx_paths, a1_times = longctx_path(torch, dev, par)
+        paths.update(longctx_paths)
+        torch.cuda.empty_cache()
         times = timing(torch, dev, leaf_sizes)
+        times.update(a1_times)
         paths["two_pass"], two_pass_times = two_pass_pipeline(torch, dev, leaf_sizes, par)
         times.update(two_pass_times)
         torch.cuda.empty_cache()
@@ -2863,13 +3363,19 @@ def main() -> int:
                "fpisa_extract": "src/repro_torch/csrc/fpisa_encode.cu",
                "fpisa_align": "src/repro_torch/csrc/fpisa_encode.cu",
                "fpisa_decode": "src/repro_torch/csrc/fpisa_fused.cu",
-               "fpisa_accum": "src/repro_torch/csrc/fpisa_accum.cu"}
+               "fpisa_accum": "src/repro_torch/csrc/fpisa_accum.cu",
+               "chunked_attention_fwd": "src/repro_torch/csrc/chunked_attention.cu",
+               "chunked_attention_bwd": "src/repro_torch/csrc/chunked_attention.cu"}
     replaces = {"fused_encode_align": "src/repro/kernels/fpisa_fused.py:66",
                 "fused_decode": "src/repro/kernels/fpisa_fused.py:96",
                 "fpisa_extract": "src/repro/kernels/fpisa_encode.py:47",
                 "fpisa_align": "src/repro/kernels/fpisa_encode.py:73",
                 "fpisa_decode": "src/repro/kernels/fpisa_decode.py:28",
-                "fpisa_accum": "src/repro/kernels/fpisa_accum.py:41"}
+                "fpisa_accum": "src/repro/kernels/fpisa_accum.py:41",
+                # A1 replaces a jnp function (no Pallas kernel): its forward and
+                # the autodiff of its remat'd pair step
+                "chunked_attention_fwd": "src/repro/models/attention.py:67",
+                "chunked_attention_bwd": "src/repro/models/attention.py:142"}
     # launches: the sum over every path that ran the kernel; launches_by_path:
     # each path's count, zeroed just before the path and read just after
     by_path = {name: {path: n[name] for path, n in paths.items() if name in n}
@@ -2879,7 +3385,8 @@ def main() -> int:
                 "launches": sum(by_path[name].values()), "launches_by_path": by_path[name],
                 "max_abs_err": float(par.err[name]), "ms": times[name]["ms"],
                 "plain_ms": times[name]["plain_ms"], "bound_ms": times[name]["bound_ms"],
-                "bound_by": times[name]["bound_by"], "library_ms": None}
+                "bound_by": times[name]["bound_by"],
+                "library_ms": times[name].get("library_ms")}
                for name in KERNELS]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

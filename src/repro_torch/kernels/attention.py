@@ -1,0 +1,242 @@
+"""Hopper kernel A1: the reference's chunked (online-softmax) attention.
+
+The reference's ``repro.models.attention.chunked_attention`` is plain
+``jnp`` (no Pallas kernel): it scans (q-chunk, kv-chunk) pairs through an
+online softmax. Its port here has two versions of the same function:
+
+  chunked_attention_ref : the plain version, the reference's loop in torch.
+                          It walks the kv-chunks ``j`` in ascending order
+                          and updates every q-chunk that pairs with ``j``
+                          (all of them; when causal, ``i >= j``) in one
+                          batched step, so each q-chunk's state sees
+                          ``j = 0, 1, ...`` in turn, as the scan feeds it.
+                          The one-block case (``nq == nk == 1``) is one
+                          masked float32 softmax, as in the reference.
+  ChunkedAttention      : the CUDA kernels of ``csrc/chunked_attention.cu``
+                          as an autograd Function: ``attention_forward``
+                          (one CTA per batch row, head and 64 query rows,
+                          the chunks in the reference's order, one pass
+                          over 64-key tiles) saves q, k,
+                          v, the output and each row's final max ``m`` and
+                          sum ``l``; ``attention_backward`` recomputes the
+                          score tiles from them (dQ, then dK/dV), as
+                          ``flash_remat`` recomputes the pair step, and
+                          saves nothing of size (S, Sk).
+
+``kernels/ops.py::chunked_attention`` dispatches: the kernel for CUDA
+tensors (or a raise), the plain version for CPU tensors. The plain version
+runs on a CUDA tensor only when a caller asks for it by name, as the tests
+and ``chip_smoke.py`` do to hold the kernel to it.
+
+Shapes: q (B, S, H, hd); k, v (B, Sk, K, hd) with H a multiple of K (GQA:
+query head h reads kv head h // (H / K)); causal needs S == Sk. The plain
+version takes grouped K/V; the kernel takes K == H (``ops`` repeats a
+grouped call's K/V first), float32 and bfloat16, hd <= 128.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.fpisa_fused import raise_on
+
+NEG_INF = -1e30
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/chunked_attention.cu's dtype
+MAX_HEAD_DIM = 128
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def chunk_sizes(s: int, sk: int, q_chunk: int) -> tuple[int, int]:
+    """The reference's (cq, ck): ``min(q_chunk, length)``, halved until it
+    divides the length."""
+    cq, ck = min(q_chunk, s), min(q_chunk, sk)
+    while s % cq:
+        cq //= 2
+    while sk % ck:
+        ck //= 2
+    return cq, ck
+
+
+def _scale(hd: int) -> float:
+    """1/sqrt(hd) as float32, what a float32 tensor times the Python float is."""
+    return float(torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# the plain version
+# ---------------------------------------------------------------------------
+
+
+def _pair_step(o, m, l, qi, kj, vj, keep, scale: float):
+    """One kv-chunk against a batch of q-chunks. qi (b, n, cq, K, g, hd);
+    kj, vj (b, ck, K, hd); state o (b, n, cq, K, g, hd), m and l (b, n, cq,
+    K, g), float32; keep (n, cq, 1, 1, ck) bool or None."""
+    scores = torch.einsum("bnqkgh,bckh->bnqkgc", qi, kj).to(torch.float32) * scale
+    if keep is not None:
+        scores = torch.where(keep, scores, NEG_INF)
+    m_new = torch.maximum(m, scores.amax(dim=-1))
+    p = torch.exp(scores - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + p.sum(dim=-1)
+    o_new = o * corr[..., None] + torch.einsum(
+        "bnqkgc,bckh->bnqkgh", p.to(vj.dtype), vj).to(torch.float32)
+    return o_new, m_new, l_new
+
+
+def chunked_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                          cq: int, ck: int, remat_step: bool = True) -> torch.Tensor:
+    """The plain version (see the module docstring). ``remat_step`` wraps
+    each batched step in ``torch.utils.checkpoint``, as the reference wraps
+    its pair step in ``jax.checkpoint``."""
+    b, s, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = _scale(hd)
+    nq, nk = s // cq, sk // ck
+    if nq == 1 and nk == 1:
+        qf = q.reshape(b, s, kvh, g, hd)
+        scores = torch.einsum("bqkgh,bckh->bkgqc", qf, k).to(torch.float32) * scale
+        if causal:
+            keep = torch.ones((s, sk), dtype=torch.bool, device=q.device).tril()
+            scores = torch.where(keep, scores, NEG_INF)
+        w = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bkgqc,bckh->bqkgh", w.to(v.dtype), v)
+        return out.reshape(b, s, h, hd)
+    if causal and nq != nk:
+        raise ValueError(f"causal attention needs S == Sk, got {s} and {sk}")
+    qc = q.reshape(b, nq, cq, kvh, g, hd)
+    kc = k.reshape(b, nk, ck, kvh, hd)
+    vc = v.reshape(b, nk, ck, kvh, hd)
+    rows = torch.arange(s, device=q.device).reshape(nq, cq)
+    cols = torch.arange(sk, device=q.device).reshape(nk, ck)
+    o = torch.zeros((b, nq, cq, kvh, g, hd), dtype=torch.float32, device=q.device)
+    m = torch.full((b, nq, cq, kvh, g), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    step = functools.partial(checkpoint, _pair_step, use_reentrant=False) if remat_step \
+        else _pair_step
+    done = []  # causal: chunk j has had its last pair after step j
+    for j in range(nk):
+        lo = j if causal else 0
+        keep = None
+        if causal:
+            keep = (rows[lo:, :, None] >= cols[j][None, None, :])[:, :, None, None, :]
+        o, m, l = step(o, m, l, qc[:, lo:], kc[:, j], vc[:, j], keep, scale)
+        if causal:
+            done.append((o[:, :1], l[:, :1]))
+            o, m, l = o[:, 1:], m[:, 1:], l[:, 1:]
+    if causal:
+        o = torch.cat([d[0] for d in done], dim=1)
+        l = torch.cat([d[1] for d in done], dim=1)
+    out = o / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the kernel
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("chunked_attention")
+    lib.chunked_attention_fwd.argtypes = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                          _I, _F, _P]
+    lib.chunked_attention_fwd.restype = _I
+    lib.chunked_attention_bwd.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                          _I, _I, _I, _I, _I, _I, _F, _P]
+    lib.chunked_attention_bwd.restype = _I
+    return lib
+
+
+def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> None:
+    """What the kernels take: CUDA tensors of one dtype (float32 or
+    bfloat16) on one device, q (B, S, H, hd), k and v (B, Sk, H, hd),
+    hd <= 128, S == Sk when causal."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be 4-d, got shape {tuple(t.shape)}")
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"q, k, v must share dtype and device, got {q.dtype} on "
+                             f"{q.device} and {t.dtype} on {t.device} ({name})")
+    if q.dtype not in DTYPE_CODES:
+        raise ValueError(f"dtype must be one of {tuple(DTYPE_CODES)}, got {q.dtype}")
+    b, s, h, hd = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, hd):
+        raise ValueError(f"k, v must be (B, Sk, H, hd) beside q {tuple(q.shape)}, got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim must be at most {MAX_HEAD_DIM}, got {hd}")
+    if causal and k.shape[1] != s:
+        raise ValueError(f"causal attention needs S == Sk, got {s} and {k.shape[1]}")
+
+
+def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                      ck: int):
+    """Launch the forward kernel: -> (out like q, m, l (B, H, S) float32)."""
+    check_inputs(q, k, v, causal)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    b, s, h, hd = q.shape
+    sk = k.shape[1]
+    if ck <= 0 or sk % ck:
+        raise ValueError(f"ck must divide Sk = {sk}, got {ck}")
+    out = torch.empty_like(q)
+    m = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    raise_on(_lib().chunked_attention_fwd(
+        DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        m.data_ptr(), l.data_ptr(), b, s, sk, h, hd, ck, int(causal), _scale(hd), stream),
+        "chunked_attention_fwd")
+    attention_forward.launches += 1
+    return out, m, l
+
+
+def attention_backward(q, k, v, out, dout, m, l, causal: bool):
+    """Launch the backward kernels (dQ, then dK/dV): -> (dq, dk, dv)."""
+    check_inputs(q, k, v, causal)
+    q, k, v, out, dout = (t.contiguous() for t in (q, k, v, out, dout))
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError(f"dout must be {q.dtype}{tuple(q.shape)}, got "
+                         f"{dout.dtype}{tuple(dout.shape)}")
+    b, s, h, hd = q.shape
+    sk = k.shape[1]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dbuf = torch.empty_like(m)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    raise_on(_lib().chunked_attention_bwd(
+        DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), m.data_ptr(), l.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dbuf.data_ptr(), b, s, sk, h, hd, int(causal), _scale(hd), stream),
+        "chunked_attention_bwd")
+    attention_backward.launches += 1
+    return dq, dk, dv
+
+
+attention_forward.launches = 0
+attention_backward.launches = 0
+
+
+class ChunkedAttention(torch.autograd.Function):
+    """A1 forward and its recomputing backward: apply(q, k, v, causal, ck)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, ck: int):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, m, l = attention_forward(q, k, v, causal, ck)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, m, l = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, out, dout, m, l, ctx.causal)
+        return dq, dk, dv, None, None

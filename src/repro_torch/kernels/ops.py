@@ -9,7 +9,11 @@ launch to fall back to the plain version.
 Each wrapper keeps a plain integer count of its kernel launches
 (``encode_align.launches``, ``decode_fused.launches``, ``extract.launches``,
 ...), incremented where the kernel is launched and nowhere else, so a run
-can show that it went through the kernels.
+can show that it went through the kernels. ``chunked_attention`` (A1, the
+port's kernel for the reference's ``jnp`` chunked attention) counts on its
+two launch functions in ``kernels/attention.py``:
+``attention_forward.launches`` and ``attention_backward.launches`` (one per
+backward: dQ, then dK/dV).
 
 The CPU path passes the format through to the plain version (the
 reference's ``use_pallas=False`` paths of ``decode`` / ``accum`` drop it);
@@ -21,6 +25,7 @@ import torch
 
 from repro_torch.core import fpisa
 from repro_torch.kernels import fpisa_accum, fpisa_decode, fpisa_encode, fpisa_fused, ref
+from repro_torch.kernels.attention import ChunkedAttention, chunked_attention_ref
 
 
 def _check_format(x: torch.Tensor, fmt_name: str) -> None:
@@ -97,6 +102,23 @@ def accum(x: torch.Tensor, variant: str = "fpisa_a", fmt_name: str = "fp32") -> 
         accum.launches += 1
         return out
     return ref.accum_ref(x, variant, fpisa.FORMATS[fmt_name]).to(torch.float32)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                      cq: int, ck: int, remat_step: bool = True) -> torch.Tensor:
+    """A1: the reference's chunked attention at chunk sizes (cq, ck), q (B,
+    S, H, hd), k, v (B, Sk, K, hd) -> (B, S, H, hd) in q's dtype. On the
+    card the kernel's backward recomputes the score tiles whatever
+    ``remat_step`` says (it never saves them); on the CPU ``remat_step``
+    checkpoints each step of the plain loop. The kernel takes no cq: a
+    query row's result depends only on the kv-chunks, visited in order.
+    It takes K/V at every query head, so grouped K/V are repeated first."""
+    if q.is_cuda:
+        g = q.shape[2] // k.shape[2]
+        if g > 1:
+            k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
+        return ChunkedAttention.apply(q, k, v, causal, ck)
+    return chunked_attention_ref(q, k, v, causal=causal, cq=cq, ck=ck, remat_step=remat_step)
 
 
 encode_align.launches = 0

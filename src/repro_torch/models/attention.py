@@ -1,13 +1,21 @@
 """GQA attention for training and serving, and the encoder-decoder's
 cross-attention (torch port of ``repro.models.attention``).
 
-``softmax_attention`` computes what the reference's ``chunked_attention``
-computes, as one full (S, Sk) score matrix: scores from the compute-dtype
-product, upcast to float32 and scaled, the causal mask at -1e30 (when
-causal), a float32 softmax, and the weights cast back to the compute dtype
-before the product with V. The reference streams (q, kv) chunk pairs with
-an online softmax; the two agree to float rounding. A fast attention kernel
-is later work.
+Training, prefill and cross-attention go through ``chunked_attention``, the
+reference's flash-style function with its signature: q-chunks of
+``cfg.attn_q_chunk`` rows against kv-chunks of as many keys (each halved
+until it divides its length), an online softmax over the kv-chunks in
+ascending order (lower triangle of chunks when causal) with float32 state,
+scores from the compute-dtype product upcast to float32 and scaled, the
+mask at -1e30 by global position, the weights cast to V's dtype before the
+product, and ``o / max(l, 1e-30)`` out; one chunk each way is one masked
+float32 softmax, as in the reference. So scores are held one (cq, ck)
+block at a time, the whole (S, Sk) only where that is one block. On the
+card this is kernel A1 (``kernels/attention.py``,
+``csrc/chunked_attention.cu``: the same steps over 64 x 64 tiles, and a
+backward that recomputes them); on the CPU the reference's loop, each step
+checkpointed when ``cfg.flash_remat`` is set, as the reference checkpoints
+its pair step.
 
 Cross-attention (``cross_attention``, ``encode_cross_kv``): q from the
 decoder states alone, with no bias and no RoPE, over K/V projected once
@@ -31,10 +39,10 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import ops
+from repro_torch.kernels.attention import NEG_INF, chunk_sizes
 from repro_torch.models.layers import apply_rope, dtype_of, param, rope_angles
 from repro_torch.sharding.hints import local_product
-
-NEG_INF = -1e30
 
 
 def init_attention(gen: torch.Generator, cfg, lead=()) -> dict:
@@ -118,37 +126,35 @@ def _repeat_kv(k: torch.Tensor, v: torch.Tensor, cfg):
     return k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
 
 
-def softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      causal: bool = True) -> torch.Tensor:
-    """q: (B, S, H, hd); k, v: (B, Sk, H, hd) with equal head counts ->
-    (B, S, H, hd). ``causal`` (S == Sk) masks the keys after each query.
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                      q_chunk: int, num_kv_heads: int, remat_step: bool = True) -> torch.Tensor:
+    """q: (B, S, H, hd); k, v: (B, Sk, K, hd) with K = ``num_kv_heads``
+    -> (B, S, H, hd) in q's dtype. ``causal`` needs S == Sk.
 
     DTensors (a step on a mesh): the heads and the batch rows attend
     independently, so every rank attends with its own rows and heads, on
     its local tensors, and the result keeps those placements; a sequence
     or head_dim split is gathered first. DTensor's own products would merge
     the batch and a sharded head axis into one strided-sharded axis."""
+    if k.shape[2] != num_kv_heads:
+        raise ValueError(f"k has {k.shape[2]} heads, num_kv_heads={num_kv_heads}")
+    cq, ck = chunk_sizes(q.shape[1], k.shape[1], q_chunk)
     if hasattr(q, "device_mesh"):
         from torch.distributed.tensor import DTensor, Replicate
 
         mesh = q.device_mesh
         pl = [p if getattr(p, "dim", None) in (0, 2) else Replicate() for p in q.placements]
         q, k, v = (t.redistribute(mesh, pl).to_local() for t in (q, k, v))
-        return DTensor.from_local(_softmax_attention(q, k, v, causal), mesh, pl,
-                                  run_check=False)
-    return _softmax_attention(q, k, v, causal)
+        out = ops.chunked_attention(q, k, v, causal=causal, cq=cq, ck=ck, remat_step=remat_step)
+        return DTensor.from_local(out, mesh, pl, run_check=False)
+    return ops.chunked_attention(q, k, v, causal=causal, cq=cq, ck=ck, remat_step=remat_step)
 
 
-def _softmax_attention(q, k, v, causal: bool) -> torch.Tensor:
-    hd = q.shape[-1]
-    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, S, hd)
-    scores = (qh @ kh.transpose(-1, -2)).to(torch.float32) * (1.0 / math.sqrt(hd))
-    if causal:
-        s = q.shape[1]
-        keep = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
-        scores = torch.where(keep, scores, NEG_INF)
-    w = torch.softmax(scores, dim=-1)
-    return (w.to(v.dtype) @ vh).transpose(1, 2)
+def _attend(q, k, v, cfg, causal: bool) -> torch.Tensor:
+    """``chunked_attention`` as the reference's call sites call it: K/V
+    already repeated to every head, the config's chunk and remat."""
+    return chunked_attention(q, k, v, causal=causal, q_chunk=cfg.attn_q_chunk,
+                             num_kv_heads=cfg.num_heads, remat_step=cfg.flash_remat)
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -181,7 +187,7 @@ def attention_train(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     reference does."""
     q, k, v = _qkv(p, x, cfg, positions if rope else None)
     k, v = _repeat_kv(k, v, cfg)
-    return _out_proj(softmax_attention(q, k, v, causal), p["wo"])
+    return _out_proj(_attend(q, k, v, cfg, causal), p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -209,7 +215,7 @@ def attention_prefill(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     cache.k[:, :s] = k.to(cache.k.dtype)
     cache.v[:, :s] = v.to(cache.v.dtype)
     k, v = _repeat_kv(k, v, cfg)
-    return _out_proj(softmax_attention(q, k, v), p["wo"]), cache
+    return _out_proj(_attend(q, k, v, cfg, True), p["wo"]), cache
 
 
 def _attend_one(p: dict, q: torch.Tensor, keys: torch.Tensor, values: torch.Tensor,
@@ -326,7 +332,7 @@ def cross_attention(p: dict, x: torch.Tensor, enc_kv, cfg) -> torch.Tensor:
     from :func:`encode_cross_kv`. Returns (B, S, d)."""
     q = _project(x, p["wq"])
     k, v = _repeat_kv(enc_kv[0], enc_kv[1], cfg)
-    return _out_proj(softmax_attention(q, k, v, causal=False), p["wo"])
+    return _out_proj(_attend(q, k, v, cfg, False), p["wo"])
 
 
 def encode_cross_kv(p: dict, enc_out: torch.Tensor):

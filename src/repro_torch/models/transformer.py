@@ -25,9 +25,10 @@ Remat. ``remat="full"`` recomputes each layer's body in the backward
 (``torch.utils.checkpoint``, non-reentrant; for the hybrid, each group of
 ``every`` mamba blocks and its shared block, as the reference's scan
 bodies), ``"none"`` keeps every activation; ``"dots"`` (no config uses
-it) raises. Neither changes a value. ``flash_remat``, ``seq_parallel`` and
-``attn_q_chunk`` change only memory and sharding in the reference; the
-port's attention is one softmax (``models/attention.py``).
+it) raises. Neither changes a value. ``flash_remat`` and ``seq_parallel``
+change only memory and sharding; ``attn_q_chunk`` sets the chunks of the
+online softmax (``models/attention.py::chunked_attention``), and with them
+the order of its float32 additions, as in the reference.
 
 Serving (``init_cache``, ``prefill``, ``decode_step``,
 ``decode_step_paged``, the fields of the reference's ``Model`` tuple) runs

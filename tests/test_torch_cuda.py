@@ -779,3 +779,88 @@ def test_encoder_decoder_on_the_card_matches_cpu(dev):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=2e-5)
     for a, b in zip(out["cuda"][2], out["cpu"][2]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-6)
+
+
+# --- A1: the chunked (online-softmax) attention kernel ---------------------
+
+# (B, S, Sk, H, K, hd, q_chunk, causal): chip_smoke.py's [longctx] (a) shapes
+# (qwen: 16 heads of 64, batch 2, cq = 32), then the configs' other cases:
+# the full configs' chunk 2048 (32 key tiles a chunk, the online update
+# inside it), whisper's 1500 frames (one ragged block) and its 448-token
+# cross-attention, GQA g = 7 at head_dim 128 (K/V repeated before the
+# launch) with the halving fallback (chunks of 16), zamba2's head_dim 112,
+# stablelm's 80 (chunks of 8)
+A1_CASES = [(2, s, s, 16, 16, 64, 32, c) for s in (512, 1024, 4096) for c in (True, False)] + [
+    (1, 4096, 4096, 4, 4, 64, 2048, True), (1, 1500, 1500, 4, 4, 64, 2048, False),
+    (2, 448, 1500, 4, 4, 64, 2048, False), (2, 80, 80, 14, 2, 128, 32, True),
+    (2, 256, 256, 4, 4, 112, 32, True), (1, 40, 40, 4, 4, 80, 32, True)]
+# kernel against the plain version on the same card tensors, relative to the
+# plain result's largest |entry|: float32 differs only in the order of the
+# float32 additions; bfloat16 also where a score's or a chunk's p.v rounding
+# to bf16 falls the other way, and in the backward, which the kernel runs in
+# float32 where the plain version's autograd rounds to bf16 at each product,
+# most in dq without the causal mask, whose dS = P (dP - D) subtracts near
+# equals (measured on an H100: float32 at most 3.1e-6, bf16 output 3.1e-3,
+# bf16 gradients 3.1e-2; chip_smoke.py prints each against float32)
+A1_TOL = {torch.float32: (1e-5, 2e-5), torch.bfloat16: (1e-2, 6e-2)}  # (output, gradients)
+
+
+def _a1_inputs(case, dtype, dev, seed=0):
+    b, s, sk, h, kvh, hd = case[:6]
+    rng = np.random.default_rng(seed)
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+                     .to(dtype) for shape in ((b, s, h, hd), (b, sk, kvh, hd), (b, sk, kvh, hd),
+                                              (b, s, h, hd)))
+    return q, k, v, dout
+
+
+def _a1_run(fn, q, k, v, dout):
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out = fn(q, k, v)
+    return [out.detach()] + list(torch.autograd.grad(out, (q, k, v), dout))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", A1_CASES, ids=lambda c: "b{}_s{}_sk{}_h{}_k{}_d{}_c{}_{}".format(
+    *c[:7], "causal" if c[7] else "full"))
+def test_chunked_attention_kernel_equals_plain(dev, case, dtype):
+    """A1's output and q/k/v gradients (its recomputing backward) against
+    the plain loop on the same CUDA tensors, within ``A1_TOL``; the kernel
+    launches once forward and once backward."""
+    from repro_torch.kernels import attention
+
+    causal, q_chunk = case[7], case[6]
+    q, k, v, dout = _a1_inputs(case, dtype, dev)
+    cq, ck = attention.chunk_sizes(q.shape[1], k.shape[1], q_chunk)
+    before = (attention.attention_forward.launches, attention.attention_backward.launches)
+    got = _a1_run(lambda *t: ops.chunked_attention(*t, causal=causal, cq=cq, ck=ck), q, k, v,
+                  dout)
+    assert (attention.attention_forward.launches, attention.attention_backward.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = _a1_run(lambda *t: attention.chunked_attention_ref(
+        *t, causal=causal, cq=cq, ck=ck, remat_step=False), q, k, v, dout)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        tol = A1_TOL[dtype][min(i, 1)] * float(b.abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol, (["out", "dq", "dk", "dv"][i], err, tol)
+
+
+def test_chunked_attention_kernel_refuses_what_it_does_not_take(dev):
+    from repro_torch.kernels import attention
+
+    q = torch.zeros((1, 64, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        attention.attention_forward(q.half(), q.half(), q.half(), True, 32)
+    with pytest.raises(ValueError, match="head_dim"):
+        z = torch.zeros((1, 64, 2, 192), device=dev)
+        attention.attention_forward(z, z, z, True, 32)
+    with pytest.raises(ValueError, match="S == Sk"):
+        attention.attention_forward(q, q[:, :32], q[:, :32], True, 32)
+    with pytest.raises(ValueError, match=r"\(B, Sk, H, hd\)"):
+        attention.attention_forward(q, q[:, :, :1], q[:, :, :1], True, 32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        attention.attention_forward(q.cpu(), q.cpu(), q.cpu(), True, 32)
+    with pytest.raises(ValueError, match="divide"):
+        attention.attention_forward(q, q, q, False, 48)

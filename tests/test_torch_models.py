@@ -158,10 +158,14 @@ def test_gqa_every_ratio(g):
 def test_remat_full_and_none_give_the_same_bits():
     """``remat="full"`` recomputes each layer in the backward and ``"none"``
     keeps the activations: same loss and gradients bit for bit, on every
-    family's layer loop. ``flash_remat``, ``seq_parallel`` and
-    ``attn_q_chunk`` change only memory and sharding in the reference (the
-    port's attention is one softmax), so they change no value here either.
-    ``"dots"`` (no config uses it) raises NotPortedError."""
+    family's layer loop. ``flash_remat`` (each step of the chunked attention
+    checkpointed) and ``seq_parallel`` change only memory and sharding, so
+    they change no value either. ``attn_q_chunk`` sets the chunks of the
+    online softmax and so the order of its float32 additions (as in the
+    reference): 8 instead of 32 gives the loss within 2e-5 relative and
+    every gradient within 2e-5 of its leaf's largest |entry| (the parity
+    harness's tolerances). ``"dots"`` (no config uses it) raises
+    NotPortedError."""
     from repro_torch.models.registry import build
 
     for arch in FAMILY_ARCH.values():
@@ -169,17 +173,32 @@ def test_remat_full_and_none_give_the_same_bits():
         batch = torch_batch(make_batch(cfg, 2, 32, seed=7))
         runs = []
         for kw in ({"remat": "full"}, {"remat": "none"},
-                   {"flash_remat": not cfg.flash_remat, "seq_parallel": True,
-                    "attn_q_chunk": 8}):
+                   {"flash_remat": not cfg.flash_remat, "seq_parallel": True},
+                   {"attn_q_chunk": 8}):
             model = build(cfg.with_(**kw), device=torch.device("cpu"), seed=0)
             loss = model.loss(batch)
             runs.append([loss] + list(torch.autograd.grad(loss, list(model.parameters()))))
-        for other in runs[1:]:
+        for other in runs[1:-1]:
             for a, b in zip(runs[0], other):
                 assert torch.equal(a, b), arch
+        for a, b in zip(runs[0], runs[-1]):
+            a, b = a.detach(), b.detach()
+            np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=0,
+                                       atol=2e-5 * float(a.abs().max()), err_msg=arch)
     with pytest.raises(NotPortedError, match="dots"):
         build(configs.get_smoke_config("qwen1.5-0.5b").with_(remat="dots"),
               device=torch.device("cpu"))
+
+
+@pytest.mark.parametrize("family", [f for f in FAMILY_ARCH if f != "ssm"])
+def test_attn_q_chunk_8_matches_the_reference(family):
+    """At ``attn_q_chunk=8`` (four q-chunks and four kv-chunks at S = 32:
+    the chunking that test_remat_full_and_none_give_the_same_bits holds
+    within 2e-5 of chunk 32) the port's forward, loss and every gradient
+    leaf agree with the reference's at the same chunk, within the parity
+    harness's tolerances. The ssm family has no attention."""
+    jm, jp, pm = pair(FAMILY_ARCH[family], attn_q_chunk=8)
+    check_forward_and_grads(jm, jp, pm, make_batch(pm.cfg, 2, 32, seed=7))
 
 
 @pytest.mark.parametrize("family", list(FAMILY_ARCH))

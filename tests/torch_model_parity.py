@@ -5,8 +5,8 @@ optionally edited, carried over with ``repro_torch.interop.params_from_jax``),
 inputs from numpy seeds, and the checks every family shares.
 
 Tolerances (float32 smoke configs; two frameworks differ in summation order
-and transcendentals, and the reference streams attention in (q, kv) chunks
-with an online softmax where the port takes one softmax):
+and transcendentals; both stream attention in the same (q, kv) chunks with
+an online softmax):
 * forward logits: 2e-5 of the largest |logit|; loss and aux: 2e-5
   relative; every gradient leaf: 2e-5 of that leaf's largest |entry|;
 * prefill, decode and paged-decode logits: 2e-5 absolute; K/V and SSM /
