@@ -180,9 +180,10 @@ forward and backward against its plain version (the reference's loop,
 ``kernels/attention.py::chunked_attention_ref``) on the same card tensors:
 output and q/k/v gradients, causal and not, float32 and bf16, at qwen's 16
 heads of 64, batch 2, S = 512, 1,024 and 4,096 with cq = ck = 32, then in
-bf16 at the shapes the training paths give A1 (the main path's 8 x 512 in
+bf16 at the shapes the bf16 paths give A1 (the main path's 8 x 512 in
 one chunk, (b)'s 4 x 4,096 in chunks of 2,048, whisper's 1,500-frame
-encoder, 448-token decoder and cross-attention), within ``A1_TOL`` of the
+encoder, 448-token decoder and cross-attention, zamba2's 8 x 512 at 32
+heads of 112, arctic's prefills at 56 heads of 128), within ``A1_TOL`` of the
 plain result's largest |entry|, and in bf16 each of the two against the
 plain version in float32; (b) qwen1.5-0.5b at full width
 trained at the reference's train_4k length: 3 steps of 4 x 4,096 with
@@ -199,12 +200,19 @@ against a fresh ``forward``'s within ``PREFILL_ATOL``; (d) whisper-medium's
 once per layer), its time, its float32 copy through A1 against the same
 encoder with the plain attention within ``ENCODER_RTOL``, the bf16
 encoder's distance from the copy; then A1 timed at (b)'s shape (the
-kernels line), at (a)'s and at the main path's 8 x 512, against its bound
-(flops at 989 TFLOP/s, bytes at 3.35 TB/s), its plain version and
-``scaled_dot_product_attention`` (timed as the yardstick, used nowhere in
-the port). (e) After the main path's breakdown, a ``[longctx] (e)`` line
-puts its forward+backward, now through A1, beside the 147-186 ms that
-the whole (S, S) float32 softmax took before it (PERF.md §5).
+kernels line), at (a)'s, at the main path's 8 x 512, at whisper's three
+shapes (the 8 x 1,500 encoder, the 8 x 448 causal decoder and their 448 x
+1,500 cross-attention) and at one head_dim-128 shape (2 x 4,096, 16 heads,
+chunks of 2,048), against its bound (flops at 989 TFLOP/s, bytes at 3.35
+TB/s), its plain version and ``scaled_dot_product_attention`` (timed as the
+yardstick, used nowhere in the port). A1 takes one route per dtype: bf16
+on the tensor-core kernels, float32 on the CUDA-core ones; the build
+counts HGMMA (wgmma) and UTMALDG (TMA loads) in the bf16 kernels' SASS and
+fails on a 0, and ``[a1 routes]`` gives each path's A1 launches by route
+and fails if a (bf16) path took the float32 kernels. (e) After the main
+path's breakdown, a ``[longctx] (e)`` line puts its forward+backward, now
+through A1, beside the 147-186 ms that the whole (S, S) float32 softmax
+took before it (PERF.md §5).
 
 Then the switch dataplane (``switchsim_path``, ``[switchsim]`` lines; the
 dataplane runs as torch ops on the card, as the reference runs it as jitted
@@ -245,7 +253,8 @@ every path above that ran it (main, ``fpisa_seq``, bucketed, stacked
 ``switchsim``) and ``launches_by_path`` names each path's count, every
 path's counts zeroed just before it and read just after. A1 has two
 entries, ``chunked_attention_fwd`` and ``chunked_attention_bwd`` (its dQ
-and dK/dV kernels, one launch of the pair per backward); their
+and dK/dV kernels, one launch of the pair per backward), each also with
+``launches_by_route`` (per path: ``wgmma``, ``cuda_cores``); their
 ``library_ms`` is ``scaled_dot_product_attention``'s forward and
 backward, the K1-K6 entries' null.
 
@@ -375,6 +384,10 @@ def card_facts(torch):
     return name
 
 
+# one SASS instruction's opcode in ``cuobjdump -sass`` output
+SASS_OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+
+
 def build_kernels():
     from repro_torch.kernels import _build
 
@@ -382,6 +395,8 @@ def build_kernels():
     libs = _build.build_all()
     log(f"[build] {len(libs)} librar{'y' if len(libs) == 1 else 'ies'} in "
         f"{time.perf_counter() - t0:.1f} s: " + ", ".join(p.name for p in libs.values()))
+    log("[build] each source's nvcc, all started together (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(_build.BUILD_SECONDS.items())))
     cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
     for stem, lib in libs.items():
         report = lib.with_name(lib.name + ".log")
@@ -391,12 +406,47 @@ def build_kernels():
             spills = sum(int(w) for w in re.findall(r"(\d+) bytes spill stores", text))
             log(f"[build] {stem} ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} "
                 f"registers per thread, {spills} bytes of spill stores")
+            if stem == "chunked_attention":
+                for entry in text.split("Compiling entry function '")[1:]:
+                    name, used = entry.split("'", 1)[0], re.search(r"Used (\d+) registers", entry)
+                    spill = re.search(r"(\d+) bytes spill stores", entry)
+                    log(f"[build] {stem} {a1_kernel_name(name)}: {used and used.group(1)} "
+                        f"registers, {spill and spill.group(1)} bytes of spill stores")
         sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
                               text=True, timeout=120, check=True).stdout
-        opcodes = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", sass)
+        opcodes = SASS_OPCODE.findall(sass)
         imad = sum(op.startswith("IMAD") for op in opcodes)
         log(f"[build] {stem} sass: {len(opcodes)} instructions, {imad} IMAD forms "
             f"({100 * imad / max(len(opcodes), 1):.1f} %, integer work on the FMA pipe)")
+        if stem == "chunked_attention":
+            a1_sass_check(sass)
+
+
+def a1_kernel_name(mangled):
+    """``attn_fwd_tc<1>`` (bf16, NP panels) or ``attn_fwd<float, 1>`` from
+    A1's mangled kernel name."""
+    m = re.search(r"(attn_\w+?)I(\w*?)Li(\d)E", mangled)
+    if not m:
+        return mangled
+    return f"{m.group(1)}<{'float, ' if m.group(2) == 'f' else ''}{m.group(3)}>"
+
+
+def a1_sass_check(sass):
+    """A1's bf16 kernels (``attn_*_tc``) run their products on the tensor
+    cores and take their operands by TMA: count HGMMA and UTMALDG in each
+    one's SASS, and raise where either is 0."""
+    counts = {}
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = body.split("\n", 1)[0].strip()
+        if "_tc" in name:
+            ops_ = SASS_OPCODE.findall(body)
+            counts[re.sub(r"^.*?(attn_\w+_tc)ILi(\d)E.*$", r"\1<\2>", name)] = {
+                "HGMMA": sum(op.startswith("HGMMA") for op in ops_),
+                "UTMALDG": sum(op.startswith("UTMALDG") for op in ops_)}
+    log(f"[build] chunked_attention bf16 kernels' SASS (HGMMA = wgmma, UTMALDG = TMA load): "
+        + json.dumps(counts))
+    if len(counts) != 6 or not all(c["HGMMA"] and c["UTMALDG"] for c in counts.values()):
+        raise AssertionError(f"A1's bf16 kernels lack wgmma or TMA in their SASS: {counts}")
 
 
 class Parity:
@@ -1239,10 +1289,22 @@ def wrapper(name):
 def zero_launches():
     for name in KERNELS:
         wrapper(name).launches = 0
+    for name in A1:
+        wrapper(name).routes = dict.fromkeys(wrapper(name).routes, 0)
 
 
 def read_launches():
-    return {name: wrapper(name).launches for name in KERNELS}
+    """Every kernel's count, and A1's per route as ``name@route`` (``wgmma``:
+    the bf16 tensor-core kernels; ``cuda_cores``: the float32 ones)."""
+    counts = {name: wrapper(name).launches for name in KERNELS}
+    counts.update({f"{name}@{route}": n
+                   for name in A1 for route, n in wrapper(name).routes.items()})
+    return counts
+
+
+def a1_subset(counts):
+    """A1's counts and its per-route counts out of ``read_launches()``'s."""
+    return {k: v for k, v in counts.items() if k.split("@")[0] in A1}
 
 
 def check_paged_equals_dense(torch, dev, model, tag="[serve] check (a)"):
@@ -1593,7 +1655,7 @@ def models_mamba2(torch, dev):
         f"{eng.telemetry['tokens_generated']} tokens), {flushes} flushes; {CARD}")
     # the path: the training run's launches and the serving run's (the
     # comparisons between them are not counted)
-    return {k: launches[k] + after[k] - before[k] for k in KERNELS}
+    return {k: launches[k] + after[k] - before[k] for k in launches}
 
 
 def models_zamba2(torch, dev):
@@ -2099,12 +2161,31 @@ def sharding_path(torch, dev):
             f"{rec['roofline']['collective_s']:.3f} ({rec['roofline']['bottleneck']}), "
             f"traced in {rec['trace_s']} s")
     log(f"[sharding] the group took {time.perf_counter() - t0:.1f} s; {CARD}")
-    return {"sharded": {k: launches[k] for k in ("fused_encode_align", "fused_decode") + A1}}
+    return {"sharded": {**{k: launches[k] for k in ("fused_encode_align", "fused_decode")},
+                        **a1_subset(launches)}}
 
 
 # ---------------------------------------------------------------------------
 # the tenth slice: long context through the chunked attention kernel (A1)
 # ---------------------------------------------------------------------------
+
+
+def check_a1_routes(paths):
+    """A1's launches on each path by route. Every driven path runs bf16, so
+    each of its launches must have taken the tensor-core (``wgmma``)
+    kernels and none the float32 CUDA-core ones. Returns {path: {route:
+    [forward, backward]}}."""
+    routes = {}
+    for path, n in paths.items():
+        if not any(n.get(k) for k in A1):
+            continue
+        routes[path] = {r: [n.get(f"{k}@{r}") for k in A1] for r in ("wgmma", "cuda_cores")}
+        if routes[path] != {"wgmma": [n[k] for k in A1], "cuda_cores": [0, 0]}:
+            raise AssertionError(f"{path}: A1 launched {[n[k] for k in A1]} (forward, backward), "
+                                 f"by route {routes[path]}: a bf16 path off the tensor cores")
+    log("[a1 routes] A1 launches (forward, backward) on each path: bf16 on the tensor cores "
+        "(wgmma), float32 on the CUDA cores: " + json.dumps(routes))
+    return routes
 
 
 def check_a1_launches(counts, cfg, steps, path):
@@ -2118,7 +2199,7 @@ def check_a1_launches(counts, cfg, steps, path):
     if got != want:
         raise AssertionError(f"{path}: A1 launched {got} in {steps} steps of {cfg.name}, "
                              f"expected {want}")
-    return got
+    return a1_subset(counts)
 
 
 def a1_inputs(torch, dev, b, s, sk, h, hd, dtype, seed=0):
@@ -2138,27 +2219,39 @@ def a1_grads(torch, fn, q, k, v, dout):
 
 
 def a1_parity_cases():
-    """(a)'s cases, (dtype name, B, S, Sk, cq, ck, causal) at qwen's 16 heads
-    of 64: the grid (batch ``A1_BATCH``, S in ``A1_SEQS``, cq = ck =
-    ``A1_CHUNK``, causal and not, float32 and bf16), then in bf16 the shapes
-    the driven training paths give A1 at the full configs' chunk
-    (``attn_q_chunk`` 2,048): the main path's 8 x 512 (one chunk each way),
-    (b)'s 4 x 4,096 (chunks of 2,048) and whisper's 8-row step (the
-    1,500-frame encoder, the 448-token decoder and its cross-attention over
-    the frames; whisper-medium's heads are qwen's 16 of 64)."""
+    """(a)'s cases, (dtype name, B, S, Sk, heads, head_dim, cq, ck, causal):
+    the grid at qwen's 16 heads of 64 (batch ``A1_BATCH``, S in
+    ``A1_SEQS``, cq = ck = ``A1_CHUNK``, causal and not, float32 and bf16),
+    then in bf16 the shapes the driven bf16 paths give A1 at the full
+    configs' chunk (``attn_q_chunk`` 2,048): the main path's 8 x 512 (one
+    chunk each way), (b)'s 4 x 4,096 (chunks of 2,048), whisper's 8-row step
+    (the 1,500-frame encoder, the 448-token decoder and its cross-attention
+    over the frames; whisper-medium's heads are qwen's 16 of 64),
+    ``zamba2_seq``'s 8 x 512 at zamba2-7b's 32 heads of 112, and
+    ``arctic_serve``'s prefills at arctic-480b's 56 heads of 128 (check
+    (a)'s 16 prompts of ``SERVE_PROMPTS[0]``, and a group of two of the
+    longest prompts). The last two reach the kernels' head_dim > 64 build
+    (NP = 2)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.attention import chunk_sizes
 
-    cases = [(name, A1_BATCH, s, s, A1_CHUNK, A1_CHUNK, causal)
+    cases = [(name, A1_BATCH, s, s, 16, 64, A1_CHUNK, A1_CHUNK, causal)
              for name in ("float32", "bfloat16") for s in A1_SEQS for causal in (True, False)]
     chunk = get_config("qwen1.5-0.5b").attn_q_chunk
     frames = get_config("whisper-medium").num_frames
-    for b, s, sk, causal in ((GLOBAL_BATCH, SEQ_LEN, SEQ_LEN, True),
-                             (LONG_TRAIN_BATCH, LONG_TRAIN_SEQ, LONG_TRAIN_SEQ, True),
-                             (GLOBAL_BATCH, frames, frames, False),
-                             (GLOBAL_BATCH, WHISPER_SEQ, WHISPER_SEQ, True),
-                             (GLOBAL_BATCH, WHISPER_SEQ, frames, False)):
-        cases.append(("bfloat16", b, s, sk, *chunk_sizes(s, sk, chunk), causal))
+    zamba, arctic = get_config("zamba2-7b"), get_config("arctic-480b")
+    zamba_heads = (zamba.num_heads, zamba.d_model // zamba.num_heads)
+    arctic_heads = (arctic.num_heads, arctic.d_model // arctic.num_heads)
+    for b, s, sk, heads, causal in (
+            (GLOBAL_BATCH, SEQ_LEN, SEQ_LEN, (16, 64), True),
+            (LONG_TRAIN_BATCH, LONG_TRAIN_SEQ, LONG_TRAIN_SEQ, (16, 64), True),
+            (GLOBAL_BATCH, frames, frames, (16, 64), False),
+            (GLOBAL_BATCH, WHISPER_SEQ, WHISPER_SEQ, (16, 64), True),
+            (GLOBAL_BATCH, WHISPER_SEQ, frames, (16, 64), False),
+            (GLOBAL_BATCH, SEQ_LEN, SEQ_LEN, zamba_heads, True),
+            (SERVE_SLOTS, SERVE_PROMPTS[0], SERVE_PROMPTS[0], arctic_heads, True),
+            (2, SERVE_PROMPTS[-1], SERVE_PROMPTS[-1], arctic_heads, True)):
+        cases.append(("bfloat16", b, s, sk, *heads, *chunk_sizes(s, sk, chunk), causal))
     return cases
 
 
@@ -2176,8 +2269,8 @@ def longctx_parity(torch, dev, par):
         return float((a.float() - b.float()).abs().max()) / float(b.float().abs().max())
 
     worst, truth = {}, {}
-    for name, b, s, sk, cq, ck, causal in a1_parity_cases():
-        q, k, v, dout = a1_inputs(torch, dev, b, s, sk, 16, 64, getattr(torch, name))
+    for name, b, s, sk, heads, hd, cq, ck, causal in a1_parity_cases():
+        q, k, v, dout = a1_inputs(torch, dev, b, s, sk, heads, hd, getattr(torch, name))
 
         def plain(*t):
             return attention.chunked_attention_ref(*t, causal=causal, cq=cq, ck=ck,
@@ -2187,7 +2280,8 @@ def longctx_parity(torch, dev, par):
             *t, causal=causal, cq=cq, ck=ck), q, k, v, dout)
         want = a1_grads(torch, plain, q, k, v, dout)
         torch.cuda.synchronize()
-        case = f"{name}_B{b}_S{s}_Sk{sk}_cq{cq}_ck{ck}_{'causal' if causal else 'full'}"
+        case = (f"{name}_B{b}_S{s}_Sk{sk}_H{heads}x{hd}_cq{cq}_ck{ck}_"
+                f"{'causal' if causal else 'full'}")
         worst[case] = []
         for i, (a, w) in enumerate(zip(got, want)):
             err = float((a.float() - w.float()).abs().max())
@@ -2207,7 +2301,7 @@ def longctx_parity(torch, dev, par):
             del exact
         del q, k, v, dout, got, want
         torch.cuda.empty_cache()
-    log(f"[longctx] (a) A1 vs its plain version on the card (16 heads of 64; output, dq, dk, "
+    log(f"[longctx] (a) A1 vs its plain version on the card (output, dq, dk, "
         f"dv relative to the plain result's largest |entry|, tolerance {A1_TOL}): " + "; ".join(
             f"{k} " + "/".join(f"{e:.2e}" for e in v) for k, v in worst.items()) + f"; {CARD}")
     log("[longctx] (a) bf16 kernel and bf16 plain version, each against the plain version in "
@@ -2232,55 +2326,69 @@ def a1_work(b, s, sk, h, hd, causal, itemsize):
     return 4 * hd * pairs, fwd_bytes, 10 * hd * pairs, bwd_bytes
 
 
-def a1_timing(torch, dev, b, s, ck, what):
-    """A1 forward and backward at qwen's heads (16 x 64), bf16, causal, on
-    CUDA events: kernel, plain version (the loop at the same chunks),
-    ``scaled_dot_product_attention`` (the library call for the same
+def a1_timing(torch, dev, b, s, ck, what, sk=None, heads=16, hd=64, causal=True, cq=None):
+    """A1 forward and backward at (B ``b``, S ``s``, Sk ``sk`` (default S),
+    ``heads`` heads of ``hd``, chunks (``cq``, ``ck``), cq defaulting to
+    ck), bf16, on CUDA events: kernel, plain version (the loop at the same
+    chunks), ``scaled_dot_product_attention`` (the library call for the same
     function, timed here and used nowhere in the port), each against the
     bound: the larger of the flops at 989 TFLOP/s (dense bf16) and the
-    bytes at the memory rate. Returns {kernel name: numbers}."""
+    bytes at the memory rate; and the wrapper's host time a call (10
+    launches on the host clock, not waited on). Returns {kernel name:
+    numbers}."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from repro_torch.kernels import attention
     from repro_torch.launch.mesh import PEAK_FLOPS_BF16
 
-    q, k, v, dout = a1_inputs(torch, dev, b, s, s, 16, 64, torch.bfloat16, seed=1)
-    out, m, l = attention.attention_forward(q, k, v, True, ck)
+    sk, cq = sk or s, cq or ck
+    q, k, v, dout = a1_inputs(torch, dev, b, s, sk, heads, hd, torch.bfloat16, seed=1)
+    out, m, l = attention.attention_forward(q, k, v, causal, ck)
     qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
-    lib_out = sdpa(qs, ks, vs, is_causal=True)
+    lib_out = sdpa(qs, ks, vs, is_causal=causal)
     plain_in = [t.detach().requires_grad_() for t in (q, k, v)]
-    plain_out = attention.chunked_attention_ref(*plain_in, causal=True, cq=ck, ck=ck,
+    plain_out = attention.chunked_attention_ref(*plain_in, causal=causal, cq=cq, ck=ck,
                                                 remat_step=False)
     runs = {
         "chunked_attention_fwd": (
-            lambda: attention.attention_forward(q, k, v, True, ck),
-            lambda: attention.chunked_attention_ref(q, k, v, causal=True, cq=ck, ck=ck),
-            lambda: sdpa(qs.detach(), ks.detach(), vs.detach(), is_causal=True)),
+            lambda: attention.attention_forward(q, k, v, causal, ck),
+            lambda: attention.chunked_attention_ref(q, k, v, causal=causal, cq=cq, ck=ck),
+            lambda: sdpa(qs.detach(), ks.detach(), vs.detach(), is_causal=causal)),
         "chunked_attention_bwd": (
-            lambda: attention.attention_backward(q, k, v, out, dout, m, l, True),
+            lambda: attention.attention_backward(q, k, v, out, dout, m, l, causal),
             lambda: torch.autograd.grad(plain_out, plain_in, dout, retain_graph=True),
             lambda: torch.autograd.grad(lib_out, (qs, ks, vs), dout.transpose(1, 2),
                                         retain_graph=True))}
-    fwd_flops, fwd_bytes, bwd_flops, bwd_bytes = a1_work(b, s, s, 16, 64, True, 2)
+    fwd_flops, fwd_bytes, bwd_flops, bwd_bytes = a1_work(b, s, sk, heads, hd, causal, 2)
     work = {"chunked_attention_fwd": (fwd_flops, fwd_bytes),
             "chunked_attention_bwd": (bwd_flops, bwd_bytes)}
+    shape = (f"{what}: B {b}, S {s}" + (f", Sk {sk}" if sk != s else "") + f", {heads} heads of "
+             f"{hd}, bf16, {'causal' if causal else 'not causal'}, cq {cq}, ck {ck}")
     times = {}
     for name, (kernel, plain, library) in runs.items():
         k1 = median_ms(torch, kernel, reps=10, warmup=2)
         p = median_ms(torch, plain, reps=3, warmup=1)
         lib = median_ms(torch, library, reps=10, warmup=2)
         k2 = median_ms(torch, kernel, reps=10, warmup=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()  # the wrapper's host time: 10 launches, not waited on
+        for _ in range(10):
+            kernel()
+        host_us = (time.perf_counter() - t0) / 10 * 1e6
+        torch.cuda.synchronize()
         flops, bytes_ = work[name]
         flops_ms, bytes_ms = flops / PEAK_FLOPS_BF16 * 1e3, bytes_ / HBM_BYTES_PER_S * 1e3
         times[name] = {"ms": min(k1, k2), "ms_runs": [k1, k2], "plain_ms": p,
                        "library_ms": lib, "bound_ms": max(flops_ms, bytes_ms),
                        "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
-                       "flops": flops, "bytes": bytes_}
-        log(f"[time] {name} ({what}: B {b}, S {s}, 16 heads of 64, bf16, causal, ck {ck}): "
-            f"kernel {k1:.3f} / {k2:.3f} ms ({flops / (min(k1, k2) * 1e-3) / 1e12:.2f} TFLOP/s), "
-            f"plain {p:.3f} ms, scaled_dot_product_attention {lib:.3f} ms, bound "
-            f"{max(flops_ms, bytes_ms):.4f} ms ({flops / 1e9:.1f} GFLOP at 989 TFLOP/s "
-            f"{flops_ms:.4f} ms, {bytes_ / 1e6:.1f} MB at 3.35 TB/s {bytes_ms:.4f} ms); {CARD}")
+                       "flops": flops, "bytes": bytes_, "host_us": host_us}
+        log(f"[time] {name} ({shape}): kernel {k1:.3f} / {k2:.3f} ms, host {host_us:.1f} us a call "
+            f"({flops / (min(k1, k2) * 1e-3) / 1e12:.2f} TFLOP/s, "
+            f"{100 * max(flops_ms, bytes_ms) / min(k1, k2):.1f} % of the bound), plain {p:.3f} ms, "
+            f"scaled_dot_product_attention {lib:.3f} ms, bound {max(flops_ms, bytes_ms):.4f} ms "
+            f"({flops / 1e9:.1f} GFLOP at 989 TFLOP/s {flops_ms:.4f} ms, {bytes_ / 1e6:.1f} MB at "
+            f"3.35 TB/s {bytes_ms:.4f} ms); {CARD}")
+    del q, k, v, dout, out, m, l, qs, ks, vs, lib_out, plain_in, plain_out
     return times
 
 
@@ -2390,8 +2498,9 @@ def longctx_prefill(torch, dev):
             if not torch.isfinite(logits).all():
                 raise AssertionError("longctx prefill: non-finite decode logits")
     counts = read_launches()
-    launches = {k: counts[k] for k in A1}
-    if launches != {"chunked_attention_fwd": cfg.num_layers, "chunked_attention_bwd": 0}:
+    launches = a1_subset(counts)
+    if {k: counts[k] for k in A1} != {"chunked_attention_fwd": cfg.num_layers,
+                                      "chunked_attention_bwd": 0}:
         raise AssertionError(f"prefill_32k: A1 launched {launches}, expected once per layer")
     peak = torch.cuda.max_memory_allocated() / 2**30
     kv = cache.kv.k
@@ -2475,10 +2584,10 @@ def longctx_encoder(torch, dev):
     with torch.inference_mode():
         zero_launches()
         enc, _, enc_s = timed(torch, lambda: model.encode(frames))
-        launches = {k: read_launches()[k] for k in A1}
+        launches = a1_subset(read_launches())
         enc_ms = median_ms(torch, lambda: model.encode(frames), reps=3, warmup=0)
-    if launches != {"chunked_attention_fwd": cfg.num_encoder_layers,
-                    "chunked_attention_bwd": 0}:
+    if {k: launches[k] for k in A1} != {"chunked_attention_fwd": cfg.num_encoder_layers,
+                                        "chunked_attention_bwd": 0}:
         raise AssertionError(f"whisper encoder: A1 launched {launches}, expected once per layer")
     c32 = cfg.with_(param_dtype="float32", activation_dtype="float32")
     m32 = build(c32, device=dev, params=params_from_jax(params_to_jax(model)))
@@ -2509,8 +2618,8 @@ def longctx_path(torch, dev, par):
     plain version, (b) qwen trained at 4,096 tokens (path ``longctx``), (c)
     a 32,768-token prefill and 64 decode steps (path ``prefill_32k``), (d)
     whisper's encoder (path ``whisper_encoder``); then A1's times at (b)'s
-    shape (the kernels line) and at (c)'s (forward). Returns ({path:
-    launches}, {kernel: times})."""
+    shape (the kernels line), (a)'s, the main path's, whisper's three and
+    one head_dim-128 shape. Returns ({path: launches}, {kernel: times})."""
     t0 = time.perf_counter()
     parity = longctx_parity(torch, dev, par)
     torch.cuda.empty_cache()
@@ -2531,6 +2640,21 @@ def longctx_path(torch, dev, par):
     # version is the one-block branch, the (S, S) softmax A1 replaced
     numbers["a1_at_main_8x512"] = a1_timing(torch, dev, GLOBAL_BATCH, SEQ_LEN, SEQ_LEN,
                                             "(e), the main path's shape")
+    torch.cuda.empty_cache()
+    # whisper's three attention shapes (its step, [encdec] (a)), and one
+    # head_dim-128 shape (arctic's, internlm2's, deepseek's, llava's heads)
+    # over two chunks: the kernels' second instantiation (NP = 2)
+    frames = get_config("whisper-medium").num_frames
+    for key, what, s, sk, causal in (
+            ("a1_at_whisper_encoder", "whisper's encoder", frames, frames, False),
+            ("a1_at_whisper_decoder", "whisper's decoder", WHISPER_SEQ, WHISPER_SEQ, True),
+            ("a1_at_whisper_cross", "whisper's cross-attention", WHISPER_SEQ, frames, False)):
+        wcq, wck = chunk_sizes(s, sk, get_config("whisper-medium").attn_q_chunk)
+        numbers[key] = a1_timing(torch, dev, GLOBAL_BATCH, s, wck, what, sk=sk, causal=causal,
+                                 cq=wcq)
+        torch.cuda.empty_cache()
+    numbers["a1_at_hd128"] = a1_timing(torch, dev, A1_BATCH, LONG_TRAIN_SEQ, ck,
+                                       "head_dim 128", hd=128)
     torch.cuda.empty_cache()
     log(f"[longctx] the group took {time.perf_counter() - t0:.1f} s; {CARD}")
     log(json.dumps({"longctx": numbers}))
@@ -3376,6 +3500,7 @@ def main() -> int:
                 # the autodiff of its remat'd pair step
                 "chunked_attention_fwd": "src/repro/models/attention.py:67",
                 "chunked_attention_bwd": "src/repro/models/attention.py:142"}
+    a1_routes = check_a1_routes(paths)
     # launches: the sum over every path that ran the kernel; launches_by_path:
     # each path's count, zeroed just before the path and read just after
     by_path = {name: {path: n[name] for path, n in paths.items() if name in n}
@@ -3386,7 +3511,10 @@ def main() -> int:
                 "max_abs_err": float(par.err[name]), "ms": times[name]["ms"],
                 "plain_ms": times[name]["plain_ms"], "bound_ms": times[name]["bound_ms"],
                 "bound_by": times[name]["bound_by"],
-                "library_ms": times[name].get("library_ms")}
+                "library_ms": times[name].get("library_ms"),
+                **({"launches_by_route": {p: {r: v[A1.index(name)] for r, v in rs.items()}
+                                          for p, rs in a1_routes.items()}}
+                   if name in A1 else {})}
                for name in KERNELS]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -24,10 +24,14 @@
 // it (the chunk's running max, its sum and p.v rescaled when the max
 // grows), so its p is rounded to T relative to the running max rather than
 // the chunk's. Beyond that only the order of the float32 additions inside
-// a dot product or a chunk's sum differs. Rows of a 64-row tile that lie in
-// earlier q-chunks than the tile's last see later kv-chunks fully masked:
-// such a chunk leaves m, l and o exactly as they were (exp(-1e30 - m) = 0),
-// so visiting it is the reference's pair list.
+// a dot product or a chunk's sum differs. Key tiles start at each chunk's
+// first key; a chunk narrower than 64 keys masks the rest of its tile
+// (-inf). Rows of a query tile that lie in earlier q-chunks than the tile's
+// last see later kv-chunks fully masked: such a chunk leaves m, l and o
+// exactly as they were (exp(-1e30 - m) = 0, and a max that does not grow
+// rescales by exactly 1), so visiting it is the reference's pair list, and
+// a row's result depends only on its own q row, the K/V and (causal, ck):
+// not on the batch, nor on which rows share its tile.
 //
 // Heads: k and v carry every query head (the models repeat grouped K/V
 // before attending, as the reference does); kernels/ops.py repeats a
@@ -36,36 +40,80 @@
 // Backward (a torch.autograd.Function around these): the softmax weights
 // are recomputed tile by tile from the saved per-row m and l,
 // P = exp(s - m) / l, as flash_remat recomputes the pair step; nothing of
-// size (S, Sk) is saved. dQ kernel: one CTA per (b, h, 64 query rows),
-// D = rowsum(dO * O) first (written for the dK/dV kernel), then over the
-// key tiles dP = dO V^T, dS = P (dP - D), dQ += dS K. dK/dV kernel: one CTA
-// per (b, h, 64 keys), over the query tiles at or below the diagonal:
-// dV += P^T dO, dK += dS^T Q. No atomics: every output element has one
-// owner, so the result repeats its bits.
+// size (S, Sk) is saved. dQ kernel: D = rowsum(dO * O) first (written for
+// the dK/dV kernel), then over the key tiles dP = dO V^T, dS = P (dP - D),
+// dQ += dS K. dK/dV kernel: one CTA per (b, h, 64 keys), over the query
+// tiles at or below the diagonal: dV += P^T dO, dK += dS^T Q. No atomics:
+// every output element has one owner, so the result repeats its bits.
+//
+// Two routes, chosen by dtype in the entry points (not a fallback: each
+// dtype has exactly one, and a failure of either is returned):
+//
+// bfloat16, the tensor-core kernels (attn_*_tc). Every product is a wgmma
+// (m64n64k16, bf16 in, float32 accumulators in registers); every operand
+// tile arrives by TMA, 64 rows x 64 head dims of one head a box, 128-byte
+// swizzled (a 4-d tensor map (hd, H, L, B), so TMA fills zeros past hd and
+// past L and never reads the next head). Head dims are padded to 64 or 128
+// in shared memory (NP = 1 or 2 panels), so hd 64, 80, 112 and 128 (and
+// any multiple of 8 up to 128) take one of two instantiations.
+//   Forward: one CTA per (b, h, 128 query rows), the longest causal tiles
+//   first. Warpgroups 0 and 1 consume 64 rows each; warp 8 produces (its
+//   warpgroup gives its registers up, setmaxnreg 24, the consumers take
+//   240). The Q tile arrives once; K and V tiles of 64 keys stream through
+//   a ring of 2 stages, each with a full/empty mbarrier pair, in the
+//   chunks' order. S = Q K^T is a wgmma chain with both operands in shared
+//   memory; the bf16 round, the scale, the masks and the online update run
+//   on the accumulator fragment; p, rounded to bf16 in registers, is the A
+//   operand of p.v, with V an MN-major B operand (the transpose bit), so
+//   no transpose is stored.
+//   dQ: one CTA per (b, h, 128 query rows), the same roles; Q and dO once,
+//   K/V 64-key tiles through the ring. S = Q K^T and dP = dO V^T from
+//   shared memory; P and dS in float32 on the fragment; dS, rounded to
+//   bf16 in registers, is the A operand of dQ += dS K (K MN-major).
+//   dK/dV: one CTA per (b, h, 64 keys), one consumer warpgroup and one
+//   producer warp; K and V stay resident; Q, dO and the rows' m, l, D
+//   stream by TMA. S^T = K Q^T and dP^T = V dO^T from shared memory; P^T
+//   and dS^T rounded to bf16 in registers are the A operands of
+//   dV += P^T dO and dK += dS^T Q (dO and Q MN-major).
+//   The backward's bf16 rounding points: the scores (as the forward), and
+//   P and dS where each is an operand of a product, as the plain loop's
+//   autograd rounds them at its bf16 products; dP, D and the softmax's
+//   arithmetic stay float32; dQ, dK, dV are rounded once at the end.
+//
+// float32, the CUDA-core kernels (attn_fwd, attn_bwd_dq, attn_bwd_dkv):
+// the tensor cores' float32 path is TF32, whose 10-bit mantissa would
+// break the float32 tolerance the checks hold A1 to (1e-5 of the output),
+// and the float32 callers are those checks, not hot paths. Every round to
+// T above is the identity there, so these are plain float32 code. 256
+// threads as 16 x 16, each owning a 4 x 4 block of a 64 x 64 score tile and
+// a 4 x (4 NG) block of a 64 x hd output (hd <= 64 NG, NG = 1 or 2, columns
+// beyond hd zero). Operands of a product over k are stored k-major in
+// shared memory ([k][m] and [k][n]), so one float4 load of each feeds 16
+// FMAs; transposed tiles have a row pitch of 68 floats (16-byte aligned,
+// stores 4-way instead of 32-way bank conflicted). Row reductions (max,
+// sum) run over the 16 lanes of a half-warp with xor shuffles.
 //
 // What bounds it: operations. Forward 4 S Sk hd flops per (b, h) (halved
 // when causal) against 2 (S + 2 Sk) hd elements moved; at qwen's hd = 64
 // and S = 4,096 that is about 1,000 flops per byte, far above the card's
-// ridge. This first version runs the products as float32 FMAs on the CUDA
-// cores (67 TFLOP/s peak) over float32 tiles in shared memory; the bound
-// chip_smoke.py states is the bf16 tensor-core rate (989 TFLOP/s dense), so
-// the distance to it is what wgmma/TMA and larger tiles would win.
-//
-// Design: 256 threads as 16 x 16, each owning a 4 x 4 block of a 64 x 64
-// score tile and a 4 x (4 NG) block of a 64 x hd output (hd <= 64 NG,
-// NG = 1 or 2, columns beyond hd zero). Operands of a product over k are
-// stored k-major in shared memory ([k][m] and [k][n]), so one float4 load
-// of each feeds 16 FMAs; transposed tiles have a row pitch of 68 floats
-// (16-byte aligned, stores 4-way instead of 32-way bank conflicted).
-// Row reductions (max, sum) run over the 16 lanes of a half-warp with
-// xor shuffles, which leave every lane the same value.
+// ridge, so the bound is the bf16 tensor-core rate, 989 TFLOP/s dense.
+// The bf16 kernels issue each warpgroup's products and its softmax in
+// turn (the other consumer warpgroup fills the gaps); the float32
+// kernels run on the CUDA cores (67 TFLOP/s peak).
 //
 // Binding: plain C entry points loaded with ctypes; launch on the given
-// stream, allocate nothing, return cudaGetLastError().
+// stream, allocate nothing, return cudaGetLastError(). The TMA descriptors
+// are encoded on the host for each call (cuTensorMapEncodeTiled, fetched
+// with cudaGetDriverEntryPoint: no link against libcuda) and passed as
+// __grid_constant__ kernel parameters.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
+#include <initializer_list>
 
 namespace {
 
@@ -74,40 +122,24 @@ constexpr int kThreads = 256;  // 16 x 16
 constexpr int kPitch = 68;     // row pitch of a k-major (transposed) tile
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-// A value rounded to the compute dtype T and read back as float32: what the
-// plain version's products in T do to their float32-accumulated results.
-template <typename T> __device__ __forceinline__ float round_t(float x) {
-  return to_f<T>(from_f<T>(x));
-}
-
 // dst[d * kPitch + r] = src[r * stride + d] (k-major: d is the product's k)
 // for r < kTile, d < HDP; zero where r >= nrows or d >= hd.
-template <typename T, int HDP>
-__device__ void load_kmajor(float* dst, const T* __restrict__ src, int64_t stride, int nrows,
+template <int HDP>
+__device__ void load_kmajor(float* dst, const float* __restrict__ src, int64_t stride, int nrows,
                             int hd) {
   for (int e = threadIdx.x; e < kTile * HDP; e += kThreads) {
     const int r = e / HDP, d = e % HDP;
-    dst[d * kPitch + r] = (r < nrows && d < hd) ? to_f<T>(src[r * stride + d]) : 0.f;
+    dst[d * kPitch + r] = (r < nrows && d < hd) ? src[r * stride + d] : 0.f;
   }
 }
 
 // dst[r * HDP + d] = src[r * stride + d] (row-major: r is the product's k).
-template <typename T, int HDP>
-__device__ void load_rows(float* dst, const T* __restrict__ src, int64_t stride, int nrows,
+template <int HDP>
+__device__ void load_rows(float* dst, const float* __restrict__ src, int64_t stride, int nrows,
                           int hd) {
   for (int e = threadIdx.x; e < kTile * HDP; e += kThreads) {
     const int r = e / HDP, d = e % HDP;
-    dst[e] = (r < nrows && d < hd) ? to_f<T>(src[r * stride + d]) : 0.f;
+    dst[e] = (r < nrows && d < hd) ? src[r * stride + d] : 0.f;
   }
 }
 
@@ -143,10 +175,9 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-// A 4 x 4 block of a 64 x 64 score tile: s = T(dot) * scale, the causal
+// A 4 x 4 block of a 64 x 64 score tile: s = dot * scale, the causal
 // mask at -1e30 by global position (col > row masked), -inf where the
 // column or the row lies outside the tile's valid range.
-template <typename T>
 __device__ __forceinline__ void finish_scores(float (&s)[4][4], float scale, int row0, int col0,
                                              int nrows, int ncols, bool causal, int m0,
                                              int n0) {
@@ -154,7 +185,7 @@ __device__ __forceinline__ void finish_scores(float (&s)[4][4], float scale, int
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      float x = round_t<T>(s[i][j]) * scale;
+      float x = s[i][j] * scale;
       if (causal && col0 + n0 + j > row0 + m0 + i) x = kNegInf;
       if (n0 + j >= ncols || m0 + i >= nrows) x = -INFINITY;
       s[i][j] = x;
@@ -174,10 +205,10 @@ constexpr int dkv_smem_floats() {
 
 // Forward. grid (ceil(S / 64), H, B). q, out (B, S, H, hd); k, v (B, Sk, H, hd);
 // m, l (B, H, S) float32, the final running max and sum of each row.
-template <typename T, int NG>
+template <int NG>
 __global__ void __launch_bounds__(kThreads)
-attn_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-         T* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out, int S,
+attn_fwd(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+         float* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out, int S,
          int Sk, int H, int hd, int ck, int causal, float scale) {
   constexpr int HDP = 64 * NG;
   extern __shared__ float4 smem4[];
@@ -191,10 +222,10 @@ attn_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__
   const int m0 = ty * 4, n0 = tx * 4;
   const int nrows = min(kTile, S - q0);
   const int64_t stride = (int64_t)H * hd;
-  const T* kb = k + ((int64_t)b * Sk * H + h) * hd;
-  const T* vb = v + ((int64_t)b * Sk * H + h) * hd;
+  const float* kb = k + ((int64_t)b * Sk * H + h) * hd;
+  const float* vb = v + ((int64_t)b * Sk * H + h) * hd;
 
-  load_kmajor<T, HDP>(Qt, q + (((int64_t)b * S + q0) * H + h) * hd, stride, nrows, hd);
+  load_kmajor<HDP>(Qt, q + (((int64_t)b * S + q0) * H + h) * hd, stride, nrows, hd);
 
   float o[4][4 * NG], pv[4][4 * NG], m[4], l[4];
 #pragma unroll
@@ -221,12 +252,12 @@ attn_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__
     for (int t0 = c0; t0 < c_end; t0 += kTile) {
       const int ncols = min(kTile, c_end - t0);
       __syncthreads();
-      load_kmajor<T, HDP>(Kt, kb + (int64_t)t0 * stride, stride, ncols, hd);
-      load_rows<T, HDP>(Vs, vb + (int64_t)t0 * stride, stride, ncols, hd);
+      load_kmajor<HDP>(Kt, kb + (int64_t)t0 * stride, stride, ncols, hd);
+      load_rows<HDP>(Vs, vb + (int64_t)t0 * stride, stride, ncols, hd);
       __syncthreads();
       float s[4][4] = {};
       mma_tile<1>(s, Qt, kPitch, Kt, kPitch, hd, m0, n0);
-      finish_scores<T>(s, scale, q0, t0, kTile, ncols, causal, m0, n0);
+      finish_scores(s, scale, q0, t0, kTile, ncols, causal, m0, n0);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float x = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
@@ -244,7 +275,7 @@ attn_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__
         for (int i = 0; i < 4; ++i) {
           const float p = expf(s[i][jj] - m_run[i]);
           lsum[i] += p;
-          p4[i] = round_t<T>(p);
+          p4[i] = p;
         }
         *reinterpret_cast<float4*>(Pt + (n0 + jj) * kPitch + m0) =
             make_float4(p4[0], p4[1], p4[2], p4[3]);
@@ -257,7 +288,7 @@ attn_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__
       const float corr = expf(m[i] - m_run[i]);
       l[i] = l[i] * corr + half_warp_sum(lsum[i]);
 #pragma unroll
-      for (int c = 0; c < 4 * NG; ++c) o[i][c] = o[i][c] * corr + round_t<T>(pv[i][c]);
+      for (int c = 0; c < 4 * NG; ++c) o[i][c] = o[i][c] * corr + pv[i][c];
       m[i] = m_run[i];
     }
   }
@@ -266,13 +297,13 @@ attn_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__
     const int r = q0 + m0 + i;
     if (m0 + i >= nrows) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* orow = out + (((int64_t)b * S + r) * H + h) * hd;
+    float* orow = out + (((int64_t)b * S + r) * H + h) * hd;
 #pragma unroll
     for (int g = 0; g < NG; ++g)
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         const int d = g * 64 + n0 + jj;
-        if (d < hd) orow[d] = from_f<T>(o[i][g * 4 + jj] / den);
+        if (d < hd) orow[d] = o[i][g * 4 + jj] / den;
       }
     if (tx == 0) {
       const int64_t idx = ((int64_t)b * H + h) * S + r;
@@ -284,12 +315,12 @@ attn_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__
 
 // Backward, dQ. grid (ceil(S / 64), H, B). Also writes D = rowsum(dO * O)
 // (B, H, S) float32 for the dK/dV kernel.
-template <typename T, int NG>
+template <int NG>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-            const T* __restrict__ out, const T* __restrict__ dout,
+attn_bwd_dq(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+            const float* __restrict__ out, const float* __restrict__ dout,
             const float* __restrict__ m_in, const float* __restrict__ l_in,
-            T* __restrict__ dq, float* __restrict__ d_out, int S, int Sk, int H, int hd,
+            float* __restrict__ dq, float* __restrict__ d_out, int S, int Sk, int H, int hd,
             int causal, float scale) {
   constexpr int HDP = 64 * NG;
   extern __shared__ float4 smem4[];
@@ -307,18 +338,18 @@ attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   const int nrows = min(kTile, S - q0);
   const int64_t stride = (int64_t)H * hd;
   const int64_t qoff = (((int64_t)b * S + q0) * H + h) * hd;
-  const T* kb = k + ((int64_t)b * Sk * H + h) * hd;
-  const T* vb = v + ((int64_t)b * Sk * H + h) * hd;
+  const float* kb = k + ((int64_t)b * Sk * H + h) * hd;
+  const float* vb = v + ((int64_t)b * Sk * H + h) * hd;
   const int64_t stat0 = ((int64_t)b * H + h) * S + q0;
 
-  load_kmajor<T, HDP>(Qt, q + qoff, stride, nrows, hd);
-  load_kmajor<T, HDP>(dOt, dout + qoff, stride, nrows, hd);
+  load_kmajor<HDP>(Qt, q + qoff, stride, nrows, hd);
+  load_kmajor<HDP>(dOt, dout + qoff, stride, nrows, hd);
   {  // D: four threads per row
     const int r = threadIdx.x / 4, part = threadIdx.x % 4;
     float acc = 0.f;
     if (r < nrows)
       for (int d = part; d < hd; d += 4)
-        acc += to_f<T>(dout[qoff + r * stride + d]) * to_f<T>(out[qoff + r * stride + d]);
+        acc += dout[qoff + r * stride + d] * out[qoff + r * stride + d];
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
     if (part == 0) {
@@ -340,14 +371,14 @@ attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   for (int t0 = 0; t0 < kend; t0 += kTile) {
     const int ncols = min(kTile, kend - t0);
     __syncthreads();
-    load_kmajor<T, HDP>(Kt, kb + (int64_t)t0 * stride, stride, ncols, hd);
-    load_kmajor<T, HDP>(Vt, vb + (int64_t)t0 * stride, stride, ncols, hd);
-    load_rows<T, HDP>(Ks, kb + (int64_t)t0 * stride, stride, ncols, hd);
+    load_kmajor<HDP>(Kt, kb + (int64_t)t0 * stride, stride, ncols, hd);
+    load_kmajor<HDP>(Vt, vb + (int64_t)t0 * stride, stride, ncols, hd);
+    load_rows<HDP>(Ks, kb + (int64_t)t0 * stride, stride, ncols, hd);
     __syncthreads();
     float s[4][4] = {}, dp[4][4] = {};
     mma_tile<1>(s, Qt, kPitch, Kt, kPitch, hd, m0, n0);
     mma_tile<1>(dp, dOt, kPitch, Vt, kPitch, hd, m0, n0);
-    finish_scores<T>(s, scale, q0, t0, nrows, ncols, causal, m0, n0);
+    finish_scores(s, scale, q0, t0, nrows, ncols, causal, m0, n0);
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       float d4[4];
@@ -365,25 +396,25 @@ attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     if (m0 + i >= nrows) continue;
-    T* row = dq + qoff + (m0 + i) * stride;
+    float* row = dq + qoff + (m0 + i) * stride;
 #pragma unroll
     for (int g = 0; g < NG; ++g)
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         const int d = g * 64 + n0 + jj;
-        if (d < hd) row[d] = from_f<T>(acc[i][g * 4 + jj] * scale);
+        if (d < hd) row[d] = acc[i][g * 4 + jj] * scale;
       }
   }
 }
 
 // Backward, dK and dV. grid (ceil(Sk / 64), H, B).
-template <typename T, int NG>
+template <int NG>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             const T* __restrict__ dout, const float* __restrict__ m_in,
+attn_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+             const float* __restrict__ dout, const float* __restrict__ m_in,
              const float* __restrict__ l_in, const float* __restrict__ d_in,
-             T* __restrict__ dk, T* __restrict__ dv, int S, int Sk, int H, int hd, int causal,
-             float scale) {
+             float* __restrict__ dk, float* __restrict__ dv, int S, int Sk, int H, int hd,
+             int causal, float scale) {
   constexpr int HDP = 64 * NG;
   extern __shared__ float4 smem4[];
   float* Kt = reinterpret_cast<float*>(smem4);  // [HDP][kPitch], this CTA's keys
@@ -405,18 +436,18 @@ attn_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const int64_t koff = (((int64_t)b * Sk + k0) * H + h) * hd;
   const int64_t stat = ((int64_t)b * H + h) * S;
 
-  load_kmajor<T, HDP>(Kt, k + koff, stride, ncols, hd);
-  load_kmajor<T, HDP>(Vt, v + koff, stride, ncols, hd);
+  load_kmajor<HDP>(Kt, k + koff, stride, ncols, hd);
+  load_kmajor<HDP>(Vt, v + koff, stride, ncols, hd);
   float dk_acc[4][4 * NG] = {}, dv_acc[4][4 * NG] = {};
   const int qstart = causal ? (k0 / kTile) * kTile : 0;
   for (int r0 = qstart; r0 < S; r0 += kTile) {
     const int nrows = min(kTile, S - r0);
     const int64_t qoff = (((int64_t)b * S + r0) * H + h) * hd;
     __syncthreads();
-    load_kmajor<T, HDP>(Qt, q + qoff, stride, nrows, hd);
-    load_kmajor<T, HDP>(dOt, dout + qoff, stride, nrows, hd);
-    load_rows<T, HDP>(Qs, q + qoff, stride, nrows, hd);
-    load_rows<T, HDP>(dOs, dout + qoff, stride, nrows, hd);
+    load_kmajor<HDP>(Qt, q + qoff, stride, nrows, hd);
+    load_kmajor<HDP>(dOt, dout + qoff, stride, nrows, hd);
+    load_rows<HDP>(Qs, q + qoff, stride, nrows, hd);
+    load_rows<HDP>(dOs, dout + qoff, stride, nrows, hd);
     if (threadIdx.x < kTile) {
       const int r = threadIdx.x;
       const bool ok = r < nrows;
@@ -434,7 +465,7 @@ attn_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         const int key = k0 + m0 + i, row = r0 + n0 + jj;
-        float x = round_t<T>(st[i][jj]) * scale;
+        float x = st[i][jj] * scale;
         if (causal && key > row) x = kNegInf;
         const bool valid = m0 + i < ncols && n0 + jj < nrows;
         const float p = valid ? expf(x - ms[n0 + jj]) * ils[n0 + jj] : 0.f;
@@ -465,8 +496,8 @@ attn_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
       for (int jj = 0; jj < 4; ++jj) {
         const int d = g * 64 + n0 + jj;
         if (d < hd) {
-          dk[off + d] = from_f<T>(dk_acc[i][g * 4 + jj] * scale);
-          dv[off + d] = from_f<T>(dv_acc[i][g * 4 + jj]);
+          dk[off + d] = dk_acc[i][g * 4 + jj] * scale;
+          dv[off + d] = dv_acc[i][g * 4 + jj];
         }
       }
   }
@@ -477,42 +508,853 @@ int set_smem(K kernel, int bytes) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <typename T, int NG>
+template <int NG>
 int launch_fwd(const void* q, const void* k, const void* v, void* out, void* m, void* l, int B,
                int S, int Sk, int H, int hd, int ck, int causal, float scale, cudaStream_t st) {
   const int bytes = fwd_smem_floats<64 * NG>() * 4;
-  if (int err = set_smem(attn_fwd<T, NG>, bytes)) return err;
+  if (int err = set_smem(attn_fwd<NG>, bytes)) return err;
   const dim3 grid((S + kTile - 1) / kTile, H, B);
-  attn_fwd<T, NG><<<grid, kThreads, bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), static_cast<float*>(m), static_cast<float*>(l), S, Sk, H, hd, ck,
+  attn_fwd<NG><<<grid, kThreads, bytes, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), static_cast<float*>(m), static_cast<float*>(l), S, Sk, H, hd, ck,
       causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NG>
+template <int NG>
 int launch_bwd(const void* q, const void* k, const void* v, const void* out, const void* dout,
                const void* m, const void* l, void* dq, void* dk, void* dv, void* dbuf, int B,
                int S, int Sk, int H, int hd, int causal, float scale, cudaStream_t st) {
   const int dq_bytes = dq_smem_floats<64 * NG>() * 4;
   const int dkv_bytes = dkv_smem_floats<64 * NG>() * 4;
-  if (int err = set_smem(attn_bwd_dq<T, NG>, dq_bytes)) return err;
-  if (int err = set_smem(attn_bwd_dkv<T, NG>, dkv_bytes)) return err;
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const T* dop = static_cast<const T*>(dout);
+  if (int err = set_smem(attn_bwd_dq<NG>, dq_bytes)) return err;
+  if (int err = set_smem(attn_bwd_dkv<NG>, dkv_bytes)) return err;
+  const float* qp = static_cast<const float*>(q);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  const float* dop = static_cast<const float*>(dout);
   const float* mp = static_cast<const float*>(m);
   const float* lp = static_cast<const float*>(l);
   float* dbp = static_cast<float*>(dbuf);
-  attn_bwd_dq<T, NG><<<dim3((S + kTile - 1) / kTile, H, B), kThreads, dq_bytes, st>>>(
-      qp, kp, vp, static_cast<const T*>(out), dop, mp, lp, static_cast<T*>(dq), dbp, S, Sk, H,
-      hd, causal, scale);
+  attn_bwd_dq<NG><<<dim3((S + kTile - 1) / kTile, H, B), kThreads, dq_bytes, st>>>(
+      qp, kp, vp, static_cast<const float*>(out), dop, mp, lp, static_cast<float*>(dq), dbp, S,
+      Sk, H, hd, causal, scale);
   if (int err = (int)cudaGetLastError()) return err;
-  attn_bwd_dkv<T, NG><<<dim3((Sk + kTile - 1) / kTile, H, B), kThreads, dkv_bytes, st>>>(
-      qp, kp, vp, dop, mp, lp, dbp, static_cast<T*>(dk), static_cast<T*>(dv), S, Sk, H, hd,
+  attn_bwd_dkv<NG><<<dim3((Sk + kTile - 1) / kTile, H, B), kThreads, dkv_bytes, st>>>(
+      qp, kp, vp, dop, mp, lp, dbp, static_cast<float*>(dk), static_cast<float*>(dv), S, Sk, H, hd,
       causal, scale);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16: the tensor-core kernels (wgmma, operands fed by TMA)
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int kPanel = 64 * 128;  // bytes of one 128-byte-swizzled panel: 64 rows x 64 bf16
+constexpr int kStages = 2;        // depth of the ring of streamed tiles
+constexpr int kConsumers = 256;   // threads of the forward's and dQ's two consumer warpgroups
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The dynamic shared memory rounded up to 1,024 bytes, where the 128-byte
+// swizzle's 8-row pattern starts (the wgmma descriptors' base offset 0).
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024u - (smem_addr(p) & 1023u)) & 1023u);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete. A wait that lasts 10 s
+// traps: a fault in the pipeline then ends the launch with an error rather
+// than holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done, spins = 0;
+  uint64_t start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (++spins % 4096 == 0) {
+      uint64_t now;
+      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+      if (!start) start = now;
+      else if (now - start > 10000000000ull) __trap();
+    }
+  }
+}
+
+// One box of a (B, L, H, hd) tensor map: 64 head dims from c0, head c1, 64
+// rows from c2, batch row c3.
+__device__ __forceinline__ void tma_rows(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// 64 consecutive float32 of a flat (B H S) tensor map from element c0.
+__device__ __forceinline__ void tma_stats(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                          int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0)
+      : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Registers that an asynchronous wgmma reads or writes stay put (and live)
+// across the wait: the compiler sees them change here.
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// A wgmma shared-memory descriptor of a tile in 128-byte swizzled rows (what
+// TMA's SWIZZLE_128B writes): start address, leading offset 16 bytes (not
+// read: every operand is one 64-element swizzle atom wide), stride 1,024
+// bytes from one 8-row group to the next, layout SWIZZLE_128B. A K-major
+// operand steps 32 bytes a k-step inside its atom; an MN-major one (the
+// transpose bit) 16 rows, 2,048 bytes.
+__device__ __forceinline__ uint64_t desc(const void* p) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFFu) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// D (64 x 64, float32) (+)= A B^T, A and B K-major in shared memory.
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// D (64 x 64, float32) (+)= A B, A (64 x 16 bf16) in registers as the
+// accumulator's layout packs it, B MN-major in shared memory.
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t* a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The accumulator of a 64 x N wgmma: thread t of the warpgroup holds, at
+// register e, row 16 (t / 32) + (t % 32) / 4 + 8 half(e) and column
+// 8 (e / 4) + 2 (t % 4) + (e % 2).
+__device__ __forceinline__ int acc_half(int e) { return (e >> 1) & 1; }
+__device__ __forceinline__ int acc_col(int e, int lane) { return 8 * (e >> 2) + 2 * (lane & 3) + (e & 1); }
+
+// Forward. grid (ceil(S / 128), H, B); 384 threads: warpgroups 0 and 1
+// consume (64 query rows each), warp 8 of warpgroup 2 produces. q, k, v
+// arrive by TMA: q once, K/V 64-key tiles through a ring of kStages stages
+// in the order the reference's chunks visit them.
+template <int NP>
+__global__ void __launch_bounds__(384, 1)
+attn_fwd_tc(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+            const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ out,
+            float* __restrict__ m_out, float* __restrict__ l_out, int S, int Sk, int H, int hd,
+            int ck, int causal, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t q_full, full[kStages], empty[kStages];
+  uint8_t* Qs = align1024(smem_raw);           // [warpgroup][panel]
+  uint8_t* ring = Qs + 2 * NP * kPanel;        // [stage][K panels, V panels]
+  constexpr int kStage = 2 * NP * kPanel;
+
+  const int b = blockIdx.z, h = blockIdx.y;
+  // causal: the longest query tiles first
+  const int q0 = 128 * (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+  const int last_row = min(q0 + 128, S) - 1;
+  const int nk = causal ? last_row / ck + 1 : Sk / ck;
+  if (threadIdx.x == 0) {
+    mbar_init(&q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer
+    regs_dec<24>();
+    if (threadIdx.x != kConsumers) return;
+    mbar_expect_tx(&q_full, 2 * NP * kPanel);
+    for (int g = 0; g < 2; ++g)
+      for (int p = 0; p < NP; ++p)
+        tma_rows(Qs + (g * NP + p) * kPanel, &q_map, &q_full, 64 * p, h, q0 + 64 * g, b);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int j = 0; j < nk; ++j) {
+      const int c0 = j * ck, c_end = causal ? min(c0 + ck, last_row + 1) : c0 + ck;
+      for (int t0 = c0; t0 < c_end; t0 += 64) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], kStage);
+        uint8_t* st = ring + stage * kStage;
+        for (int p = 0; p < NP; ++p) {
+          tma_rows(st + p * kPanel, &k_map, &full[stage], 64 * p, h, t0, b);
+          tma_rows(st + (NP + p) * kPanel, &v_map, &full[stage], 64 * p, h, t0, b);
+        }
+        if (++stage == kStages) stage = 0, phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  regs_inc<240>();
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  const int r_lo = 16 * ((threadIdx.x % 128) / 32) + lane / 4;  // rows r_lo and r_lo + 8
+  const int row0 = q0 + 64 * wg;
+  const uint8_t* Qw = Qs + wg * NP * kPanel;
+  float o[NP][32], pv[NP][32], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[p][e] = 0.f;
+  mbar_wait(&q_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int j = 0; j < nk; ++j) {
+    const int c0 = j * ck, c_end = causal ? min(c0 + ck, last_row + 1) : c0 + ck;
+    // the chunk's running max, and its sum and p.v relative to it
+    float m_run[2] = {m[0], m[1]}, lsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) pv[p][e] = 0.f;
+    for (int t0 = c0; t0 < c_end; t0 += 64) {
+      const int ncols = min(64, c_end - t0);
+      const uint8_t* st = ring + stage * kStage;
+      mbar_wait(&full[stage], phase);
+      float s[32];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 * NP; ++kk)
+        mma_ss(s, desc(Qw + (kk / 4) * kPanel + (kk % 4) * 32),
+               desc(st + (kk / 4) * kPanel + (kk % 4) * 32), kk > 0);
+      wg_commit();
+      wg_wait();
+      keep(s);
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int col = acc_col(e, lane), row = row0 + r_lo + 8 * acc_half(e);
+        float x = round_bf16(s[e]) * scale;
+        if (causal && t0 + col > row) x = kNegInf;
+        if (col >= ncols) x = -INFINITY;
+        s[e] = x;
+        mx[acc_half(e)] = fmaxf(mx[acc_half(e)], x);
+      }
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_t = fmaxf(m_run[i], quad_max(mx[i]));
+        alpha[i] = expf(m_run[i] - m_t);
+        lsum[i] *= alpha[i];
+        m_run[i] = m_t;
+      }
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) pv[p][e] *= alpha[acc_half(e)];
+      uint32_t pk[16];  // p in bf16, the A operand of p.v
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int i = acc_half(e);
+        const float p0 = expf(s[e] - m_run[i]), p1 = expf(s[e + 1] - m_run[i]);
+        lsum[i] += p0;
+        lsum[i] += p1;
+        pk[e / 2] = pack_bf16(p0, p1);
+      }
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+          mma_rs(pv[p], pk + 4 * kk, desc(st + (NP + p) * kPanel + kk * 2048), 1);
+      wg_commit();
+      wg_wait();
+#pragma unroll
+      for (int p = 0; p < NP; ++p) keep(pv[p]);
+      keep(pk);
+      mbar_arrive(&empty[stage]);
+      if (++stage == kStages) stage = 0, phase ^= 1;
+    }
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      corr[i] = expf(m[i] - m_run[i]);
+      l[i] = l[i] * corr[i] + quad_sum(lsum[i]);
+      m[i] = m_run[i];
+    }
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        o[p][e] = o[p][e] * corr[acc_half(e)] + round_bf16(pv[p][e]);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + r_lo + 8 * i;
+    if (row >= S) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+    bf16* orow = out + (((int64_t)b * S + row) * H + h) * hd;
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int e = 2 * i; e < 32; e += 4) {
+        const int d = 64 * p + acc_col(e, lane);
+        if (d < hd)
+          *reinterpret_cast<__nv_bfloat162*>(orow + d) =
+              __floats2bfloat162_rn(o[p][e] / den, o[p][e + 1] / den);
+      }
+    if (lane % 4 == 0) {
+      const int64_t idx = ((int64_t)b * H + h) * S + row;
+      m_out[idx] = m[i];
+      l_out[idx] = l[i];
+    }
+  }
+}
+
+// Backward, dQ. grid (ceil(S / 128), H, B); 384 threads as the forward's.
+// Also writes, for the dK/dV kernel, each row's m, 1 / max(l, 1e-30) and
+// D = rowsum(dO * O) into `rows` (B H, 3, S64) float32, S64 = S rounded up
+// to 64 (zeros past S), so that kernel's TMA boxes of 64 rows start on
+// 256-byte boundaries. q and dO arrive by TMA once, K/V 64-key tiles
+// through the ring.
+template <int NP>
+__global__ void __launch_bounds__(384, 1)
+attn_bwd_dq_tc(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+               const __grid_constant__ CUtensorMap v_map,
+               const __grid_constant__ CUtensorMap do_map, const bf16* __restrict__ out,
+               const bf16* __restrict__ dout, const float* __restrict__ m_in,
+               const float* __restrict__ l_in, bf16* __restrict__ dq, float* __restrict__ rows,
+               int S, int Sk, int H, int hd, int causal, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t q_full, full[kStages], empty[kStages];
+  __shared__ float Dsm[2][64];
+  uint8_t* Qs = align1024(smem_raw);       // [warpgroup][panel]
+  uint8_t* dOs = Qs + 2 * NP * kPanel;     // [warpgroup][panel]
+  uint8_t* ring = dOs + 2 * NP * kPanel;   // [stage][K panels, V panels]
+  constexpr int kStage = 2 * NP * kPanel;
+
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int q0 = 128 * (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+  const int kend = causal ? min(Sk, min(q0 + 128, S)) : Sk;
+  const int ntiles = (kend + 63) / 64;
+  if (threadIdx.x == 0) {
+    mbar_init(&q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer
+    regs_dec<24>();
+    if (threadIdx.x != kConsumers) return;
+    mbar_expect_tx(&q_full, 4 * NP * kPanel);
+    for (int g = 0; g < 2; ++g)
+      for (int p = 0; p < NP; ++p) {
+        tma_rows(Qs + (g * NP + p) * kPanel, &q_map, &q_full, 64 * p, h, q0 + 64 * g, b);
+        tma_rows(dOs + (g * NP + p) * kPanel, &do_map, &q_full, 64 * p, h, q0 + 64 * g, b);
+      }
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int it = 0; it < ntiles; ++it) {
+      mbar_wait(&empty[stage], phase ^ 1);
+      mbar_expect_tx(&full[stage], kStage);
+      uint8_t* st = ring + stage * kStage;
+      for (int p = 0; p < NP; ++p) {
+        tma_rows(st + p * kPanel, &k_map, &full[stage], 64 * p, h, 64 * it, b);
+        tma_rows(st + (NP + p) * kPanel, &v_map, &full[stage], 64 * p, h, 64 * it, b);
+      }
+      if (++stage == kStages) stage = 0, phase ^= 1;
+    }
+    return;
+  }
+
+  regs_inc<240>();
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = threadIdx.x % 32;
+  const int r_lo = 16 * (t / 32) + lane / 4;
+  const int row0 = q0 + 64 * wg;
+  const int64_t stat = ((int64_t)b * H + h) * S;
+  {  // D: two threads a row
+    const int r = t / 2, part = t % 2, row = row0 + r, s64 = (S + 63) / 64 * 64;
+    float acc = 0.f;
+    if (row < S) {
+      const int64_t off = (((int64_t)b * S + row) * H + h) * hd;
+      for (int d = 2 * part; d < hd; d += 4) {
+        const float2 g = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dout + off + d));
+        const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(out + off + d));
+        acc += g.x * y.x;
+        acc += g.y * y.y;
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (part == 0) {
+      Dsm[wg][r] = acc;
+      if (row < s64) {
+        float* plane = rows + ((int64_t)b * H + h) * 3 * s64 + row;
+        plane[0] = row < S ? m_in[stat + row] : 0.f;
+        plane[s64] = row < S ? 1.f / fmaxf(l_in[stat + row], 1e-30f) : 0.f;
+        plane[2 * s64] = acc;
+      }
+    }
+    bar_sync(1 + wg, 128);
+  }
+  float mrow[2], inv_l[2], drow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + r_lo + 8 * i;
+    const bool ok = row < S;
+    mrow[i] = ok ? m_in[stat + row] : 0.f;
+    inv_l[i] = ok ? 1.f / fmaxf(l_in[stat + row], 1e-30f) : 0.f;
+    drow[i] = Dsm[wg][r_lo + 8 * i];
+  }
+  const uint8_t* Qw = Qs + wg * NP * kPanel;
+  const uint8_t* dOw = dOs + wg * NP * kPanel;
+  float acc[NP][32];
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[p][e] = 0.f;
+  mbar_wait(&q_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int it = 0; it < ntiles; ++it) {
+    const int t0 = 64 * it, ncols = min(64, kend - t0);
+    const uint8_t* st = ring + stage * kStage;
+    mbar_wait(&full[stage], phase);
+    float s[32], dp[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * NP; ++kk)
+      mma_ss(s, desc(Qw + (kk / 4) * kPanel + (kk % 4) * 32),
+             desc(st + (kk / 4) * kPanel + (kk % 4) * 32), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 4 * NP; ++kk)
+      mma_ss(dp, desc(dOw + (kk / 4) * kPanel + (kk % 4) * 32),
+             desc(st + (NP + kk / 4) * kPanel + (kk % 4) * 32), kk > 0);
+    wg_commit();
+    wg_wait();
+    keep(s);
+    keep(dp);
+    uint32_t dk16[16];  // dS in bf16, the A operand of dS K
+#pragma unroll
+    for (int e = 0; e < 32; e += 2) {
+      float ds[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int i = acc_half(e), col = acc_col(e + c, lane), row = row0 + r_lo + 8 * i;
+        float x = round_bf16(s[e + c]) * scale;
+        if (causal && t0 + col > row) x = kNegInf;
+        if (col >= ncols || row >= S) x = -INFINITY;
+        const float p = expf(x - mrow[i]) * inv_l[i];
+        ds[c] = p * (dp[e + c] - drow[i]);
+      }
+      dk16[e / 2] = pack_bf16(ds[0], ds[1]);
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int p = 0; p < NP; ++p) mma_rs(acc[p], dk16 + 4 * kk, desc(st + p * kPanel + kk * 2048), 1);
+    wg_commit();
+    wg_wait();
+#pragma unroll
+    for (int p = 0; p < NP; ++p) keep(acc[p]);
+    keep(dk16);
+    mbar_arrive(&empty[stage]);
+    if (++stage == kStages) stage = 0, phase ^= 1;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + r_lo + 8 * i;
+    if (row >= S) continue;
+    bf16* drow_out = dq + (((int64_t)b * S + row) * H + h) * hd;
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int e = 2 * i; e < 32; e += 4) {
+        const int d = 64 * p + acc_col(e, lane);
+        if (d < hd)
+          *reinterpret_cast<__nv_bfloat162*>(drow_out + d) =
+              __floats2bfloat162_rn(acc[p][e] * scale, acc[p][e + 1] * scale);
+      }
+  }
+}
+
+// Backward, dK and dV. grid (ceil(Sk / 64), H, B); 160 threads: warpgroup 0
+// consumes (this CTA's 64 keys, K and V resident), warp 4 produces. The
+// query tiles at or below the diagonal stream through the ring: q, dO and
+// the rows' m, 1/l, D (the dQ kernel's `rows`), all by TMA.
+template <int NP>
+__global__ void __launch_bounds__(160, 1)
+attn_bwd_dkv_tc(const __grid_constant__ CUtensorMap q_map,
+                const __grid_constant__ CUtensorMap k_map,
+                const __grid_constant__ CUtensorMap v_map,
+                const __grid_constant__ CUtensorMap do_map,
+                const __grid_constant__ CUtensorMap rows_map, bf16* __restrict__ dk,
+                bf16* __restrict__ dv, int S, int Sk, int H, int hd, int causal, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t kv_full, full[kStages], empty[kStages];
+  uint8_t* Ks = align1024(smem_raw);     // [panel]
+  uint8_t* Vs = Ks + NP * kPanel;        // [panel]
+  uint8_t* ring = Vs + NP * kPanel;      // [stage][q panels, dO panels, m 1/l D]
+  constexpr int kStage = 2 * NP * kPanel + 1024;
+
+  const int b = blockIdx.z, h = blockIdx.y, k0 = 64 * blockIdx.x;
+  const int qstart = causal ? k0 : 0;
+  const int ntiles = (S - qstart + 63) / 64;
+  if (threadIdx.x == 0) {
+    mbar_init(&kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // the producer
+    if (threadIdx.x != 128) return;
+    mbar_expect_tx(&kv_full, 2 * NP * kPanel);
+    for (int p = 0; p < NP; ++p) {
+      tma_rows(Ks + p * kPanel, &k_map, &kv_full, 64 * p, h, k0, b);
+      tma_rows(Vs + p * kPanel, &v_map, &kv_full, 64 * p, h, k0, b);
+    }
+    const int s64 = (S + 63) / 64 * 64, plane = (b * H + h) * 3 * s64;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int it = 0; it < ntiles; ++it) {
+      const int r0 = qstart + 64 * it;
+      mbar_wait(&empty[stage], phase ^ 1);
+      mbar_expect_tx(&full[stage], 2 * NP * kPanel + 3 * 256);
+      uint8_t* st = ring + stage * kStage;
+      for (int p = 0; p < NP; ++p) {
+        tma_rows(st + p * kPanel, &q_map, &full[stage], 64 * p, h, r0, b);
+        tma_rows(st + (NP + p) * kPanel, &do_map, &full[stage], 64 * p, h, r0, b);
+      }
+      for (int c = 0; c < 3; ++c)
+        tma_stats(st + 2 * NP * kPanel + 256 * c, &rows_map, &full[stage], plane + c * s64 + r0);
+      if (++stage == kStages) stage = 0, phase ^= 1;
+    }
+    return;
+  }
+
+  const int lane = threadIdx.x % 32;
+  const int r_lo = 16 * (threadIdx.x / 32) + lane / 4;  // keys k0 + r_lo, k0 + r_lo + 8
+  const int ncols = min(64, Sk - k0);
+  float acc_k[NP][32], acc_v[NP][32];
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc_k[p][e] = acc_v[p][e] = 0.f;
+  mbar_wait(&kv_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int it = 0; it < ntiles; ++it) {
+    const int r0 = qstart + 64 * it, nrows = min(64, S - r0);
+    const uint8_t* st = ring + stage * kStage;
+    const float* ms = reinterpret_cast<const float*>(st + 2 * NP * kPanel);
+    const float* inv_l = ms + 64;
+    const float* Ds = ms + 128;
+    mbar_wait(&full[stage], phase);
+    float s[32], dp[32];  // S^T and dP^T: [key][query row]
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * NP; ++kk)
+      mma_ss(s, desc(Ks + (kk / 4) * kPanel + (kk % 4) * 32),
+             desc(st + (kk / 4) * kPanel + (kk % 4) * 32), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 4 * NP; ++kk)
+      mma_ss(dp, desc(Vs + (kk / 4) * kPanel + (kk % 4) * 32),
+             desc(st + (NP + kk / 4) * kPanel + (kk % 4) * 32), kk > 0);
+    wg_commit();
+    wg_wait();
+    keep(s);
+    keep(dp);
+    uint32_t pk[16], dk16[16];  // P^T and dS^T in bf16, the A operands of dV and dK
+#pragma unroll
+    for (int e = 0; e < 32; e += 2) {
+      float pt[2], ds[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int kl = r_lo + 8 * acc_half(e), col = acc_col(e + c, lane);
+        float x = round_bf16(s[e + c]) * scale;
+        if (causal && k0 + kl > r0 + col) x = kNegInf;
+        const bool valid = kl < ncols && col < nrows;
+        pt[c] = valid ? expf(x - ms[col]) * inv_l[col] : 0.f;
+        ds[c] = valid ? pt[c] * (dp[e + c] - Ds[col]) : 0.f;
+      }
+      pk[e / 2] = pack_bf16(pt[0], pt[1]);
+      dk16[e / 2] = pack_bf16(ds[0], ds[1]);
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        mma_rs(acc_v[p], pk + 4 * kk, desc(st + (NP + p) * kPanel + kk * 2048), 1);
+        mma_rs(acc_k[p], dk16 + 4 * kk, desc(st + p * kPanel + kk * 2048), 1);
+      }
+    wg_commit();
+    wg_wait();
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      keep(acc_k[p]);
+      keep(acc_v[p]);
+    }
+    keep(pk);
+    keep(dk16);
+    mbar_arrive(&empty[stage]);
+    if (++stage == kStages) stage = 0, phase ^= 1;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kl = r_lo + 8 * i;
+    if (kl >= ncols) continue;
+    const int64_t off = (((int64_t)b * Sk + k0 + kl) * H + h) * hd;
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int e = 2 * i; e < 32; e += 4) {
+        const int d = 64 * p + acc_col(e, lane);
+        if (d < hd) {
+          *reinterpret_cast<__nv_bfloat162*>(dk + off + d) =
+              __floats2bfloat162_rn(acc_k[p][e] * scale, acc_k[p][e + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(dv + off + d) =
+              __floats2bfloat162_rn(acc_v[p][e], acc_v[p][e + 1]);
+        }
+      }
+  }
+}
+
+// The driver's cuTensorMapEncodeTiled, fetched through the runtime, so the
+// library needs no link against libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// (B, L, H, hd) bf16, contiguous: boxes of 64 head dims x 64 rows of one
+// head, 128-byte swizzled; TMA fills zeros past hd and past L.
+int rows_map(CUtensorMap* map, const void* base, int B, int L, int H, int hd) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)H * hd * 2,
+                                 (cuuint64_t)L * H * hd * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1}, step[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+             box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? 0
+             : (int)cudaErrorInvalidValue;
+}
+
+// n float32 in a row: boxes of 64, each starting on a 256-byte boundary.
+int stats_map(CUtensorMap* map, const void* base, int64_t n) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[1] = {(cuuint64_t)n}, strides[1] = {4};
+  const cuuint32_t box[1] = {64}, step[1] = {1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(base), dims, strides,
+             box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? 0
+             : (int)cudaErrorInvalidValue;
+}
+
+// The consumers' setmaxnreg.inc takes what the producer's .dec gives back:
+// 384 threads must start with at least 168 registers each, or it would wait
+// for registers that never come. Refuse the launch rather than hang.
+template <typename K>
+int check_ws_regs(K kernel) {
+  cudaFuncAttributes attr;
+  if (int err = (int)cudaFuncGetAttributes(&attr, kernel)) return err;
+  return attr.numRegs * 384 >= 128 * 24 + kConsumers * 240 ? 0 : (int)cudaErrorInvalidConfiguration;
+}
+
+// Runs setup() (host calls whose answer never changes: the register check,
+// the shared-memory limit) once per device; bit d of `ready` records device d.
+template <typename F>
+int once_per_device(std::atomic<uint64_t>& ready, int dev, F setup) {
+  const uint64_t bit = dev < 64 ? 1ull << dev : 0;
+  if (ready.load(std::memory_order_acquire) & bit) return 0;
+  if (int err = setup()) return err;
+  ready.fetch_or(bit, std::memory_order_release);
+  return 0;
+}
+
+template <int NP>
+int launch_fwd_tc(const void* q, const void* k, const void* v, void* out, void* m, void* l, int B,
+                  int S, int Sk, int H, int hd, int ck, int causal, float scale, int dev,
+                  cudaStream_t st) {
+  CUtensorMap qm, km, vm;
+  if (int err = rows_map(&qm, q, B, S, H, hd)) return err;
+  if (int err = rows_map(&km, k, B, Sk, H, hd)) return err;
+  if (int err = rows_map(&vm, v, B, Sk, H, hd)) return err;
+  const int bytes = 1024 + (2 + 2 * kStages) * NP * kPanel;
+  static std::atomic<uint64_t> ready{0};
+  if (int err = once_per_device(ready, dev, [&] {
+        if (int err = check_ws_regs(attn_fwd_tc<NP>)) return err;
+        return set_smem(attn_fwd_tc<NP>, bytes);
+      }))
+    return err;
+  attn_fwd_tc<NP><<<dim3((S + 127) / 128, H, B), 384, bytes, st>>>(
+      qm, km, vm, static_cast<bf16*>(out), static_cast<float*>(m), static_cast<float*>(l), S, Sk,
+      H, hd, ck, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int NP>
+int launch_bwd_tc(const void* q, const void* k, const void* v, const void* out, const void* dout,
+                  const void* m, const void* l, void* dq, void* dk, void* dv, void* dbuf, int B,
+                  int S, int Sk, int H, int hd, int causal, float scale, int dev,
+                  cudaStream_t st) {
+  CUtensorMap qm, km, vm, dom, rm;
+  if (int err = rows_map(&qm, q, B, S, H, hd)) return err;
+  if (int err = rows_map(&km, k, B, Sk, H, hd)) return err;
+  if (int err = rows_map(&vm, v, B, Sk, H, hd)) return err;
+  if (int err = rows_map(&dom, dout, B, S, H, hd)) return err;
+  if (int err = stats_map(&rm, dbuf, (int64_t)B * H * 3 * ((S + 63) / 64 * 64))) return err;
+  const int dq_bytes = 1024 + (4 + 2 * kStages) * NP * kPanel;
+  const int dkv_bytes = 1024 + 2 * NP * kPanel + kStages * (2 * NP * kPanel + 1024);
+  static std::atomic<uint64_t> ready{0};
+  if (int err = once_per_device(ready, dev, [&] {
+        if (int err = check_ws_regs(attn_bwd_dq_tc<NP>)) return err;
+        if (int err = set_smem(attn_bwd_dq_tc<NP>, dq_bytes)) return err;
+        return set_smem(attn_bwd_dkv_tc<NP>, dkv_bytes);
+      }))
+    return err;
+  attn_bwd_dq_tc<NP><<<dim3((S + 127) / 128, H, B), 384, dq_bytes, st>>>(
+      qm, km, vm, dom, static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
+      static_cast<const float*>(m), static_cast<const float*>(l), static_cast<bf16*>(dq),
+      static_cast<float*>(dbuf), S, Sk, H, hd, causal, scale);
+  if (int err = (int)cudaGetLastError()) return err;
+  attn_bwd_dkv_tc<NP><<<dim3((Sk + 63) / 64, H, B), 160, dkv_bytes, st>>>(
+      qm, km, vm, dom, rm, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, Sk, H, hd,
+      causal, scale);
+  return (int)cudaGetLastError();
+}
+
+// Makes the device that holds p current in the calling thread for the
+// guard's lifetime, then gives the thread its former device back. (An
+// autograd backward runs on a thread of its own, where the driver's
+// cuTensorMapEncodeTiled finds no current context otherwise.)
+struct DeviceOf {
+  int dev = -1, prev = -1, err = 0;
+  explicit DeviceOf(const void* p) {
+    cudaPointerAttributes attr;
+    if ((err = (int)cudaGetDevice(&prev))) return;
+    if ((err = (int)cudaPointerGetAttributes(&attr, p))) return;
+    dev = attr.device;
+    err = (int)cudaSetDevice(dev);
+  }
+  ~DeviceOf() {
+    if (dev >= 0 && prev >= 0 && prev != dev) cudaSetDevice(prev);
+  }
+};
+
+// What TMA takes: 16-byte aligned bases; rows of hd bf16 a multiple of 16 bytes.
+bool tma_ok(int hd, std::initializer_list<const void*> ptrs) {
+  if (hd % 8) return false;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
 }
 
 bool bad_shape(int B, int S, int Sk, int H, int hd, int causal) {
@@ -521,8 +1363,10 @@ bool bad_shape(int B, int S, int Sk, int H, int hd, int causal) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (kernels/attention.py DTYPE_CODES).
-// q, out (B, S, H, hd); k, v (B, Sk, H, hd), contiguous; m, l (B, H, S) float32.
+// dtype: 0 = float32 (the CUDA-core kernels), 1 = bfloat16 (the tensor-core
+// kernels; hd a multiple of 8, 16-byte aligned tensors) (kernels/attention.py
+// DTYPE_CODES). q, out (B, S, H, hd); k, v (B, Sk, H, hd), contiguous; m, l
+// (B, H, S) float32.
 extern "C" int chunked_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                      void* out, void* m, void* l, int B, int S, int Sk, int H,
                                      int hd, int ck, int causal, float scale, void* stream) {
@@ -532,21 +1376,25 @@ extern "C" int chunked_attention_fwd(int dtype, const void* q, const void* k, co
   const bool wide = hd > 64;
   switch (dtype) {
     case 0:
-      return wide ? launch_fwd<float, 2>(q, k, v, out, m, l, B, S, Sk, H, hd, ck, causal,
-                                         scale, st)
-                  : launch_fwd<float, 1>(q, k, v, out, m, l, B, S, Sk, H, hd, ck, causal,
-                                         scale, st);
-    case 1:
-      return wide ? launch_fwd<__nv_bfloat16, 2>(q, k, v, out, m, l, B, S, Sk, H, hd, ck,
-                                                 causal, scale, st)
-                  : launch_fwd<__nv_bfloat16, 1>(q, k, v, out, m, l, B, S, Sk, H, hd, ck,
-                                                 causal, scale, st);
+      return wide ? launch_fwd<2>(q, k, v, out, m, l, B, S, Sk, H, hd, ck, causal, scale, st)
+                  : launch_fwd<1>(q, k, v, out, m, l, B, S, Sk, H, hd, ck, causal, scale, st);
+    case 1: {
+      if (!tma_ok(hd, {q, k, v})) return (int)cudaErrorInvalidValue;
+      DeviceOf on(q);
+      if (on.err) return on.err;
+      return wide ? launch_fwd_tc<2>(q, k, v, out, m, l, B, S, Sk, H, hd, ck, causal, scale,
+                                     on.dev, st)
+                  : launch_fwd_tc<1>(q, k, v, out, m, l, B, S, Sk, H, hd, ck, causal, scale,
+                                     on.dev, st);
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// dq like q, dk and dv like k; dbuf (B, H, S) float32 scratch (D).
+// dq like q, dk and dv like k; dbuf (B H 3 S64) float32 scratch, S64 = S
+// rounded up to 64: float32 keeps D (B, H, S) in it, bfloat16 the rows' m,
+// 1/l and D (the dQ kernel's `rows`).
 extern "C" int chunked_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                                      const void* out, const void* dout, const void* m,
                                      const void* l, void* dq, void* dk, void* dv, void* dbuf,
@@ -557,15 +1405,19 @@ extern "C" int chunked_attention_bwd(int dtype, const void* q, const void* k, co
   const bool wide = hd > 64;
   switch (dtype) {
     case 0:
-      return wide ? launch_bwd<float, 2>(q, k, v, out, dout, m, l, dq, dk, dv, dbuf, B, S, Sk,
-                                         H, hd, causal, scale, st)
-                  : launch_bwd<float, 1>(q, k, v, out, dout, m, l, dq, dk, dv, dbuf, B, S, Sk,
-                                         H, hd, causal, scale, st);
-    case 1:
-      return wide ? launch_bwd<__nv_bfloat16, 2>(q, k, v, out, dout, m, l, dq, dk, dv, dbuf, B,
-                                                 S, Sk, H, hd, causal, scale, st)
-                  : launch_bwd<__nv_bfloat16, 1>(q, k, v, out, dout, m, l, dq, dk, dv, dbuf, B,
-                                                 S, Sk, H, hd, causal, scale, st);
+      return wide ? launch_bwd<2>(q, k, v, out, dout, m, l, dq, dk, dv, dbuf, B, S, Sk, H, hd,
+                                  causal, scale, st)
+                  : launch_bwd<1>(q, k, v, out, dout, m, l, dq, dk, dv, dbuf, B, S, Sk, H, hd,
+                                  causal, scale, st);
+    case 1: {
+      if (!tma_ok(hd, {q, k, v, out, dout, m, l, dbuf})) return (int)cudaErrorInvalidValue;
+      DeviceOf on(q);
+      if (on.err) return on.err;
+      return wide ? launch_bwd_tc<2>(q, k, v, out, dout, m, l, dq, dk, dv, dbuf, B, S, Sk, H, hd,
+                                     causal, scale, on.dev, st)
+                  : launch_bwd_tc<1>(q, k, v, out, dout, m, l, dq, dk, dv, dbuf, B, S, Sk, H, hd,
+                                     causal, scale, on.dev, st);
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -16,12 +16,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+BUILD_SECONDS: dict = {}  # source stem -> seconds its nvcc took, for the fresh builds
 
 
 def find_nvcc() -> str:
@@ -57,10 +59,12 @@ def build_all() -> dict:
     """Compile every ``csrc/*.cu`` that has no up-to-date library, all at
     once. Returns {source stem: library path}; raises with the compiler's
     output when one fails. The compiler's resource report (``-Xptxas -v``)
-    of each fresh build is kept beside its library as ``<lib>.log``."""
+    of each fresh build is kept beside its library as ``<lib>.log``, and
+    the seconds each took in ``BUILD_SECONDS``."""
     nvcc = None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     libs, procs = {}, []
+    t0 = time.perf_counter()
     for src in sorted(CSRC.glob("*.cu")):
         lib = _library_path(src)
         libs[src.stem] = lib
@@ -68,17 +72,23 @@ def build_all() -> dict:
             continue
         nvcc = nvcc or find_nvcc()
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        log = tmp.with_name(tmp.name + ".log")
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
-        procs.append((src, lib, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        with open(log, "w") as out:
+            procs.append((src, lib, tmp, log, subprocess.Popen(
+                cmd, stdout=out, stderr=subprocess.STDOUT)))
     failed = []
-    for src, lib, tmp, proc in procs:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{src.name} (rc={proc.returncode}):\n{out}")
-            continue
-        lib.with_name(lib.name + ".log").write_text(out)
-        os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+    while procs:
+        for item in [p for p in procs if p[-1].poll() is not None]:
+            procs.remove(item)
+            src, lib, tmp, log, proc = item
+            BUILD_SECONDS[src.stem] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                failed.append(f"{src.name} (rc={proc.returncode}):\n{log.read_text()}")
+                continue
+            os.replace(log, lib.with_name(lib.name + ".log"))
+            os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return libs

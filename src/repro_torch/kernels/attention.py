@@ -14,14 +14,35 @@ online softmax. Its port here has two versions of the same function:
                           masked float32 softmax, as in the reference.
   ChunkedAttention      : the CUDA kernels of ``csrc/chunked_attention.cu``
                           as an autograd Function: ``attention_forward``
-                          (one CTA per batch row, head and 64 query rows,
-                          the chunks in the reference's order, one pass
-                          over 64-key tiles) saves q, k,
-                          v, the output and each row's final max ``m`` and
-                          sum ``l``; ``attention_backward`` recomputes the
-                          score tiles from them (dQ, then dK/dV), as
-                          ``flash_remat`` recomputes the pair step, and
-                          saves nothing of size (S, Sk).
+                          (the chunks in the reference's order, one pass
+                          over 64-key tiles) saves q, k, v, the output and
+                          each row's final max ``m`` and sum ``l``;
+                          ``attention_backward`` recomputes the score tiles
+                          from them (dQ, then dK/dV), as ``flash_remat``
+                          recomputes the pair step, and saves nothing of
+                          size (S, Sk).
+
+The kernels take one of two routes, by dtype (each dtype has one; a
+failure raises):
+
+  bfloat16 : the tensor cores. Every product is a ``wgmma`` and every
+             operand tile arrives by TMA: the forward and dQ run one CTA
+             per (batch row, head, 128 query rows), two consumer
+             warpgroups of 64 rows and a producer warp that streams 64-key
+             K/V tiles through a two-stage ring; dK/dV one CTA per 64 keys
+             with K/V resident and the query tiles streamed. Bound by the
+             flops at 989 TFLOP/s. P and dS are rounded to bf16 where they
+             are operands of a product, as the plain loop's autograd
+             rounds them. TMA needs 16-byte aligned tensors and head_dim a
+             multiple of 8; the wrapper checks both and raises.
+  float32  : the CUDA cores (FMA over float32 tiles in shared memory): the
+             tensor cores' float32 path is TF32, which would break the
+             float32 tolerance the checks hold A1 to, and float32 A1 runs
+             only in checks.
+
+``attention_forward.routes`` and ``attention_backward.routes`` count the
+launches of each route (``"wgmma"``, ``"cuda_cores"``) beside
+``.launches``.
 
 ``kernels/ops.py::chunked_attention`` dispatches: the kernel for CUDA
 tensors (or a raise), the plain version for CPU tensors. The plain version
@@ -47,7 +68,9 @@ from repro_torch.kernels.fpisa_fused import raise_on
 
 NEG_INF = -1e30
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/chunked_attention.cu's dtype
+ROUTES = {torch.float32: "cuda_cores", torch.bfloat16: "wgmma"}
 MAX_HEAD_DIM = 128
+TMA_ALIGN = 16  # bytes: TMA's base address and row stride
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -157,7 +180,8 @@ def _lib() -> ctypes.CDLL:
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> None:
     """What the kernels take: CUDA tensors of one dtype (float32 or
     bfloat16) on one device, q (B, S, H, hd), k and v (B, Sk, H, hd),
-    hd <= 128, S == Sk when causal."""
+    hd <= 128 (bfloat16: a multiple of 8, TMA's 16-byte rows), S == Sk when
+    causal."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
@@ -174,8 +198,20 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool
                          f"{tuple(k.shape)} and {tuple(v.shape)}")
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"head_dim must be at most {MAX_HEAD_DIM}, got {hd}")
+    if q.dtype == torch.bfloat16 and (hd * q.element_size()) % TMA_ALIGN:
+        raise ValueError(f"bfloat16 head_dim must be a multiple of {TMA_ALIGN // 2} (TMA moves "
+                         f"rows of 16-byte multiples), got {hd}")
     if causal and k.shape[1] != s:
         raise ValueError(f"causal attention needs S == Sk, got {s} and {k.shape[1]}")
+
+
+def check_aligned(*tensors: torch.Tensor) -> None:
+    """TMA reads a bfloat16 tensor from a 16-byte aligned base: raise on a
+    view that starts elsewhere (float32 takes any)."""
+    for t in tensors:
+        if t.dtype == torch.bfloat16 and t.data_ptr() % TMA_ALIGN:
+            raise ValueError(f"bfloat16 tensors must start on a {TMA_ALIGN}-byte boundary (TMA), "
+                             f"got a {tuple(t.shape)} view at address {t.data_ptr():#x}")
 
 
 def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
@@ -187,6 +223,7 @@ def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal:
     sk = k.shape[1]
     if ck <= 0 or sk % ck:
         raise ValueError(f"ck must divide Sk = {sk}, got {ck}")
+    check_aligned(q, k, v)
     out = torch.empty_like(q)
     m = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
@@ -196,6 +233,7 @@ def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal:
         m.data_ptr(), l.data_ptr(), b, s, sk, h, hd, ck, int(causal), _scale(hd), stream),
         "chunked_attention_fwd")
     attention_forward.launches += 1
+    attention_forward.routes[ROUTES[q.dtype]] += 1
     return out, m, l
 
 
@@ -206,10 +244,13 @@ def attention_backward(q, k, v, out, dout, m, l, causal: bool):
     if dout.shape != q.shape or dout.dtype != q.dtype:
         raise ValueError(f"dout must be {q.dtype}{tuple(q.shape)}, got "
                          f"{dout.dtype}{tuple(dout.shape)}")
+    check_aligned(q, k, v, out, dout)
     b, s, h, hd = q.shape
     sk = k.shape[1]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dbuf = torch.empty_like(m)
+    # scratch: float32 keeps D (B, H, S) in it; bfloat16 each row's m, 1/l
+    # and D, S padded to a multiple of 64 (TMA boxes on 256-byte boundaries)
+    dbuf = torch.empty(b * h * 3 * (-(-s // 64) * 64), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     raise_on(_lib().chunked_attention_bwd(
         DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -217,11 +258,14 @@ def attention_backward(q, k, v, out, dout, m, l, causal: bool):
         dv.data_ptr(), dbuf.data_ptr(), b, s, sk, h, hd, int(causal), _scale(hd), stream),
         "chunked_attention_bwd")
     attention_backward.launches += 1
+    attention_backward.routes[ROUTES[q.dtype]] += 1
     return dq, dk, dv
 
 
 attention_forward.launches = 0
 attention_backward.launches = 0
+attention_forward.routes = dict.fromkeys(ROUTES.values(), 0)
+attention_backward.routes = dict.fromkeys(ROUTES.values(), 0)
 
 
 class ChunkedAttention(torch.autograd.Function):

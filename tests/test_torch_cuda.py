@@ -795,13 +795,17 @@ A1_CASES = [(2, s, s, 16, 16, 64, 32, c) for s in (512, 1024, 4096) for c in (Tr
     (2, 448, 1500, 4, 4, 64, 2048, False), (2, 80, 80, 14, 2, 128, 32, True),
     (2, 256, 256, 4, 4, 112, 32, True), (1, 40, 40, 4, 4, 80, 32, True)]
 # kernel against the plain version on the same card tensors, relative to the
-# plain result's largest |entry|: float32 differs only in the order of the
-# float32 additions; bfloat16 also where a score's or a chunk's p.v rounding
-# to bf16 falls the other way, and in the backward, which the kernel runs in
-# float32 where the plain version's autograd rounds to bf16 at each product,
-# most in dq without the causal mask, whose dS = P (dP - D) subtracts near
-# equals (measured on an H100: float32 at most 3.1e-6, bf16 output 3.1e-3,
-# bf16 gradients 3.1e-2; chip_smoke.py prints each against float32)
+# plain result's largest |entry|: float32 (the CUDA-core kernels) differs
+# only in the order of the float32 additions; bfloat16 (the tensor-core
+# kernels) rounds where the plain version does (the scores, p before p.v,
+# each chunk's p.v, and in the backward P and dS as product operands, dP and
+# D staying float32), so it differs where such a rounding falls the other
+# way after a different order of additions, most in dq without the causal
+# mask, whose dS = P (dP - D) subtracts near equals (measured on an H100
+# 80GB HBM3 at 700 W: float32 at most 3.1e-6; bf16 output at most 7.58e-3,
+# gradients at most 3.08e-2, where the kernel's dq is 1.16e-2 from the plain
+# version in float32 and the plain bf16 dq 2.40e-2; chip_smoke.py prints
+# each against float32)
 A1_TOL = {torch.float32: (1e-5, 2e-5), torch.bfloat16: (1e-2, 6e-2)}  # (output, gradients)
 
 
@@ -847,6 +851,72 @@ def test_chunked_attention_kernel_equals_plain(dev, case, dtype):
         assert err <= tol, (["out", "dq", "dk", "dv"][i], err, tol)
 
 
+# bf16 only (the tensor-core kernels' edges): query tiles that end inside the
+# 128-row CTA tile (S = 200, 1500), chunks narrower than the 64-key tile (ck =
+# 8 at S = 3000; ck = 1, odd, from the halving at a serving-like 333; ck = 77,
+# odd and one tile and a ragged one wide), head_dim 80, 112 and 128 (the
+# second instantiation, zeros past hd from TMA) over two chunks of 2048, and
+# whisper's 448 x 1500 cross-attention at its batch and heads
+A1_BF16_CASES = [
+    (2, 200, 200, 4, 4, 64, 2048, True), (1, 1500, 1500, 4, 4, 64, 2048, True),
+    (1, 3000, 3000, 2, 2, 64, 2048, True), (2, 333, 333, 2, 2, 64, 32, True),
+    (2, 77, 77, 2, 2, 64, 2048, True)] + [
+    (1, 4096, 4096, 2, 2, hd, 2048, True) for hd in (80, 112, 128)] + [
+    (8, 448, 1500, 16, 16, 64, 2048, False)]
+# (case, dtype) for the bit-for-bit tests: one causal and one not, each dtype
+A1_BITS_CASES = [(c, d) for c in ((4, 200, 200, 4, 4, 64, 32, True),
+                                  (4, 448, 1500, 4, 4, 64, 2048, False))
+                 for d in (torch.float32, torch.bfloat16)]
+
+
+def _a1_case_id(c):
+    return "b{}_s{}_sk{}_h{}_k{}_d{}_c{}_{}".format(*c[:7], "causal" if c[7] else "full")
+
+
+@pytest.mark.parametrize("case", A1_BF16_CASES, ids=_a1_case_id)
+def test_chunked_attention_bf16_kernel_edges_equal_plain(dev, case):
+    """The bf16 tensor-core kernels at their tiles' edges against the plain
+    loop, within ``A1_TOL``, as ``test_chunked_attention_kernel_equals_plain``."""
+    test_chunked_attention_kernel_equals_plain(dev, case, torch.bfloat16)
+
+
+def _a1_kernel_grads(case, dtype, dev, batch=None):
+    from repro_torch.kernels import attention
+
+    causal, q_chunk = case[7], case[6]
+    q, k, v, dout = _a1_inputs(case, dtype, dev)
+    if batch is not None:
+        q, k, v, dout = (t[batch] for t in (q, k, v, dout))
+    cq, ck = attention.chunk_sizes(q.shape[1], k.shape[1], q_chunk)
+    return _a1_run(lambda *t: ops.chunked_attention(*t, causal=causal, cq=cq, ck=ck), q, k, v,
+                   dout)
+
+
+@pytest.mark.parametrize("case,dtype", A1_BITS_CASES,
+                         ids=lambda x: str(x) if isinstance(x, torch.dtype) else _a1_case_id(x))
+def test_chunked_attention_kernel_repeats_its_bits(dev, case, dtype):
+    """The same inputs through A1 twice: output and q/k/v gradients bit for
+    bit (no atomics; every output element has one owner)."""
+    first, second = _a1_kernel_grads(case, dtype, dev), _a1_kernel_grads(case, dtype, dev)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("case,dtype", A1_BITS_CASES,
+                         ids=lambda x: str(x) if isinstance(x, torch.dtype) else _a1_case_id(x))
+def test_chunked_attention_row_is_batch_invariant(dev, case, dtype):
+    """Each batch row of a B = 4 call equals the same row run alone at B = 1,
+    bit for bit, forward and gradients: a row's result depends on its own
+    q row, K/V and (causal, ck) only."""
+    full = _a1_kernel_grads(case, dtype, dev)
+    for r in range(case[0]):
+        alone = _a1_kernel_grads(case, dtype, dev, batch=slice(r, r + 1))
+        torch.cuda.synchronize()
+        for name, a, b in zip(("out", "dq", "dk", "dv"), full, alone):
+            assert torch.equal(a[r:r + 1], b), (r, name)
+
+
 def test_chunked_attention_kernel_refuses_what_it_does_not_take(dev):
     from repro_torch.kernels import attention
 
@@ -864,3 +934,11 @@ def test_chunked_attention_kernel_refuses_what_it_does_not_take(dev):
         attention.attention_forward(q.cpu(), q.cpu(), q.cpu(), True, 32)
     with pytest.raises(ValueError, match="divide"):
         attention.attention_forward(q, q, q, False, 48)
+    # bf16 goes through TMA: rows of 16-byte multiples, 16-byte aligned bases
+    with pytest.raises(ValueError, match="multiple of 8"):
+        z = torch.zeros((1, 64, 2, 36), device=dev, dtype=torch.bfloat16)
+        attention.attention_forward(z, z, z, True, 32)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        z = torch.zeros(1 * 64 * 2 * 64 + 1, device=dev, dtype=torch.bfloat16)[1:]
+        z = z.view(1, 64, 2, 64)
+        attention.attention_forward(z, z, z, True, 32)
