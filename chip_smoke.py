@@ -94,6 +94,24 @@ one bundle saved and restored on its own (bytes, seconds) and the directory
 removed (the phase fails if the disk cannot hold two bundles); K1, K2 and
 K6 timed at the stacked shapes.
 
+Then, in the same group, the paper's Fig. 9 gate at full width (``fig9_path``,
+``[fig9]`` lines, each with the card's name and power limit; the
+reference's tests/test_convergence.py, whose port
+tests/test_torch_convergence.py runs it at smoke size on the CPU):
+qwen1.5-0.5b from seed 0, 30 logical-worker steps (W = 4, 2 x 512 each)
+with the config's AdamW (lr 3e-4) and the gate's 5 warm-up steps, on
+numpy-seeded batches with the gate's 8-token motif at positions 0-8 and
+16-24 of every 32, once with the float sum of the four workers' gradients
+(the ``fig9_native`` path) and once with their FPISA-A sum through K6 at
+W = 4 (``fig9_fpisa_seq``), then the float sum once more (the card's own
+run-to-run gap, printed beside the gate's). It fails unless both curves learn (last loss < 0.9 x
+the first), the mean relative gap over the last 10 steps is under 0.05, K6
+launched once per leaf per step in the ``fpisa_seq`` run and never in the
+``native`` one, and A1 launched as the 4 workers' remat'd passes need,
+every launch on the tensor cores; it prints both curves, each run's wall
+time, the per-step median on CUDA events, peak memory and K6's share of a
+profiled ``fpisa_seq`` step.
+
 Then, in the same group, the serving path (``serve_path``): full-width
 qwen1.5-0.5b (bf16 weights from a seed) through ``repro_torch.serve``.
 (a) one ``decode_step_paged`` equals ``decode_step`` bit for bit at 16 rows
@@ -109,7 +127,9 @@ logit gap is no larger than the largest |logit difference| of the two
 paths' rows at that step (each divergence printed); 8 requests with
 ``fpisa_seq`` telemetry (the ``serve_fpisa_seq`` path, K6 once per flush,
 traced); a decode step and prefills on CUDA events; ``[diagnose] serve
-decode``.
+decode``. Before the engines, ``make_serve_steps``' prefill and decode
+(``train/step.py``) give the model methods' greedy tokens, the logits bit
+for bit (4 rows, a 64-token prompt, 8 steps).
 
 Then, in the same group, the model families (``models_path``, ``[models]``
 lines, each with the card's name and power limit): (a) mamba2-780m, the
@@ -247,10 +267,10 @@ printed beside the card's name and power limit.
 
 In the ``kernels`` line, ``launches`` is a kernel's launches summed over
 every path above that ran it (main, ``fpisa_seq``, bucketed, stacked
-``fpisa``, stacked ``fpisa_seq``, ``serve``, ``serve_fpisa_seq``,
-``mamba2``, ``zamba2_seq``, ``arctic_serve``, ``whisper``, ``sharded``,
-``longctx``, ``prefill_32k``, ``whisper_encoder``, the two-pass pipeline,
-``switchsim``) and ``launches_by_path`` names each path's count, every
+``fpisa``, stacked ``fpisa_seq``, ``fig9_native``, ``fig9_fpisa_seq``,
+``serve``, ``serve_fpisa_seq``, ``mamba2``, ``zamba2_seq``, ``arctic_serve``,
+``whisper``, ``sharded``, ``longctx``, ``prefill_32k``, ``whisper_encoder``,
+the two-pass pipeline, ``switchsim``) and ``launches_by_path`` names each path's count, every
 path's counts zeroed just before it and read just after. A1 has two
 entries, ``chunked_attention_fwd`` and ``chunked_attention_bwd`` (its dQ
 and dK/dV kernels, one launch of the pair per backward), each also with
@@ -306,6 +326,9 @@ FMTS = ("fp32", "fp16", "bf16")
 STEPS, GLOBAL_BATCH, SEQ_LEN = 3, 8, 512
 ACCUM_WORKERS = (1, 2, 4, 8)
 LOGICAL_WORKERS = 4           # the stacked phase: W = 4 logical workers on one rank
+# the [fig9] phase: the reference gate's steps and warm-up (its lr, 3e-3, is
+# the smoke model's; the full-width runs take the config's 3e-4, PERF.md §6)
+FIG9_STEPS, FIG9_WARMUP = 30, 5
 KERNEL_WRAPPER = {"fused_encode_align": "encode_align", "fused_decode": "decode_fused",
                   "fpisa_extract": "extract", "fpisa_align": "align", "fpisa_decode": "decode",
                   "fpisa_accum": "accum", "chunked_attention_fwd": "attention_forward",
@@ -1278,6 +1301,161 @@ def stacked_path(torch, dev, tmpdir, leaf_sizes):
     return launches, times
 
 
+def fig9_batches(torch, dev, vocab):
+    """The ``[fig9]`` batches, the same for both runs: step i's 8 x 512
+    tokens from ``np.random.default_rng(1000 + i)``, with the reference
+    gate's 8-token motif (``default_rng(5)``) at positions 0-8 and 16-24 of
+    every 32."""
+    import numpy as np
+
+    motif = np.random.default_rng(5).integers(0, vocab, 8)
+    out = []
+    for step in range(FIG9_STEPS):
+        toks = np.random.default_rng(1000 + step).integers(0, vocab, (GLOBAL_BATCH, SEQ_LEN))
+        for b in range(0, SEQ_LEN, 32):
+            toks[:, b:b + 8] = motif
+            toks[:, b + 16:b + 24] = motif
+        out.append(torch.from_numpy(toks).to(dev))
+    return out
+
+
+def fig9_run(torch, dev, strategy, batches):
+    """``FIG9_STEPS`` logical-worker steps (W = 4 on this rank, 2 sequences
+    each) of full-width qwen1.5-0.5b from seed 0 with ``strategy``, every
+    kernel's count zeroed just before and read just after. Returns (losses,
+    launches, model, step, wall s, per-step CUDA-event ms, peak GiB)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.agg import AggConfig
+    from repro_torch.models.registry import build
+    from repro_torch.optim import optimizers
+    from repro_torch.train import step as train_step
+
+    cfg = get_config("qwen1.5-0.5b")
+    model = build(cfg, device=dev, seed=0)
+    opt_cfg = optimizers.OptConfig(name=cfg.optimizer, lr=cfg.learning_rate,
+                                   warmup_steps=FIG9_WARMUP)
+    opt_state = optimizers.init(list(model.parameters()), opt_cfg)
+    agg = AggConfig(strategy=strategy, backend="auto")
+    if strategy == "native":
+        # make_train_step refuses native with logical workers (the reference's
+        # rule: native has no explicit boundary); the same logical-worker step
+        # with the stacked native strategy is the float sum of the same four
+        # workers' gradients, the scale of the FPISA-A sum
+        step = train_step._logical_worker_step(model, agg, opt_cfg, None, LOGICAL_WORKERS)
+    else:
+        step = train_step.make_train_step(model, agg, opt_cfg, GLOBAL_BATCH,
+                                          logical_workers=LOGICAL_WORKERS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    losses, ms = [], []
+    t0 = time.perf_counter()
+    for tokens in batches:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        opt_state, metrics = step(opt_state, {"tokens": tokens})
+        end.record()
+        losses.append(float(metrics["loss"]))
+        ms.append(start.elapsed_time(end))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    return (losses, launches, model, lambda: step(opt_state, {"tokens": batches[-1]}), wall,
+            ms, torch.cuda.max_memory_allocated() / 2**30)
+
+
+def k6_step_share(torch, run):
+    """K6's device ms in one ``run()`` (torch.profiler, kernels named
+    ``accum_kernel``) and all kernels' device ms, or None when the profiler
+    records no device time."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in profiled_events(torch, run) or [] if e.device_type == DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total", 0) for e in events) / 1e3
+    k6 = sum(getattr(e, "self_device_time_total", 0) for e in events
+             if "accum_kernel" in e.key) / 1e3
+    return (k6, busy) if busy else None
+
+
+def fig9_gap(a, b):
+    """(mean relative gap of curve ``b`` from ``a`` over the last 10 steps,
+    the largest gap): the reference gate's measure."""
+    diffs = [abs(x - y) / max(abs(x), 1e-6) for x, y in zip(a, b)]
+    return statistics.mean(diffs[-10:]), max(diffs)
+
+
+def fig9_path(torch, dev):
+    """The paper's Fig. 9 gate at full width (tests/test_torch_convergence.py
+    at smoke size): qwen1.5-0.5b trained ``FIG9_STEPS`` steps of 8 x 512
+    through the logical-worker step (W = 4, 2 sequences each) with the
+    config's AdamW (lr 3e-4) and the gate's ``FIG9_WARMUP`` warm-up steps,
+    once with the exact float sum of the four workers' gradients
+    (``native``) and once with their switch-arrival FPISA-A sum
+    (``fpisa_seq``: K6 at W = 4), both from seed 0 on the same batches
+    (``fig9_batches``); then ``native`` once more, whose gap from the first
+    is the card's own run-to-run spread (the backward's float order).
+    Fails unless both curves learn (last loss < 0.9 x the first), the mean
+    relative gap over the last 10 steps is under 0.05 (the reference's
+    bounds), K6 launched once per leaf per step in the ``fpisa_seq`` run and
+    never in the ``native`` one, and A1 launched as the four workers'
+    remat'd passes need, every launch on the bf16 tensor-core kernels
+    (``check_a1_routes`` over the returned paths). Prints the curves, each
+    run's wall time, per-step median (CUDA events), peak memory and K6's
+    share of a ``fpisa_seq`` step. Returns {path: launches}."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen1.5-0.5b")
+    batches = fig9_batches(torch, dev, cfg.vocab_size)
+    curves, paths = [], {}
+    for strategy in ("native", "fpisa_seq", "native"):
+        losses, launches, model, one_step, wall, ms, peak = fig9_run(torch, dev, strategy,
+                                                                     batches)
+        leaves = len(list(model.parameters()))
+        curves.append(losses)
+        paths.setdefault(f"fig9_{strategy}", launches)
+        want_k6 = leaves * FIG9_STEPS if strategy == "fpisa_seq" else 0
+        if launches["fpisa_accum"] != want_k6:
+            raise AssertionError(f"[fig9] {strategy}: K6 launched {launches['fpisa_accum']} "
+                                 f"times in {FIG9_STEPS} steps, expected {want_k6}")
+        want_a1 = {"chunked_attention_fwd": 2 * cfg.num_layers * LOGICAL_WORKERS * FIG9_STEPS,
+                   "chunked_attention_bwd": cfg.num_layers * LOGICAL_WORKERS * FIG9_STEPS}
+        got_a1 = {k: launches[k] for k in A1}
+        if got_a1 != want_a1:
+            raise AssertionError(f"[fig9] {strategy}: A1 launched {got_a1}, expected {want_a1}")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"[fig9] {strategy}: non-finite loss {losses}")
+        share = ""
+        if strategy == "fpisa_seq":
+            one_step()  # warm: the profiled step below is a steady one
+            prof = k6_step_share(torch, one_step)
+            share = (f"; K6 {prof[0]:.3f} ms of {prof[1]:.2f} ms of kernels in a profiled "
+                     f"step, {100 * prof[0] / statistics.median(ms):.2f} % of the median step"
+                     if prof else "; K6's share not measured (no device time in the profile)")
+        log(f"[fig9] {strategy}{' again' if len(curves) == 3 else ''}: {FIG9_STEPS} steps of "
+            f"{cfg.name} (W = {LOGICAL_WORKERS} logical workers, "
+            f"{GLOBAL_BATCH // LOGICAL_WORKERS} x {SEQ_LEN} each) in {wall:.2f} s; step median "
+            f"{statistics.median(ms):.2f} ms (CUDA events, {min(ms):.2f}-{max(ms):.2f}); peak "
+            f"memory {peak:.2f} GiB; K6 launches {launches['fpisa_accum']} ({leaves} "
+            f"leaves){share}; {CARD}")
+        log(f"[fig9] {strategy} losses {json.dumps(losses)}")
+        del model, one_step
+        torch.cuda.empty_cache()
+    exact, fpisa, again = curves
+    gap, largest = fig9_gap(exact, fpisa)
+    floor, floor_largest = fig9_gap(exact, again)
+    log(f"[fig9] first -> last loss: native {exact[0]:.4f} -> {exact[-1]:.4f}, fpisa_seq "
+        f"{fpisa[0]:.4f} -> {fpisa[-1]:.4f}; mean relative gap over the last 10 steps "
+        f"{gap:.3e} (bound 0.05), largest {largest:.3e}; native against itself "
+        f"{floor:.3e}, largest {floor_largest:.3e}; {CARD}")
+    for name, curve in (("native", exact), ("fpisa_seq", fpisa)):
+        if not curve[-1] < 0.9 * curve[0]:
+            raise AssertionError(f"[fig9] {name} did not learn: {curve}")
+    if not gap < 0.05:
+        raise AssertionError(f"[fig9] the curves part: gap {gap} (native {exact[-5:]}, "
+                             f"fpisa_seq {fpisa[-5:]})")
+    return paths
+
+
 def wrapper(name):
     """The launch function that counts kernel ``name``'s launches: A1's in
     ``kernels/attention.py``, K1-K6's in ``kernels/ops.py``."""
@@ -1339,6 +1517,32 @@ def check_paged_equals_dense(torch, dev, model, tag="[serve] check (a)"):
     log(f"{tag}: decode_step_paged == decode_step bit for bit ({b} rows, "
         f"{SERVE_MAX_LEN // SERVE_PAGE} pages x {SERVE_PAGE} == max_len {SERVE_MAX_LEN}, "
         f"{plen}-token prefill), logits {tuple(got.shape)} {got.dtype} and every written k/v")
+
+
+def check_serve_steps(torch, dev, model, rows=4, prompt=64, steps=8):
+    """``train/step.py::make_serve_steps``' prefill and decode give the
+    model methods' greedy tokens on the card, bit for bit in the logits."""
+    from repro_torch.train.step import make_serve_steps
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    prompts = torch.randint(0, model.cfg.vocab_size, (rows, prompt), generator=gen, device=dev)
+    prefill, decode = make_serve_steps(model)
+
+    def greedy(prefill_fn, decode_fn):
+        logits, cache = prefill_fn(prompts, model.init_cache(rows, prompt + steps))
+        out = [logits]
+        for _ in range(steps):
+            logits, cache = decode_fn(logits[:, -1].argmax(-1)[:, None], cache)
+            out.append(logits)
+        return torch.cat(out, 1)
+
+    got = greedy(lambda p, c: prefill({"tokens": p}, c), decode)
+    want = greedy(model.prefill, model.decode_step)
+    if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+        raise AssertionError("make_serve_steps' logits differ from the model methods'")
+    log(f"[serve] make_serve_steps: prefill of {rows} x {prompt} and {steps} greedy decode "
+        f"steps give the methods' tokens {got.argmax(-1)[0].tolist()}... (row 0), logits "
+        f"bit-equal")
 
 
 def replay_row(torch, dev, model, req, tokens, t):
@@ -1444,6 +1648,7 @@ def serve_path(torch, dev):
     t_phase = time.perf_counter()
     model = build(cfg, device=dev, seed=0)
     check_paged_equals_dense(torch, dev, model)
+    check_serve_steps(torch, dev, model)
     torch.cuda.empty_cache()
     arrivals = PoissonLoadGen(rate=SERVE_RATE, prompt_lens=SERVE_PROMPTS, max_new=SERVE_BUDGETS,
                               vocab_size=cfg.vocab_size, seed=0).trace(SERVE_REQUESTS)
@@ -3453,6 +3658,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         stacked_launches, stacked_times = stacked_path(torch, dev, tmpdir, leaf_sizes)
         paths.update(stacked_launches)
+        torch.cuda.empty_cache()
+        paths.update(fig9_path(torch, dev))
         torch.cuda.empty_cache()
         paths.update(serve_path(torch, dev))
         torch.cuda.empty_cache()

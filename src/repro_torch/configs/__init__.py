@@ -1,5 +1,5 @@
 """Architecture config registry of the port: ``get_config(name)`` /
-``get_smoke_config(name)``.
+``get_smoke_config(name)`` / ``list_configs()``.
 
 Every architecture of the reference is listed, in its order, each module a
 copy of the reference's ``CONFIG`` (the published configuration) and
@@ -12,7 +12,12 @@ from __future__ import annotations
 import importlib
 
 from repro_torch import NotPortedError
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (  # noqa: F401
+    SHAPES,
+    ModelConfig,
+    ShapeConfig,
+    shape_applicable,
+)
 
 ARCH_MODULES = {
     "qwen1.5-0.5b": "qwen15_0_5b",
@@ -47,3 +52,8 @@ def get_config(name: str) -> ModelConfig:
 
 def get_smoke_config(name: str) -> ModelConfig:
     return _module(name).SMOKE
+
+
+def list_configs() -> dict:
+    """``{name: get_config(name)}`` in ``ARCH_NAMES`` order."""
+    return {n: get_config(n) for n in ARCH_NAMES}

@@ -294,6 +294,12 @@ def register_strategy(name: str, *, stacked: Callable | None = None,
     return deco
 
 
+def unregister_strategy(name: str) -> None:
+    """Remove a registered strategy (test/plugin teardown); an unknown name
+    is ignored."""
+    _REGISTRY.pop(name, None)
+
+
 def _ensure_builtin() -> None:
     # the built-in strategies register themselves when repro_torch.core.
     # allreduce is imported; importing lazily breaks the module cycle

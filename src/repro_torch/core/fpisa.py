@@ -32,7 +32,7 @@ from repro_torch.core.numerics import BF16, FORMATS, FP16, FP32, FpFormat
 
 __all__ = [
     "FP32", "FP16", "BF16", "FORMATS", "FpFormat", "Planes", "PACKED_DTYPE", "FMT_OF_DTYPE",
-    "to_packed", "encode", "renormalize", "AddStats", "fpisa_add_full", "fpisa_a_add",
+    "to_packed", "encode", "renormalize", "decode", "AddStats", "fpisa_add_full", "fpisa_a_add",
     "fpisa_sum_sequential",
     "block_encode", "block_decode", "block_max_exponent",
 ]
@@ -147,6 +147,11 @@ def renormalize(planes: Planes, fmt: FpFormat = FP32) -> torch.Tensor:
     bits = torch.where(neg, sign_bit, 0) | (exp_out << fmt.man_bits) | man_out
     bits = torch.where(zero, 0, bits).to(torch.int32)
     return _from_bits(bits, fmt)
+
+
+def decode(planes: Planes, fmt: FpFormat = FP32) -> torch.Tensor:
+    """Alias for renormalize — kept for symmetry with encode."""
+    return renormalize(planes, fmt)
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,15 @@ import math
 
 import torch
 
+FP32_EXP_BITS = 8
+FP32_MAN_BITS = 23
+FP32_EXP_BIAS = 127
+FP32_EXP_MASK = (1 << FP32_EXP_BITS) - 1          # 0xFF
+FP32_MAN_MASK = (1 << FP32_MAN_BITS) - 1          # 0x7FFFFF
+FP32_IMPLIED_ONE = 1 << FP32_MAN_BITS             # 0x800000
+# Headroom bits left of the 24-bit magnitude in an int32 register (excl. sign).
+FP32_HEADROOM = 31 - (FP32_MAN_BITS + 1)          # 7
+
 
 @dataclasses.dataclass(frozen=True)
 class FpFormat:
@@ -58,6 +67,17 @@ FP16 = FpFormat("fp16", exp_bits=5, man_bits=10)
 BF16 = FpFormat("bf16", exp_bits=8, man_bits=7)
 
 FORMATS = {f.name: f for f in (FP32, FP16, BF16)}
+
+
+def bitcast_f32_to_i32(x) -> torch.Tensor:
+    """The bits of float32 ``x`` as int32: a ``view``, no arithmetic (NaN
+    payloads and -0 keep their bits; no copy for a float32 tensor)."""
+    return torch.as_tensor(x, dtype=torch.float32).view(torch.int32)
+
+
+def bitcast_i32_to_f32(x) -> torch.Tensor:
+    """int32 bit patterns as float32: the inverse ``view``."""
+    return torch.as_tensor(x, dtype=torch.int32).view(torch.float32)
 
 
 def as_u32(x: torch.Tensor) -> torch.Tensor:

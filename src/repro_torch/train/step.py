@@ -173,6 +173,8 @@ def make_train_step(model, agg: AggConfig, opt_cfg: optimizers.OptConfig,
             grads = {k: g / world for k, g in grads.items()}
         if world > 1:
             for g in reversed(groups):
+                # the reported scalar loss, not a gradient: those went through the Aggregator
+                # repro-lint: disable=torch-bit-identity
                 dist.all_reduce(loss, group=g)
             loss = loss / world
         opt_state, metrics = optimizers.update(
@@ -181,6 +183,27 @@ def make_train_step(model, agg: AggConfig, opt_cfg: optimizers.OptConfig,
         return opt_state, metrics
 
     return train_step
+
+
+def make_serve_steps(model, mesh=None):
+    """``(prefill, decode)``: ``prefill(batch, cache)`` and ``decode(tokens,
+    cache)`` over the model's ``prefill`` and ``decode_step`` methods, the
+    reference's pair without its ``params`` argument (the port's model holds
+    its parameters). ``batch`` is the reference's dict: ``tokens``, and
+    ``patch_embeds`` for vlm or ``frames`` for the encoder-decoder. The
+    reference's pair are plain auto-sharded jits that do not read ``mesh``;
+    the port has no jit to wrap, and a model that ``sharding.rules.
+    distribute`` placed carries its placements into the calls, so ``mesh``
+    is accepted for the same signature and not read either."""
+
+    def prefill(batch: dict, cache):
+        return model.prefill(batch["tokens"], cache,
+                             batch.get("frames", batch.get("patch_embeds")))
+
+    def decode(tokens: torch.Tensor, cache):
+        return model.decode_step(tokens, cache)
+
+    return prefill, decode
 
 
 def _logical_worker_step(model, agg: AggConfig, opt_cfg: optimizers.OptConfig, group,
@@ -409,6 +432,8 @@ def _mesh_step(model, mesh, agg: AggConfig, opt_cfg: optimizers.OptConfig,
                                 logical_workers)
         elif boundary:
             for g in reversed(groups):
+                # the reported scalar loss, not a gradient: those went through the Aggregator
+                # repro-lint: disable=torch-bit-identity
                 dist.all_reduce(loss, group=g)
             loss = loss / replicas
         params = [p for _, p in model.named_parameters()]

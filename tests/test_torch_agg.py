@@ -293,3 +293,53 @@ def test_world_of_one_without_process_group():
     x = torch.from_numpy(np.random.default_rng(3).uniform(1.0, 2.0, 300).astype(np.float32))
     out = tagg.Aggregator(tagg.AggConfig()).allreduce(x)
     assert tagg.world_size() == 1 and torch.equal(out, x)
+
+
+def test_registry_roundtrip_register_construct_dispatch():
+    """A strategy registered declaratively is dispatchable through the
+    facade at once, and gone after ``unregister_strategy`` (the reference's
+    plugin round trip, tests/test_agg.py)."""
+
+    @tagg.register_strategy("_test_double", description="2x sum (test only)")
+    def double_allreduce(x, group, cfg):
+        return tar.native_allreduce(x, group, cfg) * 2.0
+
+    try:
+        assert "_test_double" in tagg.available_strategies()
+        agg = tagg.Aggregator(tagg.AggConfig(strategy="_test_double"))
+        x = torch.arange(8, dtype=torch.float32)
+        np.testing.assert_array_equal(agg.allreduce(x).numpy(), np.arange(8) * 2.0)
+        # ... and allreduce_tree reaches the same registered fn per leaf
+        np.testing.assert_array_equal(agg.allreduce_tree({"a": x})["a"].numpy(),
+                                      np.arange(8) * 2.0)
+    finally:
+        tagg.unregister_strategy("_test_double")
+    assert "_test_double" not in tagg.available_strategies()
+    tagg.unregister_strategy("_test_double")  # an unknown name is ignored
+
+
+def test_duplicate_registration_refused():
+    def fn(x, group, cfg):
+        return x
+
+    tagg.register_strategy("_test_dup")(fn)
+    try:
+        with pytest.raises(ValueError, match="already registered"):
+            tagg.register_strategy("_test_dup")(fn)
+        tagg.register_strategy("_test_dup", overwrite=True, description="wins")(fn)
+        assert tagg.get_strategy("_test_dup").description == "wins"  # explicit wins
+    finally:
+        tagg.unregister_strategy("_test_dup")
+
+
+@pytest.mark.parametrize("wire", [8, 16, 32])
+def test_wire_capacity_guard_shared_with_pod_hop(wire):
+    """The rail that guards the pod hop (``_hier_collect`` sums w_pod
+    in-pod partials): 2^(wire-1) summands allowed, one more refused, a
+    32-bit wire never refuses (the reference's tests/test_wire_edges.py)."""
+    if wire >= 32:
+        tar._check_wire_capacity(1 << 20, wire)
+        return
+    tar._check_wire_capacity(1 << (wire - 1), wire)
+    with pytest.raises(ValueError, match="cannot carry"):
+        tar._check_wire_capacity((1 << (wire - 1)) + 1, wire)

@@ -72,6 +72,21 @@ def test_configs_copy_the_reference():
     assert mine == ref
 
 
+def test_list_configs_and_the_shape_names_match_the_reference():
+    mine, ref = configs.list_configs(), jax_configs.list_configs()
+    assert list(mine) == list(ref) == ARCHS
+    for arch in ARCHS:
+        assert dataclasses.asdict(mine[arch]) == dataclasses.asdict(ref[arch]), arch
+    assert (configs.SHAPES, configs.ShapeConfig, configs.shape_applicable) == (
+        torch_base.SHAPES, torch_base.ShapeConfig, torch_base.shape_applicable)
+    assert {k: dataclasses.asdict(v) for k, v in configs.SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in jax_configs.SHAPES.items()}
+    assert [configs.shape_applicable(mine[a], s) for a in ARCHS
+            for s in configs.SHAPES.values()] == \
+        [jax_configs.shape_applicable(ref[a], s) for a in ARCHS
+         for s in jax_configs.SHAPES.values()]
+
+
 @pytest.mark.parametrize("arch", DENSE_VLM)
 def test_forward_loss_and_gradients_match_the_reference(arch):
     jm, jp, pm = pair(arch)

@@ -147,3 +147,34 @@ def test_required_preshift_matches():
                 jnx.required_preshift(w, jf.FORMATS[fmt])
     assert {n: (f.bias, f.headroom, f.total_bits) for n, f in tnx.FORMATS.items()} == \
         {n: (f.bias, f.headroom, f.total_bits) for n, f in jnx.FORMATS.items()}
+
+
+def test_fp32_layout_constants_match():
+    names = ["FP32_EXP_BITS", "FP32_MAN_BITS", "FP32_EXP_BIAS", "FP32_EXP_MASK",
+             "FP32_MAN_MASK", "FP32_IMPLIED_ONE", "FP32_HEADROOM"]
+    assert {n: getattr(tnx, n) for n in names} == {n: getattr(jnx, n) for n in names}
+    assert (tnx.FP32_EXP_BIAS, tnx.FP32_HEADROOM) == (tnx.FP32.bias, tnx.FP32.headroom)
+
+
+def test_bitcasts_bit_identical():
+    """Both bitcasts against the reference's on +-0, denormals, +-inf, NaNs
+    with payloads and normals: the bits go through untouched, as a view."""
+    raw = _raw("fp32", (4096,), seed=7)
+    raw[16:20] = [0x7FC12345, -0x0000_0001, 0x7F80_0001, -0x0080_0000]  # payloads
+    got = tnx.bitcast_i32_to_f32(torch.from_numpy(raw.copy()))
+    want = jnx.bitcast_i32_to_f32(jnp.asarray(raw))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy().view(np.int32), np.asarray(want).view(np.int32))
+    back = tnx.bitcast_f32_to_i32(got)
+    assert back.dtype == torch.int32 and back.data_ptr() == got.data_ptr()  # no copy
+    np.testing.assert_array_equal(back.numpy(), np.asarray(jnx.bitcast_f32_to_i32(want)))
+    np.testing.assert_array_equal(back.numpy(), raw)
+    assert np.isnan(got.numpy()).sum() > 4 and (raw == np.int32(-2**31)).any()
+
+
+@pytest.mark.parametrize("fmt", FMTS)
+def test_decode_is_renormalize(fmt):
+    e, m = _planes(fmt, 4096, seed=2)
+    out_t = tf.decode(tf.Planes(torch.from_numpy(e), torch.from_numpy(m)), tf.FORMATS[fmt])
+    out_j = jf.decode(jf.Planes(jnp.asarray(e), jnp.asarray(m)), jf.FORMATS[fmt])
+    np.testing.assert_array_equal(*_bits(out_t, out_j, fmt))

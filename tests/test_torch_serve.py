@@ -7,6 +7,8 @@ repro_torch.interop.params_from_jax); inputs made with numpy from seeds.
   JAX functions within 2e-5 absolute (the training tolerance: float32 in
   two frameworks differs in summation order and transcendentals); the K/V
   they write to the cache and to the pool within 1e-6.
+* ``train/step.py::make_serve_steps``' pair equals the model's methods bit
+  for bit, and its greedy tokens equal the reference's ``make_serve_steps``'.
 * Within the port, bit for bit: paged decode equals dense decode at equal
   B, and every row's prefill and decode logits equal that row's alone
   (batch invariance, ``models/transformer.py``).
@@ -41,6 +43,7 @@ from repro.models.registry import build as jax_build  # noqa: E402
 from repro.serve import engine as jax_engine  # noqa: E402
 from repro.serve import loadgen as jax_loadgen  # noqa: E402
 from repro.serve import scheduler as jax_scheduler  # noqa: E402
+from repro.train import step as jax_step  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core.agg import AggConfig  # noqa: E402
 from repro_torch.interop import params_from_jax  # noqa: E402
@@ -52,6 +55,7 @@ from repro_torch.serve.engine import Request, ServeEngine, TelemetryChannel  # n
 from repro_torch.serve.kvcache import PageAllocator, PagedKVCache, pages_needed  # noqa: E402
 from repro_torch.serve.loadgen import PoissonLoadGen, latency_report, percentile  # noqa: E402
 from repro_torch.serve.scheduler import ContinuousEngine  # noqa: E402
+from repro_torch.train.step import make_serve_steps  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH = "qwen1.5-0.5b"
@@ -136,6 +140,35 @@ def test_prefill_and_decode_step_match_jax(pair, variant):
         for mine, ref in ((pc.kv.k, jc.kv.k), (pc.kv.v, jc.kv.v)):
             np.testing.assert_allclose(_np(mine[:, :2]), np.asarray(ref), rtol=0,
                                        atol=KV_ATOL)
+
+
+def _greedy(prefill, decode, batch, cache, steps):
+    """Greedy tokens (B, 1 + steps) and every step's logits."""
+    logits, cache = prefill(batch, cache)
+    outs = [logits]
+    for _ in range(steps):
+        logits, cache = decode(logits.argmax(-1), cache)
+        outs.append(logits)
+    return [o.argmax(-1) for o in outs], outs
+
+
+def test_make_serve_steps_are_the_methods_and_give_the_reference_tokens(pair):
+    """The pair equals the model's ``prefill``/``decode_step`` bit for bit,
+    and its greedy tokens equal the reference's ``make_serve_steps``'."""
+    jm, jp, pm = pair()
+    toks = np.random.default_rng(11).integers(0, pm.cfg.vocab_size, (2, 8)).astype(np.int32)
+    prefill, decode = make_serve_steps(pm)
+    got_t, got_l = _greedy(prefill, decode, {"tokens": torch.from_numpy(toks)},
+                           pm.init_cache(2, 16), 4)
+    want_t, want_l = _greedy(lambda b, c: pm.prefill(b["tokens"], c), pm.decode_step,
+                             {"tokens": torch.from_numpy(toks)}, pm.init_cache(2, 16), 4)
+    for g, w in zip(got_l, want_l):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    jprefill, jdecode = jax_step.make_serve_steps(jm, None)
+    ref_t, _ = _greedy(lambda b, c: jprefill(jp, b, c), lambda t, c: jdecode(jp, t, c),
+                       {"tokens": jnp.asarray(toks)}, jm.init_cache(2, 16), 4)
+    np.testing.assert_array_equal(np.concatenate([_np(t) for t in got_t], 1),
+                                  np.concatenate([np.asarray(t) for t in ref_t], 1))
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
