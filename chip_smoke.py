@@ -10,14 +10,23 @@ Phases (each prints on its own lines; any failure raises, exit code != 0):
 2. Build: compile every kernel of the port from ``src/repro_torch/csrc``;
    per library, the registers and spills ptxas reports and, from
    ``cuobjdump -sass``, how many of its instructions are IMAD forms (integer
-   work the FMA pipe executes; see the rate note in phase 6).
-3. Kernel parity on the card: K1 (``fpisa_encode_align``) and K2
-   (``fpisa_decode_fused``) against their plain PyTorch versions on the
-   same CUDA tensors, over the CPU suite's sweep plus +-0, denormals,
-   +-inf, NaN and the wire dtypes' extreme values, and at the main path's
-   largest leaf; then a 4-worker aggregation on one card (K1 on 4 gradient
-   tensors, MAX of block exponents, residual shift and wire cast, integer
-   sum, K2) per wire width. Then K3 (``fpisa_extract``), K4
+   work the FMA pipe executes; see the rate note in phase 6); for K1's
+   three modes and K2, each template's instantiations and instruction
+   counts, and the main path's instantiation's loads and stores (it fails
+   if the exponent mode, the wire mode or K2 there has no 16-byte load).
+3. Kernel parity on the card: K1 (local mode ``fpisa_encode_align``,
+   exponent mode ``fpisa_block_max``, wire mode ``fpisa_encode_wire``) and
+   K2 (``fpisa_decode_fused``, into every dtype) against their plain
+   PyTorch versions on the same CUDA tensors, over the CPU suite's sweep
+   plus +-0, denormals, +-inf, NaN (quiet and signalling, both signs), the
+   range edges and the wire dtypes' extreme values, the new modes at every
+   (format, leaf dtype) pair they read, k = 1 and 4 workers, block
+   exponents -5..40 off the block max, and at the main path's largest
+   leaf; then a 4-worker aggregation on one card per wire width: K1's local
+   mode on 4 gradient tensors, MAX of block exponents, residual shift and
+   wire cast, integer sum, K2; and the same workers through the exponent
+   mode, the wire mode and K2 in the leaf's dtype, at fp32 and bf16 leaves,
+   which must give the same bits. Then K3 (``fpisa_extract``), K4
    (``fpisa_align``, preshift 0/2), K5 (``fpisa_decode``, preshift 0/2) and
    K6 (``fpisa_accum``, W in {1, 2, 4, 8} x ``fpisa_a``/``full``, with
    inputs that make FPISA-A overwrite, shift left into the headroom and
@@ -29,10 +38,14 @@ Phases (each prints on its own lines; any failure raises, exit code != 0):
    batch 8 x seq 512 through ``train_loop`` with FPISA aggregation on the
    ``auto`` backend, inside an NCCL process group of one rank so the
    collectives really run. The kernels' launch counts are zeroed just
-   before and read just after: K1/K2 must have launched once per gradient
-   leaf per step, A1 (the attention) forward twice per layer per step (the
-   remat recompute) and backward once. Then, on the trained model's gradients, the cuda and the
-   plain aggregation must give the same bits, and the loss of the smoke
+   before and read just after: K1's exponent and wire modes and K2 (into
+   the leaf's bf16) must each have launched once per gradient leaf per
+   step and K1's local mode never (no shift, wire cast or dtype cast runs
+   between the kernels and the collectives), A1 (the attention) forward
+   twice per layer per step (the remat recompute) and backward once. Then,
+   on the trained model's gradients, the cuda and the plain aggregation
+   must give the same bits, a profiled cuda aggregation of them must run no
+   device op but K1's modes, K2 and NCCL's, and the loss of the smoke
    config must agree between the two backends.
    A breakdown of one step by layer (forward+backward, aggregation,
    optimizer) follows, on CUDA events.
@@ -43,9 +56,13 @@ Phases (each prints on its own lines; any failure raises, exit code != 0):
    plain ``fpisa_seq`` aggregation of the trained model's gradients must
    give the same bits, and the step's breakdown follows.
 6. Timing at the main path's shapes (the 14 gradient leaves of one step,
-   1,812,452 rows of 256, and the largest leaf alone): CUDA events, median
-   of 25 timed runs after warm-up, for each kernel, its plain version, and
-   a ``copy_`` of the same bytes (the bandwidth this card reaches). The
+   1,812,452 rows of 256, bf16, and the largest leaf alone): CUDA events,
+   median of 25 timed runs after warm-up, for each kernel (K1 as the path
+   runs it, exponent then wire mode, and each of its modes; K2 into bf16
+   and into fp32), its plain version, and a ``copy_`` of the same bytes
+   (the bandwidth this card reaches); then one step's aggregation passes
+   without the collectives, the eager-glue composition the cuda backend ran
+   before the modes against the modes', host issue and CUDA events. The
    bound is the larger of the bytes over 3.35 TB/s (H100 SXM data sheet)
    and the integer operations over the card's instruction issue rate,
    33.45 TOP/s (``PEAK_INT_OPS_PER_S`` below says how it is derived); the time
@@ -271,7 +288,11 @@ every path above that ran it (main, ``fpisa_seq``, bucketed, stacked
 ``serve``, ``serve_fpisa_seq``, ``mamba2``, ``zamba2_seq``, ``arctic_serve``,
 ``whisper``, ``sharded``, ``longctx``, ``prefill_32k``, ``whisper_encoder``,
 the two-pass pipeline, ``switchsim``) and ``launches_by_path`` names each path's count, every
-path's counts zeroed just before it and read just after. A1 has two
+path's counts zeroed just before it and read just after. K1 and K2 also
+have ``launches_by_mode`` (per path: K1 ``local``, ``exponent``, ``wire``;
+K2 ``format``, ``leaf``) and ``ms_by_mode`` (each mode's ms, plain ms,
+bound and ``copy_`` at the main path's shapes); their ``ms`` is the main
+path's (K1: exponent + wire mode; K2: into bf16). A1 has two
 entries, ``chunked_attention_fwd`` and ``chunked_attention_bwd`` (its dQ
 and dK/dV kernels, one launch of the pair per backward), each also with
 ``launches_by_route`` (per path: ``wgmma``, ``cuda_cores``); their
@@ -290,6 +311,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -313,9 +335,12 @@ PEAK_INT_OPS_PER_S = 132 * 128 * 1.98e9
 INT32_PIPE_OPS_PER_S = 132 * 64 * 1.98e9
 # integer operations per element, counted from csrc/fpisa_fused.cuh (encode
 # 13, row max 1, arshift with its clamp 4, renormalize 34, one FPISA-A add
-# with its shifts about 15)
+# with its shifts about 15; K1's exponent mode: the exponent field 2 and the
+# max 1, its wire mode: encode 13, arshift 4, wire cast and add 2; bf16
+# leaves widen with one shift, K2's cast to bf16 takes 5)
 OPS_PER_ELEM = {"fused_encode_align": 16, "fused_decode": 34, "fpisa_extract": 14,
-                "fpisa_align": 5, "fpisa_decode": 34}
+                "fpisa_align": 5, "fpisa_decode": 34, "block_max": 3, "encode_wire": 20,
+                "decode_leaf": 39}
 KERNELS = ("fused_encode_align", "fused_decode", "fpisa_extract", "fpisa_align",
            "fpisa_decode", "fpisa_accum", "chunked_attention_fwd", "chunked_attention_bwd")
 A1 = ("chunked_attention_fwd", "chunked_attention_bwd")  # the port's kernel for a jnp function
@@ -333,6 +358,14 @@ KERNEL_WRAPPER = {"fused_encode_align": "encode_align", "fused_decode": "decode_
                   "fpisa_extract": "extract", "fpisa_align": "align", "fpisa_decode": "decode",
                   "fpisa_accum": "accum", "chunked_attention_fwd": "attention_forward",
                   "chunked_attention_bwd": "attention_backward"}
+# K1's modes, each its own wrapper in kernels/ops.py with its own count: the
+# local mode (the TPU kernel's function) and the aggregation's exponent and
+# wire modes. K2 counts its launches by mode in ``ops.decode_fused.modes``:
+# "format" (the format's dtype out) and "leaf" (another dtype, the leaf's
+# cast taken in). The kernels line gives both as ``launches_by_mode``.
+K1_MODES = {"local": "encode_align", "exponent": "block_max", "wire": "encode_wire"}
+K2_MODES = ("format", "leaf")
+K1K2 = ("fused_encode_align", "fused_decode")
 # the serve phase: engines' sizes and the Poisson trace
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_PAGE = 16, 1024, 16
 SERVE_REQUESTS, SERVE_RATE = 32, 0.5
@@ -443,6 +476,60 @@ def build_kernels():
             f"({100 * imad / max(len(opcodes), 1):.1f} %, integer work on the FMA pipe)")
         if stem == "chunked_attention":
             a1_sass_check(sass)
+        if stem == "fpisa_fused":
+            cufilt = cuobjdump.with_name("cu++filt")
+            k1k2_sass_record(sass, str(cufilt) if cufilt.is_file() else shutil.which("c++filt"))
+
+
+# the main path's instantiation of each K1 mode and of K2 (fp32 format,
+# bf16 leaves, 32-bit wire, blocks of 256), as cu++filt names them
+K1K2_MAIN = {"local mode": "encode_align_kernel<fpisa::Format<8, 23>, unsigned int, 256>",
+             "exponent mode": "block_max_kernel<fpisa::Format<8, 23>, 2, 256>",
+             "wire mode": "encode_wire_kernel<fpisa::Format<8, 23>, 2, 32, 256>",
+             "K2 into bf16": "decode_kernel<fpisa::Format<8, 23>, int, 2, 256>"}
+
+
+def k1k2_sass_record(sass, cufilt):
+    """K1's modes and K2 in ``cuobjdump -sass`` of csrc/fpisa_fused.cu: per
+    kernel template, its instantiations and their instruction counts; for
+    the main path's instantiation of each (``K1K2_MAIN``), its instruction
+    count and its global load and store opcodes. Raises if the exponent
+    mode, the wire mode or K2 at the main path's shape has no 16-byte load
+    (LDG.E.128)."""
+    bodies = {}
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        name, rest = body.split("\n", 1)
+        bodies[name.strip()] = SASS_OPCODE.findall(rest)
+    names = list(bodies)
+    if cufilt:  # demangle
+        names = subprocess.run([cufilt], input="\n".join(names), capture_output=True,
+                               text=True, timeout=60, check=True).stdout.splitlines()
+    # cu++filt may write template arguments as "(int)2": compare without casts and spaces
+    ops_of = {re.sub(r"\((?:unsigned )?int\)|\s", "", n): o for n, o in zip(names, bodies.values())}
+    families = {}
+    for name, opcodes in ops_of.items():
+        fam = next((f for f in ("encode_align_kernel", "block_max_kernel",
+                                "encode_wire_kernel", "decode_kernel") if f in name), None)
+        if fam:
+            families.setdefault(fam, []).append(len(opcodes))
+    log("[build] fpisa_fused SASS by kernel template (instantiations, instructions): "
+        + json.dumps({f: [len(n), min(n), max(n)] for f, n in families.items()}))
+    main = {}
+    for mode, want in K1K2_MAIN.items():
+        found = [ops_ for name, ops_ in ops_of.items() if want.replace(" ", "") in name]
+        if not found:
+            fam = want.split("<")[0]
+            raise AssertionError(f"{mode}: {want} not in the SASS; the {fam} names: "
+                                 f"{[n for n in ops_of if fam in n][:3]}")
+        ops_ = found[0]
+        main[mode] = {"instructions": len(ops_),
+                      "loads": sorted({o for o in ops_ if o.startswith("LDG")}),
+                      "stores": sorted({o for o in ops_ if o.startswith("STG")})}
+    log("[build] fpisa_fused SASS, the main path's instantiations: " + json.dumps(main))
+    for mode in ("exponent mode", "wire mode", "K2 into bf16"):
+        if not any(o.startswith("LDG.E.128") for o in main[mode]["loads"]):
+            raise AssertionError(f"{mode}: no 16-byte load in the SASS of "
+                                 f"{K1K2_MAIN[mode]}: {main[mode]}")
 
 
 def a1_kernel_name(mangled):
@@ -521,6 +608,74 @@ def wire_sample(torch, shape, wire, seed, dev):
     return m
 
 
+# (format, leaf dtype) pairs K1's exponent and wire modes read as they are;
+# each dtype's NaN words of both signs (quiet and signalling), largest finite
+# value, smallest normal and a denormal, written into a leaf after sample's
+LEAF_PAIRS = (("fp32", "fp32"), ("fp32", "bf16"), ("fp32", "fp16"), ("fp16", "fp16"),
+              ("bf16", "bf16"))
+RAW_SPECIALS = {"fp32": (0x7FC00000, -0x400000, 0x7F800001, -0x7FFFFF, 0x7F7FFFFF, 0x00800000,
+                         0x00000001),
+                "bf16": (0x7FC0, -0x40, 0x7F81, -0x7F, 0x7F7F, 0x0080, 0x0001),
+                "fp16": (0x7E00, -0x200, 0x7C01, -0x3FF, 0x7BFF, 0x0400, 0x0001)}
+
+
+def leaf_sample(torch, shape, leaf, seed, dev):
+    """``sample``'s values in dtype ``leaf`` with RAW_SPECIALS[leaf] after
+    its specials (as int words: -0x40 is 0xFFC0)."""
+    from repro_torch.core.fpisa import PACKED_DTYPE
+
+    x = sample(torch, shape, leaf, seed, dev)
+    words = torch.tensor(RAW_SPECIALS[leaf], device=dev,
+                         dtype=torch.int32 if leaf == "fp32" else torch.int16)
+    n = max(0, min(len(words), x.numel() - 8))
+    x.view(-1)[8:8 + n] = words[:n].view(PACKED_DTYPE[leaf])
+    return x
+
+
+def mode_parity(torch, dev, par):
+    """K1's exponent and wire modes and K2 into the leaf's dtype against
+    their plain versions: over SWEEP x LEAF_PAIRS x k in {1, 4} with the
+    non-finite words, block exponents offset -5..40 from the block max (the
+    shift clamps at both ends), wires 32/16/8; K2 into every dtype of every
+    format."""
+    from repro_torch.core import fpisa
+    from repro_torch.kernels import ops, ref
+
+    for shape in SWEEP:
+        for i, (fmt, leaf) in enumerate(LEAF_PAIRS):
+            f = fpisa.FORMATS[fmt]
+            for k in (1, 4):
+                x = torch.stack([leaf_sample(torch, shape, leaf, 17 * i + j + shape[0], dev)
+                                 for j in range(k)])
+                what = f"{fmt} from {leaf} k{k} {shape}"
+                bmax_r = ref.block_max_ref(x, f)
+                par.check("fused_encode_align", ops.block_max(x, fmt), bmax_r,
+                          f"exponent mode {what}")
+                gen = torch.Generator(device=dev).manual_seed(shape[1] + k + i)
+                be = bmax_r + torch.randint(-5, 41, bmax_r.shape, generator=gen, device=dev,
+                                            dtype=torch.int32)
+                for wire in (32, 16, 8):
+                    pre = wire % 3
+                    plane = ops.encode_wire(x, be, pre, wire, fmt)
+                    plane_r = ref.encode_wire_ref(x, be, pre, wire, f)
+                    par.check("fused_encode_align", plane, plane_r,
+                              f"wire mode {what} wire {wire} preshift {pre}")
+                    par.check("fused_decode", ops.decode_fused(plane, be, pre, fmt, x.dtype),
+                              ref.fused_decode_ref(plane_r, be, pre, f, x.dtype),
+                              f"leaf-dtype K2 {what} wire {wire}")
+        for fmt in FMTS:
+            for wire in (torch.int8, torch.int16, torch.int32):
+                m = wire_sample(torch, shape, wire, shape[0] + 5, dev)
+                gen = torch.Generator(device=dev).manual_seed(shape[1] + 5)
+                be = torch.randint(0, fpisa.FORMATS[fmt].exp_mask + 2, (shape[0],),
+                                   generator=gen, device=dev, dtype=torch.int32)
+                for out in FMTS:
+                    dt = fpisa.PACKED_DTYPE[out]
+                    par.check("fused_decode", ops.decode_fused(m, be, 1, fmt, dt),
+                              ref.fused_decode_ref(m, be, 1, fpisa.FORMATS[fmt], dt),
+                              f"K2 {fmt} to {out} {shape} {wire}")
+
+
 def kernel_parity(torch, dev, par):
     from repro_torch.core import fpisa
     from repro_torch.core import numerics as nx
@@ -573,11 +728,36 @@ def kernel_parity(torch, dev, par):
         par.check("fused_decode", got, want, f"4-worker composition, {bits}-bit wire")
         if not torch.isfinite(got).all():
             raise AssertionError("4-worker aggregate is not finite")
+        # the same 4 workers through the aggregation's modes, fp32 leaves and
+        # bf16 leaves: the block max over the stack, one shift, the wire
+        # cast and the fold in wire mode, K2 in the leaf's dtype; it must
+        # give the local-mode composition's bits
+        for leaf in (torch.float32, torch.bfloat16):
+            x4 = torch.stack(xs).to(leaf)
+            b = ops.block_max(x4, "fp32")
+            kern = ops.decode_fused(ops.encode_wire(x4, b, shift, bits, "fp32"), b, shift,
+                                    "fp32", leaf)
+            b_r = ref.block_max_ref(x4, fpisa.FP32)
+            plain = ref.fused_decode_ref(ref.encode_wire_ref(x4, b_r, shift, bits, fpisa.FP32),
+                                         b_r, shift, fpisa.FP32, leaf)
+            par.check("fused_encode_align", b, b_r, f"4-worker exponent mode, {leaf}")
+            par.check("fused_decode", kern, plain,
+                      f"4-worker composition through the modes, {bits}-bit wire, {leaf}")
+            old = got if leaf == torch.float32 else compose(
+                lambda x: ops.encode_align(x.to(leaf).float(), "fp32"),
+                lambda m, b: ops.decode_fused(m, b, shift, "fp32")).to(leaf)
+            if not torch.equal(kern.view(torch.int16), old.view(torch.int16)):
+                raise AssertionError(f"the modes' 4-worker composition differs from the local "
+                                     f"mode's at the {bits}-bit wire, {leaf}")
+    mode_parity(torch, dev, par)
     torch.cuda.synchronize()
-    log(f"[parity] bit-equal to the plain versions: fused_encode_align "
+    log(f"[parity] bit-equal to the plain versions: fused_encode_align (K1, all three modes) "
         f"{par.cases['fused_encode_align']} cases, fused_decode "
         f"{par.cases['fused_decode']} cases (sweep {SWEEP} x {FMTS}, wires i8/i16/i32, "
-        f"preshift 0/2, the embedding leaf, 4-worker composition at wire 32/16/8)")
+        f"preshift 0/2, the embedding leaf, 4-worker composition at wire 32/16/8 through "
+        f"the local mode and through the exponent and wire modes at fp32 and bf16 leaves, "
+        f"equal to each other; the modes over {LEAF_PAIRS} x k 1/4 with the non-finite "
+        f"words, K2 into every dtype)")
 
 
 def accum_sample(torch, workers, shape, fmt, seed, dev):
@@ -669,20 +849,21 @@ def train_main_path(torch, dev):
         agg=AggConfig(strategy="fpisa", backend="auto"), device=dev, log_every=1)
     torch.cuda.synchronize()
     counts = read_launches()
-    launches = {k: counts[k] for k in ("fused_encode_align", "fused_decode")}
+    launches = k1k2_subset(counts)
     wall = time.perf_counter() - t0
-    leaves = len(list(model.parameters()))
+    params = list(model.parameters())
+    leaves = len(params)
+    narrow = sum(p.dtype != torch.float32 for p in params)  # K2 casts these in registers
     log(f"[train] {STEPS} steps of {cfg.name} in {wall:.2f} s (init included), "
         f"world {dist.get_world_size()} ({dist.get_backend()}); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(json.dumps({"launches_per_step": {k: v / STEPS for k, v in launches.items()},
-                    "gradient_leaves": leaves}))
+                    "gradient_leaves": leaves,
+                    "leaf_dtypes": sorted({str(p.dtype) for p in params})}))
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite loss: {losses}")
-    for k, v in launches.items():
-        if v != leaves * STEPS:
-            raise AssertionError(f"{k} launched {v} times in {STEPS} steps, expected "
-                                 f"{leaves} per step (one per gradient leaf)")
+    # per leaf and step: exponent mode, MAX, wire mode, SUM, K2 in the leaf's dtype
+    check_fpisa_launches(counts, leaves * STEPS, "main path", leaf=narrow * STEPS)
     if not all(torch.isfinite(p).all() for p in model.parameters()):
         raise AssertionError("non-finite parameter after training")
     launches.update(check_a1_launches(counts, cfg, STEPS, "main"))
@@ -736,9 +917,11 @@ def training_batch(torch, dev, cfg, seq_len=SEQ_LEN, batch=GLOBAL_BATCH):
 def step_breakdown(torch, dev, model, opt_state, strategy="fpisa", bucket_bytes=0,
                    seq_len=SEQ_LEN, batch_size=GLOBAL_BATCH):
     """Where a full-width training step's time goes, by layer: forward +
-    backward, the aggregation of the gradient leaves (for fpisa K1, K2
-    and the plain-torch glue between them; for fpisa_seq the all-gather,
-    K6 and its casts; per leaf, or in buckets of ``bucket_bytes``), and the
+    backward, the aggregation of the gradient leaves (for fpisa K1's
+    exponent mode, the MAX, K1's wire mode, the SUM and K2 in the leaf's
+    dtype, with nothing eager between them; for fpisa_seq the all-gather,
+    K6 and its casts; per leaf, or in buckets of ``bucket_bytes``, whose
+    pack and unpack casts are eager), and the
     AdamW update; CUDA events, median of 5 runs each after one warm-up, on
     the same batch (``training_batch``)."""
     from repro_torch.core.agg import AggConfig, Aggregator
@@ -825,25 +1008,25 @@ def bucketed_path(torch, dev, model, tmpdir):
     # 2. training, counts zeroed just before and read just after
     cfg = get_config("qwen1.5-0.5b")
     agg = AggConfig(strategy="fpisa", backend="auto", bucket_bytes=bucket_bytes)
-    ops.encode_align.launches = 0
-    ops.decode_fused.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     trained, opt_state, losses = train_loop(
         cfg, steps=STEPS, global_batch=GLOBAL_BATCH, seq_len=SEQ_LEN, agg=agg, device=dev,
         log_every=1)
     torch.cuda.synchronize()
-    launches = {"fused_encode_align": ops.encode_align.launches,
-                "fused_decode": ops.decode_fused.launches}
+    counts = read_launches()
+    launches = k1k2_subset(counts)
     log(f"[bucketed] {STEPS} steps of {cfg.name} in {time.perf_counter() - t0:.2f} s "
         f"(init included); peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(json.dumps({"bucketed_launches_per_step": {k: v / STEPS for k, v in launches.items()},
                     "buckets": buckets}))
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite bucketed loss: {losses}")
-    for k, v in launches.items():
-        if v != buckets * STEPS:
-            raise AssertionError(f"{k} launched {v} times in {STEPS} bucketed steps, "
-                                 f"expected {buckets} per step (one per bucket)")
+    # one per bucket per step (a bucket is packed in the format's dtype), and
+    # one per passthrough leaf, in its own dtype
+    own = sum(shapes[i].dtype != torch.float32 for i in plan.passthrough)
+    check_fpisa_launches(counts, (buckets + len(plan.passthrough)) * STEPS, "bucketed training",
+                         leaf=own * STEPS)
 
     # 3. the aggregation forms on the trained gradients
     from repro_torch.data.pipeline import ShardedLoader, SyntheticCorpus
@@ -861,12 +1044,11 @@ def bucketed_path(torch, dev, model, tmpdir):
                 raise AssertionError(f"{what}: gradient leaf {i} differs from per-leaf")
 
     want = Aggregator(AggConfig(backend="cuda")).allreduce_tree(grads)
-    before = (ops.encode_align.launches, ops.decode_fused.launches)
+    zero_launches()
     same(Aggregator(AggConfig(backend="cuda", bucket_bytes=bucket_bytes)).allreduce_tree(grads),
          want, "bucketed cuda")
-    if (ops.encode_align.launches - before[0], ops.decode_fused.launches - before[1]) \
-            != (buckets, buckets):
-        raise AssertionError("bucketed cuda aggregation: not one K1/K2 launch per bucket")
+    check_fpisa_launches(read_launches(), buckets + len(plan.passthrough),
+                         "bucketed cuda aggregation", leaf=own)
     same(Aggregator(AggConfig(backend="torch")).allreduce_tree(grads), want, "per-leaf plain")
     same(Aggregator(AggConfig(backend="cuda", chunk_elems=1 << 20)).allreduce_tree(grads),
          want, "chunked cuda")
@@ -881,7 +1063,8 @@ def bucketed_path(torch, dev, model, tmpdir):
         raise AssertionError(f"bucketed fpisa_seq: K6 launched {ops.accum.launches - before} "
                              f"times, expected {buckets} (one per bucket)")
     log(f"[check] full-width gradients ({len(grads)} leaves, {grads[0].dtype}): per-leaf cuda fpisa "
-        f"bit-equal to bucketed cuda ({buckets} K1/K2 launches), per-leaf plain, chunked cuda "
+        f"bit-equal to bucketed cuda ({buckets} launches each of K1's exponent and wire modes "
+        f"and K2), per-leaf plain, chunked cuda "
         f"(2^20), hierarchical bucketed cuda over a pair of one-rank groups; bucketed "
         f"fpisa_seq ({buckets} K6 launches) bit-equal to per-leaf fpisa_seq")
     del want, seq_want
@@ -913,12 +1096,14 @@ def bucketed_path(torch, dev, model, tmpdir):
     return launches
 
 
-def train_stacked(torch, dev, strategy, kernels):
+def train_stacked(torch, dev, strategy):
     """3 full-width logical-worker steps (W = 4, all on this rank: k = 4,
     2 sequences each) through ``make_train_step(logical_workers=4)`` with
-    ``strategy`` on the auto backend, the launch counts of ``kernels``
-    zeroed just before and read just after. Returns (launches, model,
-    optimizer state, losses, peak GiB)."""
+    ``strategy`` on the auto backend, the launch counts zeroed just before
+    and read just after: for ``fpisa`` K1's exponent and wire modes (over
+    the k workers' rows) and K2 in the leaf's dtype once per leaf per step,
+    for ``fpisa_seq`` K6. Returns (launches, model, optimizer state,
+    losses, peak GiB)."""
     from repro_torch.configs import get_config
     from repro_torch.core.agg import AggConfig
     from repro_torch.data.pipeline import ShardedLoader, SyntheticCorpus
@@ -935,9 +1120,7 @@ def train_stacked(torch, dev, strategy, kernels):
     loader = ShardedLoader(SyntheticCorpus(cfg.vocab_size, 0), GLOBAL_BATCH, SEQ_LEN)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fns = [wrapper(k) for k in kernels]
-    for fn in fns:
-        fn.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     losses = []
     for i in range(STEPS):
@@ -945,9 +1128,12 @@ def train_stacked(torch, dev, strategy, kernels):
         opt_state, metrics = step(opt_state, {"tokens": tokens})
         losses.append(float(metrics["loss"]))
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in zip(kernels, fns)}
+    counts = read_launches()
+    launches = k1k2_subset(counts) if strategy == "fpisa" else {"fpisa_accum":
+                                                                counts["fpisa_accum"]}
     peak = torch.cuda.max_memory_allocated() / 2**30
-    leaves = len(list(model.parameters()))
+    params = list(model.parameters())
+    leaves = len(params)
     log(f"[stacked] {strategy}: {STEPS} steps of {cfg.name} with W = {LOGICAL_WORKERS} "
         f"logical workers on one rank (k = {LOGICAL_WORKERS}, "
         f"{GLOBAL_BATCH // LOGICAL_WORKERS} sequences each) in "
@@ -956,10 +1142,12 @@ def train_stacked(torch, dev, strategy, kernels):
                     {k: v / STEPS for k, v in launches.items()}, "gradient_leaves": leaves}))
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite stacked {strategy} loss: {losses}")
-    for k, v in launches.items():
-        if v != leaves * STEPS:
-            raise AssertionError(f"stacked {strategy}: {k} launched {v} times in {STEPS} "
-                                 f"steps, expected {leaves} per step (one per leaf)")
+    if strategy == "fpisa":
+        check_fpisa_launches(counts, leaves * STEPS, "stacked fpisa",
+                             leaf=sum(p.dtype != torch.float32 for p in params) * STEPS)
+    elif launches["fpisa_accum"] != leaves * STEPS:
+        raise AssertionError(f"stacked {strategy}: K6 launched {launches['fpisa_accum']} times "
+                             f"in {STEPS} steps, expected {leaves} per step (one per leaf)")
     if not all(torch.isfinite(p).all() for p in model.parameters()):
         raise AssertionError(f"non-finite parameter after stacked {strategy} training")
     return launches, model, opt_state, losses, peak
@@ -1128,8 +1316,6 @@ def checkpoint_resume(torch, dev, tmpdir):
     uninterrupted run's bits.
     Then one bundle is saved and restored on its own, timed, and the
     directory removed."""
-    import shutil
-
     from repro_torch.configs import get_config
     from repro_torch.core.agg import AggConfig
     from repro_torch.launch.train import train_loop
@@ -1195,36 +1381,55 @@ def checkpoint_resume(torch, dev, tmpdir):
 
 
 def stacked_timing(torch, dev, leaf_sizes):
-    """K1, K2 and K6 at the stacked step's shapes: K1 once per leaf over the
-    k = 4 workers' (4 R, 256) rows, K2 once per leaf on the summed (R, 256)
-    plane, K6 once per leaf over the (4, 1, N) stack; CUDA events against
-    the bound, as in ``timing``."""
+    """K1, K2 and K6 at the stacked step's shapes: K1's exponent and wire
+    modes once per leaf over the k = 4 workers' (4, R, 256) bf16 stack (the
+    wire mode folding the workers), K2 once per leaf from the folded (R,
+    256) plane into bf16, K6 once per leaf over the (4, 1, N) stack; CUDA
+    events against the bound, as in ``timing``."""
     from repro_torch.core import fpisa
+    from repro_torch.core.allreduce import _wire_shift
     from repro_torch.kernels import ops, ref
 
     fmt = fpisa.FP32
     k = LOGICAL_WORKERS
+    shift = _wire_shift(fmt, k, 32)
     workers = [step_leaves(torch, dev, leaf_sizes, seed=100 * j) for j in range(k)]
-    xs = [torch.cat(per_leaf) for per_leaf in zip(*workers)]  # (k R, 256) per leaf
+    xs = [torch.stack(per_leaf).to(torch.bfloat16) for per_leaf in zip(*workers)]
     del workers
-    rows = sum(x.shape[0] for x in xs)
+    rows = sum(x.shape[1] for x in xs)  # of one worker
     elems = rows * 256
+    what = f"stacked step, k = {k}: {len(xs)} leaves, {k} x {rows} rows x 256 bf16"
+    bmaxs = [ops.block_max(x, "fp32") for x in xs]
+    modes = {}
+    for mode, kernel, plain, per_elem, ops_per_elem in (
+            ("exponent", lambda: [ops.block_max(x, "fp32") for x in xs],
+             lambda: [ref.block_max_ref(x, fmt) for x in xs], 2 * k, k * OPS_PER_ELEM["block_max"]),
+            ("wire", lambda: [ops.encode_wire(x, b, shift, 32, "fp32") for x, b in zip(xs, bmaxs)],
+             lambda: [ref.encode_wire_ref(x, b, shift, 32, fmt) for x, b in zip(xs, bmaxs)],
+             2 * k + 4, k * OPS_PER_ELEM["encode_wire"])):
+        bytes_ = elems * per_elem + rows * 4
+        modes[mode] = time_kernel(torch, "fused_encode_align", kernel, plain, bytes_,
+                                  elems * ops_per_elem, copy_ms(torch, dev, [bytes_]),
+                                  f"{mode} mode, {what}", plain_reps=3)
+    pair_bytes = elems * (4 * k + 4) + rows * 8
     out = {"fused_encode_align": time_kernel(
-        torch, "fused_encode_align", lambda: [ops.encode_align(x, "fp32") for x in xs],
-        lambda: [ref.fused_encode_align_ref(x, fmt) for x in xs],
-        elems * 8 + rows * 4, elems * OPS_PER_ELEM["fused_encode_align"],
-        copy_ms(torch, dev, [x.numel() * 8 for x in xs]),
-        f"stacked step, k = {k}: {len(xs)} leaves, {rows} rows x 256 fp32", plain_reps=5)}
-    planes = [ops.encode_align(x[:x.shape[0] // k], "fp32") for x in xs]
+        torch, "fused_encode_align",
+        lambda: [ops.encode_wire(x, ops.block_max(x, "fp32"), shift, 32, "fp32") for x in xs],
+        lambda: [ref.encode_wire_ref(x, ref.block_max_ref(x, fmt), shift, 32, fmt) for x in xs],
+        pair_bytes, elems * k * (OPS_PER_ELEM["block_max"] + OPS_PER_ELEM["encode_wire"]),
+        copy_ms(torch, dev, [pair_bytes]), f"exponent + wire mode, {what}", plain_reps=3)}
+    out["fused_encode_align"]["ms_by_mode"] = modes
+    out["passes"] = stacked_passes(torch, xs, shift)
+    planes = [ops.encode_wire(x, b, shift, 32, "fp32") for x, b in zip(xs, bmaxs)]
     del xs
-    rows //= k
-    elems //= k
     out["fused_decode"] = time_kernel(
-        torch, "fused_decode", lambda: [ops.decode_fused(m, b, 2, "fp32") for m, b in planes],
-        lambda: [ref.fused_decode_ref(m, b, 2, fmt) for m, b in planes],
-        elems * 8 + rows * 4, elems * OPS_PER_ELEM["fused_decode"],
-        copy_ms(torch, dev, [m.numel() * 8 for m, _ in planes]),
-        f"stacked step: {len(planes)} leaves, {rows} rows x 256 (the summed plane)")
+        torch, "fused_decode",
+        lambda: [ops.decode_fused(m, b, shift, "fp32", torch.bfloat16) for m, b in zip(planes, bmaxs)],
+        lambda: [ref.fused_decode_ref(m, b, shift, fmt, torch.bfloat16)
+                 for m, b in zip(planes, bmaxs)],
+        elems * 6 + rows * 4, elems * OPS_PER_ELEM["decode_leaf"],
+        copy_ms(torch, dev, [elems * 6 + rows * 4]),
+        f"stacked step: {len(planes)} leaves, {rows} rows x 256 (the folded plane) into bf16")
     del planes
     workers = [step_leaves(torch, dev, leaf_sizes, seed=100 * j) for j in range(k)]
     stacks = [torch.stack(per_leaf).reshape(k, 1, -1) for per_leaf in zip(*workers)]
@@ -1239,6 +1444,50 @@ def stacked_timing(torch, dev, leaf_sizes):
     return out
 
 
+def stacked_passes(torch, xs, shift):
+    """One stacked step's aggregation passes over the (k, R, 256) bf16
+    stacks ``xs`` with the collectives left out, host issue against CUDA
+    events, in turns: the eager-glue composition the cuda backend ran
+    before the modes (the staging cast, the local mode over the k R rows,
+    the worker max, the residual shift, the int32 fold, K2 in fp32, the
+    cast back: about 122 bytes an output element at k = 4) against the
+    modes' (26)."""
+    from repro_torch.core import fpisa
+    from repro_torch.core import numerics as nx
+    from repro_torch.kernels import ops
+
+    def glue():
+        for x in xs:
+            k = x.shape[0]
+            man, local = ops.encode_align(fpisa.to_packed(x, "fp32").reshape(-1, 256), "fp32")
+            local = local.reshape(k, -1)
+            bmax = local.amax(0).clone()
+            man = nx.arshift(man.reshape(k, -1, 256), (bmax[None, :] - local)[:, :, None] + shift)
+            total = man.reshape(k, -1).sum(0, dtype=torch.int32)
+            ops.decode_fused(total.reshape(-1, 256), bmax, shift, "fp32").to(torch.bfloat16)
+
+    def modes():
+        for x in xs:
+            b = ops.block_max(x, "fp32")
+            ops.decode_fused(ops.encode_wire(x, b, shift, 32, "fp32"), b, shift, "fp32",
+                             torch.bfloat16)
+
+    passes = {}
+    for name, fn in (("glue", glue), ("modes", modes), ("glue", glue), ("modes", modes)):
+        fn()
+        torch.cuda.synchronize()
+        passes.setdefault(name, []).append(issue_vs_device(torch, fn))
+        torch.cuda.empty_cache()
+    elems = sum(x[0].numel() for x in xs)
+    log(f"[time] one stacked step's aggregation passes without the collectives, k = "
+        f"{xs[0].shape[0]}, {len(xs)} leaves of bf16: eager-glue composition (floor at 122 B an "
+        f"element {elems * 122 / HBM_BYTES_PER_S * 1e3:.4f} ms) host issue / CUDA events "
+        + ", ".join(f"{i:.3f} / {d:.3f}" for i, d in passes["glue"])
+        + f" ms; the modes (26 B an element, floor {elems * 26 / HBM_BYTES_PER_S * 1e3:.4f} ms) "
+        + ", ".join(f"{i:.3f} / {d:.3f}" for i, d in passes["modes"]) + f" ms; {CARD}")
+    return passes
+
+
 def stacked_path(torch, dev, tmpdir, leaf_sizes):
     """The fourth slice's path, in the one-rank NCCL group: logical-worker
     training with stacked fpisa (K1/K2 once per leaf per step over the
@@ -1250,10 +1499,8 @@ def stacked_path(torch, dev, tmpdir, leaf_sizes):
     times)."""
     from repro_torch.core.agg import AggConfig, Aggregator
     from repro_torch.core.bucketer import make_plan
-    from repro_torch.kernels import ops
 
-    launches, model, opt_state, _, _ = train_stacked(
-        torch, dev, "fpisa", ("fused_encode_align", "fused_decode"))
+    launches, model, opt_state, _, _ = train_stacked(torch, dev, "fpisa")
     stacks = worker_grads(torch, dev, model)
     want = Aggregator(AggConfig(backend="cuda"), stacked=True).allreduce_tree(stacks)
     same_bits(torch, Aggregator(AggConfig(backend="torch"), stacked=True)
@@ -1262,16 +1509,20 @@ def stacked_path(torch, dev, tmpdir, leaf_sizes):
     buckets = len(make_plan([torch.empty(p.shape, dtype=p.dtype, device="meta")
                              for p in model.parameters()], block=256,
                             bucket_bytes=bucket_bytes).buckets)
-    before = (ops.encode_align.launches, ops.decode_fused.launches)
+    zero_launches()
     same_bits(torch, Aggregator(AggConfig(backend="cuda", bucket_bytes=bucket_bytes),
                                 stacked=True).allreduce_tree(stacks), want,
               "bucketed stacked fpisa vs per-leaf stacked")
-    if (ops.encode_align.launches - before[0], ops.decode_fused.launches - before[1]) \
-            != (buckets, buckets):
-        raise AssertionError("bucketed stacked fpisa: not one K1/K2 launch per bucket")
+    check_fpisa_launches(read_launches(), buckets, "bucketed stacked fpisa", leaf=0)
     log(f"[check] stacked fpisa, full-width per-worker gradients ({len(stacks)} leaves x "
         f"k = {LOGICAL_WORKERS}): cuda bit-equal to plain; bucketed at {bucket_bytes} bytes "
-        f"({buckets} buckets, {buckets} K1/K2 launches) bit-equal to per-leaf stacked")
+        f"({buckets} buckets, {buckets} launches each of K1's exponent and wire modes and K2) "
+        f"bit-equal to per-leaf stacked")
+    stacked_agg = Aggregator(AggConfig(), stacked=True)
+    diagnose(torch, lambda: stacked_agg.allreduce_tree(stacks),
+             f"stacked aggregation, k = {LOGICAL_WORKERS} ({CARD})")
+    aggregation_kernels(torch, lambda: stacked_agg.allreduce_tree(stacks),
+                        f"stacked aggregation, k = {LOGICAL_WORKERS}")
     del stacks, want
     stacked_breakdown(torch, dev, model, opt_state, "fpisa")
     diagnose_passes(torch, dev, model)
@@ -1279,8 +1530,7 @@ def stacked_path(torch, dev, tmpdir, leaf_sizes):
     del model, opt_state
     torch.cuda.empty_cache()
 
-    seq_launches, model, opt_state, _, _ = train_stacked(torch, dev, "fpisa_seq",
-                                                         ("fpisa_accum",))
+    seq_launches, model, opt_state, _, _ = train_stacked(torch, dev, "fpisa_seq")
     stacks = worker_grads(torch, dev, model)
     same_bits(torch, Aggregator(AggConfig(strategy="fpisa_seq", backend="torch"), stacked=True)
               .allreduce_tree(stacks),
@@ -1458,26 +1708,62 @@ def fig9_path(torch, dev):
 
 def wrapper(name):
     """The launch function that counts kernel ``name``'s launches: A1's in
-    ``kernels/attention.py``, K1-K6's in ``kernels/ops.py``."""
+    ``kernels/attention.py``, K1-K6's in ``kernels/ops.py`` (K1's local
+    mode; ``k1_mode_wrappers`` has all three)."""
     from repro_torch.kernels import attention, ops
 
     return getattr(attention if name in A1 else ops, KERNEL_WRAPPER[name])
 
 
+def k1_mode_wrappers():
+    from repro_torch.kernels import ops
+
+    return {mode: getattr(ops, fn) for mode, fn in K1_MODES.items()}
+
+
 def zero_launches():
     for name in KERNELS:
         wrapper(name).launches = 0
+    for fn in k1_mode_wrappers().values():
+        fn.launches = 0
+    wrapper("fused_decode").modes = dict.fromkeys(K2_MODES, 0)
     for name in A1:
         wrapper(name).routes = dict.fromkeys(wrapper(name).routes, 0)
 
 
 def read_launches():
-    """Every kernel's count, and A1's per route as ``name@route`` (``wgmma``:
-    the bf16 tensor-core kernels; ``cuda_cores``: the float32 ones)."""
+    """Every kernel's count (K1's summed over its three modes), K1's and
+    K2's per mode as ``name@mode``, and A1's per route as ``name@route``
+    (``wgmma``: the bf16 tensor-core kernels; ``cuda_cores``: the float32
+    ones)."""
     counts = {name: wrapper(name).launches for name in KERNELS}
+    k1 = {mode: fn.launches for mode, fn in k1_mode_wrappers().items()}
+    counts["fused_encode_align"] = sum(k1.values())
+    counts.update({f"fused_encode_align@{mode}": n for mode, n in k1.items()})
+    counts.update({f"fused_decode@{mode}": n for mode, n in wrapper("fused_decode").modes.items()})
     counts.update({f"{name}@{route}": n
                    for name in A1 for route, n in wrapper(name).routes.items()})
     return counts
+
+
+def k1k2_subset(counts):
+    """K1's and K2's counts, in all and by mode, out of ``read_launches()``'s."""
+    return {k: v for k, v in counts.items() if k.split("@")[0] in K1K2}
+
+
+def check_fpisa_launches(counts, n, what, leaf=None):
+    """An ``fpisa`` path's K1 and K2 counts (``read_launches()``) for ``n``
+    aggregated tensors (leaves x steps, buckets, telemetry flushes): K1's
+    exponent and wire modes n launches each, its local mode none (no residual
+    shift, wire cast or fold runs outside the kernels), K2 n. ``leaf``: how
+    many of K2's wrote the leaf's dtype (the rest the format's)."""
+    got = {f"K1 {m}": counts[f"fused_encode_align@{m}"] for m in K1_MODES}
+    got["K2"] = counts["fused_decode"]
+    want = {"K1 local": 0, "K1 exponent": n, "K1 wire": n, "K2": n}
+    if leaf is not None:
+        got["K2 leaf"], want["K2 leaf"] = counts["fused_decode@leaf"], leaf
+    if got != want:
+        raise AssertionError(f"{what}: K1/K2 launches {got}, expected {want}")
 
 
 def a1_subset(counts):
@@ -1670,10 +1956,7 @@ def serve_path(torch, dev):
     paths["serve"] = read_launches()
     flushes = (check_telemetry(cont, cont_res, "continuous")
                + check_telemetry(static, static_res, "static"))
-    for k in ("fused_encode_align", "fused_decode"):
-        if paths["serve"][k] != flushes:
-            raise AssertionError(f"serve: {k} launched {paths['serve'][k]} times for "
-                                 f"{flushes} telemetry flushes (one each)")
+    check_fpisa_launches(paths["serve"], flushes, "serve telemetry (one per flush)")
     cont_tok = sum(len(r.tokens) for r in cont_res)
     static_tok = sum(len(r.tokens) for r in static_res)
     rep = latency_report(cont.latency_stats())
@@ -1781,22 +2064,24 @@ def family_train(torch, dev, cfg, strategy, seq_len=SEQ_LEN, tag="[models]"):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
-    leaves = len(list(model.parameters()))
-    want = {"fpisa": ("fused_encode_align", "fused_decode"),
-            "fpisa_seq": ("fpisa_accum",)}[strategy]
+    params = list(model.parameters())
+    leaves = len(params)
+    want = {"fpisa": K1K2, "fpisa_seq": ("fpisa_accum",)}[strategy]
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{cfg.name}: non-finite loss {losses}")
-    for k in want:
-        if launches[k] != leaves * STEPS:
-            raise AssertionError(f"{cfg.name} {strategy}: {k} launched {launches[k]} times in "
-                                 f"{STEPS} steps, expected {leaves} per step (one per leaf)")
+    if strategy == "fpisa":
+        check_fpisa_launches(launches, leaves * STEPS, f"{cfg.name} fpisa",
+                             leaf=sum(p.dtype != torch.float32 for p in params) * STEPS)
+    elif launches["fpisa_accum"] != leaves * STEPS:
+        raise AssertionError(f"{cfg.name} {strategy}: K6 launched {launches['fpisa_accum']} "
+                             f"times in {STEPS} steps, expected {leaves} per step (one per leaf)")
     if not all(torch.isfinite(p).all() for p in model.parameters()):
         raise AssertionError(f"{cfg.name}: non-finite parameter after training")
     log(f"{tag} {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}): {STEPS} steps "
         f"of {GLOBAL_BATCH} x {seq_len} with {strategy} in {wall:.2f} s (init included), "
         f"losses {losses}; {leaves} gradient leaves ({sum(p.numel() for p in model.parameters()):,}"
-        f" parameters), launches {json.dumps({k: launches[k] for k in want})} = {leaves} per "
-        f"step; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {CARD}")
+        f" parameters), launches {json.dumps({k: launches[k] for k in want})} (K1: two modes "
+        f"a leaf) for {leaves} leaves a step; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {CARD}")
     return launches, model, opt_state, wall
 
 
@@ -1848,10 +2133,8 @@ def models_mamba2(torch, dev):
     wall = time.perf_counter() - t0
     after = read_launches()
     flushes = check_telemetry(eng, results, f"{cfg.name} static")
-    for k in ("fused_encode_align", "fused_decode"):
-        if after[k] - before[k] != flushes:
-            raise AssertionError(f"{cfg.name} serving: {k} launched {after[k] - before[k]} "
-                                 f"times for {flushes} telemetry flushes")
+    check_fpisa_launches({k: after[k] - before[k] for k in after}, flushes,
+                         f"{cfg.name} serving telemetry (one per flush)")
     tokens = sum(len(r.tokens) for r in results)
     log(f"[models] (a) {cfg.name} static engine (batch {MODEL_REQUESTS}, max_len "
         f"{SERVE_MAX_LEN}): {len(results)} requests, {tokens} tokens in {wall:.2f} s = "
@@ -1923,10 +2206,7 @@ def models_arctic(torch, dev):
     launches = read_launches()
     overflows = moe.OVERFLOWS.read()
     flushes = check_telemetry(eng, results, f"{cfg.name} continuous")
-    for k in ("fused_encode_align", "fused_decode"):
-        if launches[k] != flushes:
-            raise AssertionError(f"{cfg.name} serving: {k} launched {launches[k]} times for "
-                                 f"{flushes} telemetry flushes")
+    check_fpisa_launches(launches, flushes, f"{cfg.name} serving telemetry (one per flush)")
     tokens = sum(len(r.tokens) for r in results)
     rep = latency_report(eng.latency_stats())
     log(f"[models] (c) {cfg.name} continuous ({SERVE_SLOTS} slots, max_len {SERVE_MAX_LEN}, "
@@ -2254,12 +2534,9 @@ def sharding_path(torch, dev):
         (plain, p_opt, p_losses), (meshed, m_opt, m_losses) = runs["plain"], runs["mesh"]
         leaves = len(list(meshed.parameters()))
         log(f"[sharding] (a) {STEPS} steps on mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}: "
-            f"losses {m_losses}, plain {p_losses}; K1/K2 launches {launches['fused_encode_align']}"
-            f"/{launches['fused_decode']} ({leaves} leaves); {CARD}")
-        for k in ("fused_encode_align", "fused_decode"):
-            if launches[k] != leaves * STEPS:
-                raise AssertionError(f"[sharding] {k} launched {launches[k]} times, expected "
-                                     f"{leaves * STEPS}")
+            f"losses {m_losses}, plain {p_losses}; K1/K2 launches "
+            f"{json.dumps(k1k2_subset(launches))} ({leaves} leaves); {CARD}")
+        check_fpisa_launches(launches, leaves * STEPS, "[sharding] mesh run")
         if m_losses != p_losses:
             raise AssertionError(f"[sharding] mesh losses {m_losses} != plain {p_losses}")
         for (name, a), b in zip(meshed.named_parameters(), plain.parameters()):
@@ -2366,8 +2643,7 @@ def sharding_path(torch, dev):
             f"{rec['roofline']['collective_s']:.3f} ({rec['roofline']['bottleneck']}), "
             f"traced in {rec['trace_s']} s")
     log(f"[sharding] the group took {time.perf_counter() - t0:.1f} s; {CARD}")
-    return {"sharded": {**{k: launches[k] for k in ("fused_encode_align", "fused_decode")},
-                        **a1_subset(launches)}}
+    return {"sharded": {**k1k2_subset(launches), **a1_subset(launches)}}
 
 
 # ---------------------------------------------------------------------------
@@ -2621,9 +2897,8 @@ def longctx_train(torch, dev):
     wall = time.perf_counter() - t0
     counts = read_launches()
     leaves = len(list(model.parameters()))
-    launches = {k: counts[k] for k in ("fused_encode_align", "fused_decode")}
-    if not all(v == leaves * STEPS for v in launches.values()):
-        raise AssertionError(f"longctx: K1/K2 launched {launches}, expected {leaves} per step")
+    launches = k1k2_subset(counts)
+    check_fpisa_launches(counts, leaves * STEPS, "longctx")
     launches.update(check_a1_launches(counts, cfg, STEPS, "longctx"))
     if not (all(math.isfinite(v) for v in losses)
             and all(torch.isfinite(p).all() for p in model.parameters())):
@@ -2902,6 +3177,39 @@ def diagnose(torch, run, what):
         if busy else "not measured (the profiler recorded no device time)"))
 
 
+# device-op names of the aggregation's kernels in a profile (csrc/fpisa_fused.cu)
+AGG_KERNELS = {"block_max_kernel": "K1 exponent", "encode_wire_kernel": "K1 wire",
+               "decode_kernel": "K2", "nccl": "NCCL"}
+
+
+def aggregation_kernels(torch, run, what):
+    """The device ops of one ``run()`` of an ``fpisa`` aggregation on the
+    cuda backend, from torch.profiler, by kind: K1's exponent and wire
+    modes, K2, NCCL, and anything else (an eager shift, cast, fold or
+    copy). Raises if anything else ran; "not measured" when the profiler
+    recorded no device op. Returns the counts by kind."""
+    from torch.autograd import DeviceType
+
+    events = profiled_events(torch, run) or []
+    device_ops = [e for e in events if e.device_type == DeviceType.CUDA]
+    if not device_ops:
+        log(f"[diagnose] {what}: device ops by kind not measured (the profiler recorded none)")
+        return None
+    kinds, other = dict.fromkeys(AGG_KERNELS.values(), 0), {}
+    for e in device_ops:
+        kind = next((v for k, v in AGG_KERNELS.items() if k in e.key), None)
+        if kind is None:
+            other[e.key[:90]] = other.get(e.key[:90], 0) + e.count
+        else:
+            kinds[kind] += e.count
+    log(f"[diagnose] {what}: device ops of one run by kind {json.dumps(kinds)}, other "
+        f"{json.dumps(other)}")
+    if other:
+        raise AssertionError(f"{what}: device ops other than K1's modes, K2 and NCCL ran "
+                             f"between the kernels and the collectives: {other}")
+    return kinds
+
+
 def check_grads_cuda_equals_plain(torch, dev, model, strategy, seq_len=SEQ_LEN):
     """On the trained full-width model's gradients (of the batch
     ``train_loop`` feeds, ``training_batch``), the cuda aggregation of
@@ -2933,7 +3241,15 @@ def check_against_plain(torch, dev, model):
     from repro_torch.core.agg import AggConfig
     from repro_torch.launch.train import train_loop
 
+    from repro_torch.core.agg import Aggregator
+
     check_grads_cuda_equals_plain(torch, dev, model, "fpisa")
+    batch = training_batch(torch, dev, model.cfg)
+    grads = list(torch.autograd.grad(model.loss(batch), list(model.parameters())))
+    aggregator = Aggregator(AggConfig(backend="cuda"))
+    aggregation_kernels(torch, lambda: aggregator.allreduce_tree(grads),
+                        f"per-leaf aggregation of {model.cfg.name}'s {len(grads)} gradient leaves")
+    del grads
     smoke = get_smoke_config("qwen1.5-0.5b")
     runs = {b: train_loop(smoke, steps=STEPS, global_batch=4, seq_len=64, device=dev,
                           agg=AggConfig(backend=b), log_every=STEPS)[2]
@@ -2997,41 +3313,111 @@ def step_leaves(torch, dev, leaf_sizes, seed=0):
 
 
 def timing(torch, dev, leaf_sizes):
-    """Per-step times of K1 and K2, their plain versions and a copy of the
-    same bytes, over the main path's leaf shapes; then the largest leaf."""
+    """K1 and K2 at the main path's shapes (the 14 leaves of one step as
+    (1, R, 256) bf16 stacks, the fp32 format, the 32-bit wire, preshift 0),
+    each against its byte bound, its plain version and a ``copy_`` of the
+    same bytes: K1 as the path runs it (exponent mode, then wire mode), each
+    mode alone, the local mode at fp32 leaves (the TPU kernel's function);
+    K2 into the leaves' bf16 and into the format's fp32. Then one step's
+    aggregation passes with the collectives left out: the eager-glue
+    composition (the staging cast, the local mode, the residual shift, K2 in
+    fp32 and the cast back, as the cuda backend ran before the modes)
+    against the modes', host issue against CUDA events. Then the largest
+    leaf alone. Returns {kernel: times}, with ``ms_by_mode``."""
     from repro_torch.core import fpisa
+    from repro_torch.core import numerics as nx
     from repro_torch.kernels import ops, ref
 
-    xs = step_leaves(torch, dev, leaf_sizes)
-    planes = [ops.encode_align(x, "fp32") for x in xs]
     fmt = fpisa.FP32
-    total_rows = sum(x.shape[0] for x in xs)
-    elems = total_rows * 256
-    copy = copy_ms(torch, dev, [x.numel() * 8 for x in xs])
-    what = f"one step = {len(xs)} leaves, {total_rows} rows x 256 fp32"
-    out = {
-        "fused_encode_align": time_kernel(
-            torch, "fused_encode_align", lambda: [ops.encode_align(x, "fp32") for x in xs],
-            lambda: [ref.fused_encode_align_ref(x, fmt) for x in xs],
-            elems * 8 + total_rows * 4, elems * OPS_PER_ELEM["fused_encode_align"], copy, what),
-        "fused_decode": time_kernel(
-            torch, "fused_decode", lambda: [ops.decode_fused(m, b, 0, "fp32") for m, b in planes],
-            lambda: [ref.fused_decode_ref(m, b, 0, fmt) for m, b in planes],
-            elems * 8 + total_rows * 4, elems * OPS_PER_ELEM["fused_decode"], copy, what),
+    x32 = step_leaves(torch, dev, leaf_sizes)
+    xs = [x.to(torch.bfloat16)[None] for x in x32]  # the main path's bf16 leaves
+    bmaxs = [ops.block_max(x, "fp32") for x in xs]
+    planes = [ops.encode_wire(x, b, 0, 32, "fp32") for x, b in zip(xs, bmaxs)]
+    rows = sum(x.shape[1] for x in xs)
+    elems = rows * 256
+    what = f"one step = {len(xs)} leaves, {rows} rows x 256 bf16, fp32 format, 32-bit wire"
+
+    def timed_mode(name, kernel, plain, per_elem, ops_per_elem, label, reps=20):
+        bytes_ = elems * per_elem + rows * 4
+        return time_kernel(torch, name, kernel, plain, bytes_, elems * ops_per_elem,
+                           copy_ms(torch, dev, [bytes_]), label, plain_reps=reps)
+
+    k1 = {
+        "exponent": timed_mode(
+            "fused_encode_align", lambda: [ops.block_max(x, "fp32") for x in xs],
+            lambda: [ref.block_max_ref(x, fmt) for x in xs], 2, OPS_PER_ELEM["block_max"],
+            f"exponent mode, {what}"),
+        "wire": timed_mode(
+            "fused_encode_align",
+            lambda: [ops.encode_wire(x, b, 0, 32, "fp32") for x, b in zip(xs, bmaxs)],
+            lambda: [ref.encode_wire_ref(x, b, 0, 32, fmt) for x, b in zip(xs, bmaxs)], 6,
+            OPS_PER_ELEM["encode_wire"], f"wire mode, {what}", reps=5),
+        "local": timed_mode(
+            "fused_encode_align", lambda: [ops.encode_align(x, "fp32") for x in x32],
+            lambda: [ref.fused_encode_align_ref(x, fmt) for x in x32], 8,
+            OPS_PER_ELEM["fused_encode_align"],
+            f"local mode, one step = {len(x32)} leaves, {rows} rows x 256 fp32", reps=5),
     }
+    # K1 as the path runs it: both modes, 8 bytes an element and 8 a row
+    pair_bytes = elems * 8 + rows * 8
+    out = {"fused_encode_align": time_kernel(
+        torch, "fused_encode_align",
+        lambda: [ops.encode_wire(x, ops.block_max(x, "fp32"), 0, 32, "fp32") for x in xs],
+        lambda: [ref.encode_wire_ref(x, ref.block_max_ref(x, fmt), 0, 32, fmt) for x in xs],
+        pair_bytes, elems * (OPS_PER_ELEM["block_max"] + OPS_PER_ELEM["encode_wire"]),
+        copy_ms(torch, dev, [pair_bytes]), f"exponent + wire mode, {what}", plain_reps=5)}
+    out["fused_encode_align"]["ms_by_mode"] = k1
+    k2 = {
+        "leaf": timed_mode(
+            "fused_decode",
+            lambda: [ops.decode_fused(m, b, 0, "fp32", torch.bfloat16) for m, b in zip(planes, bmaxs)],
+            lambda: [ref.fused_decode_ref(m, b, 0, fmt, torch.bfloat16)
+                     for m, b in zip(planes, bmaxs)], 6, OPS_PER_ELEM["decode_leaf"],
+            f"K2 into bf16, {what}", reps=5),
+        "format": timed_mode(
+            "fused_decode", lambda: [ops.decode_fused(m, b, 0, "fp32") for m, b in zip(planes, bmaxs)],
+            lambda: [ref.fused_decode_ref(m, b, 0, fmt) for m, b in zip(planes, bmaxs)], 8,
+            OPS_PER_ELEM["fused_decode"], f"K2 into fp32, {what}", reps=5),
+    }
+    out["fused_decode"] = dict(k2["leaf"], ms_by_mode=k2)
+
+    def glue():  # the cuda backend's passes before the modes, collectives left out
+        for x in xs:
+            man, b = ops.encode_align(fpisa.to_packed(x[0], "fp32"), "fp32")
+            man = nx.arshift(man, (b.clone() - b)[:, None] + 0)
+            ops.decode_fused(man, b, 0, "fp32").to(torch.bfloat16)
+
+    def modes():
+        for x in xs:
+            b = ops.block_max(x, "fp32")
+            ops.decode_fused(ops.encode_wire(x, b, 0, 32, "fp32"), b, 0, "fp32", torch.bfloat16)
+
+    passes = {}
+    for name, fn in (("glue", glue), ("modes", modes), ("glue", glue), ("modes", modes)):
+        fn()
+        torch.cuda.synchronize()
+        passes.setdefault(name, []).append(issue_vs_device(torch, fn))
+    log(f"[time] one step's aggregation passes without the collectives, {what}: eager-glue "
+        f"composition (36 B an element, floor {elems * 36 / HBM_BYTES_PER_S * 1e3:.4f} ms) host "
+        f"issue / CUDA events " + ", ".join(f"{i:.3f} / {d:.3f}" for i, d in passes["glue"])
+        + f" ms; the modes (14 B an element, floor {elems * 14 / HBM_BYTES_PER_S * 1e3:.4f} ms) "
+        + ", ".join(f"{i:.3f} / {d:.3f}" for i, d in passes["modes"]) + f" ms; {CARD}")
+    out["passes"] = passes
     # the largest leaf alone (the embedding, 607,744 rows)
-    big = max(range(len(xs)), key=lambda i: xs[i].shape[0])
-    x, (m, b) = xs[big], planes[big]
-    d = torch.empty_like(x)
-    for name, fn, pfn in (
-            ("fused_encode_align", lambda: ops.encode_align(x, "fp32"),
-             lambda: ref.fused_encode_align_ref(x, fmt)),
-            ("fused_decode", lambda: ops.decode_fused(m, b, 0, "fp32"),
-             lambda: ref.fused_decode_ref(m, b, 0, fmt))):
-        log(f"[time] {name}: largest leaf {x.shape[0]} x 256: kernel "
-            f"{median_ms(torch, fn):.4f} ms, plain {median_ms(torch, pfn, reps=20):.3f} ms, "
-            f"bound {x.numel() * 8 / HBM_BYTES_PER_S * 1e3:.4f} ms, copy_ "
-            f"{median_ms(torch, lambda: d.copy_(x)):.4f} ms")
+    big = max(range(len(xs)), key=lambda i: xs[i].shape[1])
+    x, b, m = xs[big], bmaxs[big], planes[big]
+    d = torch.empty_like(m)
+    for name, fn, pfn, per_elem in (
+            ("exponent mode", lambda: ops.block_max(x, "fp32"),
+             lambda: ref.block_max_ref(x, fmt), 2),
+            ("wire mode", lambda: ops.encode_wire(x, b, 0, 32, "fp32"),
+             lambda: ref.encode_wire_ref(x, b, 0, 32, fmt), 6),
+            ("K2 into bf16", lambda: ops.decode_fused(m, b, 0, "fp32", torch.bfloat16),
+             lambda: ref.fused_decode_ref(m, b, 0, fmt, torch.bfloat16), 6)):
+        log(f"[time] {name}: largest leaf {x.shape[1]} x 256 bf16: kernel "
+            f"{median_ms(torch, fn):.4f} ms, plain {median_ms(torch, pfn, reps=5):.3f} ms, "
+            f"bound {x.numel() * per_elem / HBM_BYTES_PER_S * 1e3:.4f} ms, copy_ of an int32 "
+            f"plane {median_ms(torch, lambda: d.copy_(m)):.4f} ms; {CARD}")
     return out
 
 
@@ -3721,7 +4107,14 @@ def main() -> int:
                 "library_ms": times[name].get("library_ms"),
                 **({"launches_by_route": {p: {r: v[A1.index(name)] for r, v in rs.items()}
                                           for p, rs in a1_routes.items()}}
-                   if name in A1 else {})}
+                   if name in A1 else {}),
+                **({"launches_by_mode": {p: {k.split("@")[1]: v for k, v in n.items()
+                                             if k.startswith(name + "@")}
+                                         for p, n in paths.items() if name + "@local" in n
+                                         or name + "@leaf" in n},
+                    "ms_by_mode": {m: {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "copy_ms")}
+                                   for m, t in times[name]["ms_by_mode"].items()}}
+                   if name in K1K2 else {})}
                for name in KERNELS]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -33,8 +33,16 @@ switch_emu : validation strategy: the all-gathered per-worker gradients go
 The encode->align before the SUM and the decode after it run as the Hopper
 kernels of ``kernels/fpisa_fused.py`` on the ``cuda`` backend, and as the
 plain reference formulation on ``torch`` (see ``core/agg.py``); the two are
-bit-identical. The residual shift to the cross-worker exponent and the wire
-cast between them are plain torch.
+bit-identical. On ``cuda`` a leaf goes through K1's exponent mode (block
+max over the rank's workers), the MAX all-reduce, K1's wire mode (the
+alignment to the agreed exponent in one shift, the wire cast and the fold
+over the rank's logical workers), the SUM, and K2 in the leaf's dtype: no
+shift, cast or fold runs in torch between the kernels and the collectives.
+The kernels read a leaf whose cast to the format is exact (the format's
+dtype, or fp16/bf16 into fp32) as it is; any other leaf is cast first
+(``fpisa.to_packed``, with F9's NaN rule). What stays eager: that narrowing
+cast, the bucketer's pack and unpack casts, and the hierarchical path's
+pod-hop shift and cast and its decode to the format's dtype.
 
 16-bit wire: neither gloo nor NCCL has an int16 SUM, so a 16-bit wire plane
 is carried on the collective as int32 values. They are the same values (the
@@ -67,6 +75,7 @@ from repro_torch.core.agg import (
     AggConfig, _initialized, group_rank, register_strategy, resolve_backend, world_size,
 )
 from repro_torch.kernels import ops
+from repro_torch.kernels.fpisa_fused import widens
 from repro_torch.switchsim import (
     DataplaneConfig, NumpyDataplane, run_aggregation, shared_emulated_allreduce,
 )
@@ -140,32 +149,49 @@ def _reduce_scatter(man: torch.Tensor, group) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _encode_align(flat: torch.Tensor, group, shift: int, cfg: AggConfig, backend: str):
-    """flat (N,) packed FP -> (man (N,) int32 aligned to the cross-worker
-    block exponent and pre-shifted by ``shift``, bmax (N/block,) int32).
+def _kernel_input(x: torch.Tensor, cfg: AggConfig) -> torch.Tensor:
+    """A leaf as K1's exponent and wire modes read it: as it is where its
+    cast to the format is exact, else cast by ``fpisa.to_packed``. The
+    kernels move 16-byte words, so a view that starts off a 16-byte
+    boundary (a chunk cut at an odd offset) is copied first."""
+    if not widens(x.dtype, cfg.fmt_name):
+        x = fpisa.to_packed(x, cfg.fmt_name)
+    if x.data_ptr() % 16:
+        x = x.clone()
+    return x
 
-    Runs the block-exponent MAX all-reduce between the local extract and the
-    final alignment. The cuda backend extracts and aligns to the local block
-    max in one kernel pass, then applies the residual per-element shift."""
+
+def _encode_align(flat: torch.Tensor, group, shift: int, wire_bits: int, cfg: AggConfig,
+                  backend: str):
+    """flat (N,) leaf -> (the wire plane (N,): mantissas aligned to the
+    cross-worker block exponent, pre-shifted by ``shift`` and cast to the
+    ``wire_bits`` wire, bmax (N/block,) int32).
+
+    Runs the block-exponent MAX all-reduce between the exponents and the
+    alignment. The cuda backend runs K1's exponent mode, the MAX, then K1's
+    wire mode (one pass: encode, align, wire cast; a 16-bit wire comes out
+    as int32); the torch backend is the reference formulation."""
     if backend == "cuda":
-        man_local, local_bmax = ops.encode_align(flat.reshape(-1, cfg.block), cfg.fmt_name)
-        bmax = _pmax(local_bmax, group)
-        man = nx.arshift(man_local, (bmax - local_bmax)[:, None] + shift)
-        return man.reshape(-1), bmax
+        x = _kernel_input(flat, cfg).reshape(1, -1, cfg.block)
+        bmax = _all_reduce_(ops.block_max(x, cfg.fmt_name), dist.ReduceOp.MAX, group)
+        return ops.encode_wire(x, bmax, shift, wire_bits, cfg.fmt_name).reshape(-1), bmax
     planes = fpisa.encode(flat, cfg.fmt)
     bmax = _pmax(fpisa.block_max_exponent(planes.exp, cfg.block), group)
     be = bmax.repeat_interleave(cfg.block)
-    return nx.arshift(planes.man, (be - planes.exp) + shift), bmax
+    return _wire_cast(nx.arshift(planes.man, (be - planes.exp) + shift), wire_bits), bmax
 
 
 def _decode(man_sum: torch.Tensor, bmax: torch.Tensor, shift: int, cfg: AggConfig,
-            backend: str) -> torch.Tensor:
+            backend: str, dtype: torch.dtype | None = None) -> torch.Tensor:
     """(N,) aggregated mantissas (any wire dtype) + (N/block,) block exps ->
-    (N,) packed FP via delayed renormalization."""
-    if backend == "cuda":
-        out = ops.decode_fused(man_sum.reshape(-1, cfg.block), bmax, shift, cfg.fmt_name)
+    (N,) FP via delayed renormalization, in the format's dtype or cast to
+    ``dtype`` (K2 casts in registers)."""
+    if backend == "cuda":  # K2 writes fp32, fp16 or bf16; _unflatten casts to any other
+        out = ops.decode_fused(man_sum.reshape(-1, cfg.block), bmax, shift, cfg.fmt_name,
+                               dtype if dtype in fpisa.FMT_OF_DTYPE else None)
         return out.reshape(-1)
-    return fpisa.block_decode(man_sum.to(torch.int32), bmax, cfg.block, shift, cfg.fmt)
+    out = fpisa.block_decode(man_sum.to(torch.int32), bmax, cfg.block, shift, cfg.fmt)
+    return out if dtype is None else out.to(dtype)
 
 
 def _flatten_pad(x: torch.Tensor, block: int):
@@ -275,19 +301,18 @@ def _wire_cast(man: torch.Tensor, wire_bits: int) -> torch.Tensor:
 def fpisa_allreduce(x: torch.Tensor, group, cfg: AggConfig) -> torch.Tensor:
     """the paper's block-exponent integer planes (production path)
 
-    The input is handled in the format's packed dtype (staged through a cast
-    when the leaf has another dtype); the result is cast back to the leaf's
-    dtype."""
+    The input is encoded in the format (``fpisa.encode`` casts it on the
+    torch backend; K1 widens it, or it is cast first, on cuda); the result
+    is decoded in the leaf's dtype."""
     w = world_size(group)
     backend = resolve_backend(cfg.backend, x.device)
-    orig_shape, orig_dtype = x.shape, x.dtype
-    flat, pad = _flatten_pad(fpisa.to_packed(x, cfg.fmt_name), cfg.block)
+    flat, pad = _flatten_pad(x, cfg.block)
 
     shift = _wire_shift(cfg.fmt, w, cfg.wire_bits)
-    man, bmax = _encode_align(flat, group, shift, cfg, backend)
-    man_sum = _psum_wire(_wire_cast(man, cfg.wire_bits), group)
-    out = _decode(man_sum, bmax, shift, cfg, backend)
-    return _unflatten(out, pad, orig_shape, orig_dtype)
+    man, bmax = _encode_align(flat, group, shift, cfg.wire_bits, cfg, backend)
+    man_sum = _psum_wire(man, group)
+    out = _decode(man_sum, bmax, shift, cfg, backend, x.dtype)
+    return _unflatten(out, pad, x.shape, x.dtype)
 
 
 def _hier_collect(man: torch.Tensor, data_group, pod_group, cfg: AggConfig,
@@ -345,11 +370,11 @@ def fpisa_allreduce_hierarchical(x: torch.Tensor, data_group, pod_group,
     backend = resolve_backend(cfg.backend, x.device)
     orig_shape, orig_dtype = x.shape, x.dtype
     # pad to block * w_data so the reduce-scatter tiles evenly
-    flat, pad = _flatten_pad(fpisa.to_packed(x, cfg.fmt_name),
-                             cfg.block * world_size(data_group))
+    flat, pad = _flatten_pad(x, cfg.block * world_size(data_group))
 
     shift = _wire_shift(cfg.fmt, w, cfg.wire_bits)
-    man, bmax = _encode_align(flat, (pod_group, data_group), shift, cfg, backend)
+    # full precision into the data-group reduce-scatter: the 32-bit wire
+    man, bmax = _encode_align(flat, (pod_group, data_group), shift, 32, cfg, backend)
     man_shard, pod_shift, _ = _hier_collect(man, data_group, pod_group, cfg, shift)
     out = _hier_finish(man_shard, bmax, shift, pod_shift, data_group, cfg, backend)
     return _unflatten(out, pad, orig_shape, orig_dtype)
@@ -454,30 +479,27 @@ def _stacked_pad(rows: torch.Tensor, quantum: int):
     return rows, pad
 
 
-def _encode_align_stacked(rows: torch.Tensor, group, shift: int, cfg: AggConfig,
-                          backend: str):
-    """rows (k, Nb) packed FP -> (man (k, Nb) int32 aligned to the block
-    exponent maxed over ALL W logical workers, bmax (Nb/block,) int32).
+def _encode_align_stacked(rows: torch.Tensor, group, shift: int, wire_bits: int,
+                          cfg: AggConfig, backend: str):
+    """rows (k, Nb) leaf -> (the (Nb,) wire plane: the k workers' mantissas
+    aligned to the block exponent maxed over ALL W logical workers, each
+    cast to the wire and folded in int32, bmax (Nb/block,) int32).
 
     The block max folds the local worker axis before the MAX all-reduce;
     max is associative, so the agreed exponent (and with it every aligned
     mantissa) does not depend on the placement of the workers. The cuda
-    backend runs K1 once over the (k * Nb/block, block) rows, then the
-    residual shift to the agreed exponent."""
-    k, nb_elems = rows.shape
-    nblocks = nb_elems // cfg.block
+    backend runs K1's exponent mode over the (k, Nb/block, block) stack,
+    the MAX, then K1's wire mode, which takes in the fold."""
+    k = rows.shape[0]
     if backend == "cuda":
-        man_local, local_bmax = ops.encode_align(rows.reshape(-1, cfg.block), cfg.fmt_name)
-        local_bmax = local_bmax.reshape(k, nblocks)
-        bmax = _pmax(local_bmax.amax(0), group)
-        man = nx.arshift(man_local.reshape(k, nblocks, cfg.block),
-                         (bmax[None, :] - local_bmax)[:, :, None] + shift)
-        return man.reshape(k, nb_elems), bmax
+        x = _kernel_input(rows, cfg).reshape(k, -1, cfg.block)
+        bmax = _all_reduce_(ops.block_max(x, cfg.fmt_name), dist.ReduceOp.MAX, group)
+        return ops.encode_wire(x, bmax, shift, wire_bits, cfg.fmt_name).reshape(-1), bmax
     planes = fpisa.encode(rows, cfg.fmt)
     local_bmax = fpisa.block_max_exponent(planes.exp, cfg.block)  # (k, nblocks)
     bmax = _pmax(local_bmax.amax(0), group)
     be = bmax.repeat_interleave(cfg.block)[None, :]
-    return nx.arshift(planes.man, (be - planes.exp) + shift), bmax
+    return _fold_workers(nx.arshift(planes.man, (be - planes.exp) + shift), wire_bits), bmax
 
 
 def _fold_workers(man: torch.Tensor, wire_bits: int) -> torch.Tensor:
@@ -503,15 +525,13 @@ def stacked_fpisa_allreduce(x: torch.Tensor, group, cfg: AggConfig) -> torch.Ten
     k = x.shape[0]
     w = k * world_size(group)
     backend = resolve_backend(cfg.backend, x.device)
-    orig_shape, orig_dtype = x.shape[1:], x.dtype
-    rows, pad = _stacked_pad(fpisa.to_packed(x.reshape(x.shape[0], -1), cfg.fmt_name),
-                             cfg.block)
+    rows, pad = _stacked_pad(x.reshape(k, -1), cfg.block)
 
     shift = _wire_shift(cfg.fmt, w, cfg.wire_bits)
-    man, bmax = _encode_align_stacked(rows, group, shift, cfg, backend)
-    man_sum = _psum_wire(_fold_workers(man, cfg.wire_bits), group)
-    out = _decode(man_sum, bmax, shift, cfg, backend)
-    return _unflatten(out, pad, orig_shape, orig_dtype)
+    man, bmax = _encode_align_stacked(rows, group, shift, cfg.wire_bits, cfg, backend)
+    man_sum = _psum_wire(man, group)
+    out = _decode(man_sum, bmax, shift, cfg, backend, x.dtype)
+    return _unflatten(out, pad, x.shape[1:], x.dtype)
 
 
 def stacked_switchml_allreduce(x: torch.Tensor, group, cfg: AggConfig) -> torch.Tensor:
@@ -603,8 +623,7 @@ def _fpisa_flat_phases(group, cfg: AggConfig, backend: str):
     shift = _wire_shift(cfg.fmt, world_size(group), cfg.wire_bits)
 
     def encode(flat):
-        man, bmax = _encode_align(flat, group, shift, cfg, backend)
-        return _wire_cast(man, cfg.wire_bits), bmax
+        return _encode_align(flat, group, shift, cfg.wire_bits, cfg, backend)
 
     return (encode, *_sum_phases(group, shift, cfg, backend))
 
@@ -617,8 +636,7 @@ def _fpisa_stacked_phases(group, cfg: AggConfig, backend: str, k: int):
     shift = _wire_shift(cfg.fmt, k * world_size(group), cfg.wire_bits)
 
     def encode(buf):  # (k, elems) packed FP
-        man, bmax = _encode_align_stacked(buf, group, shift, cfg, backend)
-        return _fold_workers(man, cfg.wire_bits), bmax
+        return _encode_align_stacked(buf, group, shift, cfg.wire_bits, cfg, backend)
 
     return (encode, *_sum_phases(group, shift, cfg, backend))
 
@@ -644,7 +662,7 @@ def _fpisa_hier_phases(data_group, pod_group, cfg: AggConfig, backend: str,
         roll = (stripe % w_data) * (flat.shape[0] // w_data)
         if roll:
             flat = torch.roll(flat, -roll)
-        man, bmax = _encode_align(flat, (pod_group, data_group), shift, cfg, backend)
+        man, bmax = _encode_align(flat, (pod_group, data_group), shift, 32, cfg, backend)
         return man, bmax, pad, roll
 
     def collect(state):

@@ -58,11 +58,17 @@ def to_packed(x: torch.Tensor, fmt_name: str) -> torch.Tensor:
 
     Torch's cast rounds to nearest even as XLA does, but its CPU cast to
     bf16 writes 0xFFFF for every float32 NaN, where XLA keeps the sign
-    (0x7FC0 / 0xFFC0). FPISA encode clamps a NaN to +-max by its sign bit,
-    so a positive NaN would come out as -max: NaN lanes take XLA's word,
-    which gives the same bits on the CPU and the card by construction."""
+    (0x7FC0 / 0xFFC0), and its CUDA cast of an fp16 NaN to float32 makes
+    it positive. FPISA encode clamps a NaN to +-max by its sign bit, so the
+    sign decides the bits: NaN lanes take the quiet NaN of their own sign
+    (XLA's word for bf16), the same bits on the CPU and the card by
+    construction."""
     dtype = PACKED_DTYPE[fmt_name]
     y = x.to(dtype)
+    if dtype is torch.float32 and x.dtype == torch.float16:
+        quiet = torch.where(x.view(torch.int16) < 0, -0x400000, 0x7FC00000)  # 0xFFC00000
+        bits = torch.where(torch.isnan(x), quiet, y.view(torch.int32))
+        return bits.to(torch.int32).view(torch.float32)
     if dtype is not torch.bfloat16 or x.dtype == torch.bfloat16:
         return y
     quiet = torch.where(torch.signbit(x), -0x40, 0x7FC0)  # 0xFFC0 / 0x7FC0 as int16

@@ -3,7 +3,9 @@
 // Plain C++ on 32-bit integers, callable from device code (and from host
 // code, so the arithmetic can be checked without a card). Every function is
 // the bit-exact counterpart of one function of repro_torch/core/fpisa.py and
-// repro_torch/core/numerics.py.
+// repro_torch/core/numerics.py, or, for the casts between dtypes (widen,
+// cast_to), of the leaf's cast ``Tensor.to`` (exact, or rounding to nearest
+// even).
 //
 // Shift distances are clamped to [0, 31] everywhere: shifting a 32-bit
 // integer by 32 or more is undefined behaviour in C++ and CUDA. Left shifts
@@ -80,6 +82,18 @@ FPISA_HD Plane encode(uint32_t bits) {
   return Plane{exp, sign ? -mag : mag};
 }
 
+// The exponent field of raw bits. encode<F>(bits).exp is the field with
+// inf/NaN (the all-ones field) clamped to exp_mask - 1; max commutes with
+// that clamp, so a block's max exponent is block_exp<F>(the max field).
+template <class F>
+FPISA_HD int32_t exp_field(uint32_t bits) {
+  return (int32_t)((bits >> F::man_bits) & (uint32_t)F::exp_mask);
+}
+template <class F>
+FPISA_HD int32_t block_exp(int32_t max_field) {
+  return max_field < F::exp_mask - 1 ? max_field : F::exp_mask - 1;
+}
+
 // fpisa.renormalize on one (exponent, summed mantissa) pair -> raw bits of
 // the packed format (low total_bits bits of the result).
 template <class F>
@@ -118,6 +132,90 @@ FPISA_HD uint32_t to_f32_bits(uint32_t bits) {
   const uint32_t e32 = exp == 0u ? 0u
                        : (exp == (uint32_t)F::exp_mask ? 255u : exp - F::bias + 127u);
   return (sign << 31) | (e32 << 23) | (man << (23 - F::man_bits));
+}
+
+// Dtype codes of the entry points' fmt / dtype arguments: 0 = fp32, 1 =
+// fp16, 2 = bf16 (kernels/fpisa_fused.py FMT_CODES). Bits<D> holds one raw
+// element of dtype D.
+template <class F> struct FmtCode;
+template <> struct FmtCode<Fp32> { static constexpr int value = 0; };
+template <> struct FmtCode<Fp16> { static constexpr int value = 1; };
+template <> struct FmtCode<Bf16> { static constexpr int value = 2; };
+template <int D> struct Bits { using T = uint16_t; };
+template <> struct Bits<0> { using T = uint32_t; };
+
+// fp16 bits -> the float32 bits of the same value. Exact: every fp16 value,
+// denormals included, is a float32 normal or zero; inf and NaN keep their
+// sign and stay inf and NaN.
+FPISA_HD uint32_t f16_to_f32_bits(uint32_t h) {
+  const uint32_t sign = (h & 0x8000u) << 16;
+  const uint32_t exp = (h >> 10) & 0x1Fu;
+  const uint32_t man = h & 0x3FFu;
+  if (exp == 0x1Fu) return sign | 0x7F800000u | (man << 13);
+  if (exp != 0u) return sign | ((exp + 112u) << 23) | (man << 13);
+  if (man == 0u) return sign;
+  const int32_t p = 31 - clz32(man);  // the denormal's leading bit, 0..9
+  return sign | ((uint32_t)(p + 103) << 23) | ((man << (23 - p)) & 0x7FFFFFu);
+}
+
+// float32 bits (not a NaN) -> bf16 bits, rounding to nearest even.
+FPISA_HD uint32_t f32_to_bf16_rne(uint32_t f) {
+  return (f + 0x7FFFu + ((f >> 16) & 1u)) >> 16;
+}
+
+// float32 bits (not a NaN) -> fp16 bits, rounding to nearest even: from
+// 65520 up to inf, and below 2^-14 to a denormal or zero.
+FPISA_HD uint32_t f32_to_f16_rne(uint32_t f) {
+  const uint32_t sign = (f >> 16) & 0x8000u;
+  const uint32_t a = f & 0x7FFFFFFFu;
+  if (a >= 0x47800000u) return sign | 0x7C00u;  // 2^16 and up
+  if (a >= 0x38800000u) {                       // 2^-14 and up: a normal
+    const uint32_t r = a - 0x38000000u;         // exponent bias 127 -> 15
+    return sign | ((r + 0xFFFu + ((r >> 13) & 1u)) >> 13);
+  }
+  // a = m x 2^(e - 150); in units of fp16's smallest denormal, 2^-24, that
+  // is m >> (126 - e), which rounds to 0 below 2^-25
+  const uint32_t s = 126u - (a >> 23);
+  if (s > 24u) return sign;
+  const uint32_t m = (a & 0x7FFFFFu) | 0x800000u;
+  const uint32_t q = m >> s, rem = m & ((1u << s) - 1u), half = 1u << (s - 1u);
+  return sign | (q + ((rem > half || (rem == half && (q & 1u))) ? 1u : 0u));
+}
+
+// A leaf element's raw bits (dtype D) -> the raw bits format F reads. The
+// cast is exact: D is F's own dtype, or F is fp32 and D is fp16 or bf16.
+template <class F, int D>
+FPISA_HD uint32_t widen(uint32_t raw) {
+  if constexpr (FmtCode<F>::value == D) {
+    return raw;
+  } else {
+    static_assert(FmtCode<F>::value == 0, "only fp32 holds fp16 and bf16 exactly");
+    return D == 2 ? raw << 16 : f16_to_f32_bits(raw);
+  }
+}
+
+// A renormalize<F> result -> the raw bits of dtype D holding its value,
+// rounded to nearest even as a cast does (renormalize makes no NaN).
+template <class F, int D>
+FPISA_HD uint32_t cast_to(uint32_t bits) {
+  if constexpr (FmtCode<F>::value == D) {
+    return bits;
+  } else {
+    const uint32_t f = to_f32_bits<F>(bits);
+    if constexpr (D == 0) return f;
+    else if constexpr (D == 1) return f32_to_f16_rne(f);
+    else return f32_to_bf16_rne(f);
+  }
+}
+
+// A value on a WIRE_BITS-bit wire: cast to the wire's integer and back,
+// wrapping as the reference's astype does (the wire shift keeps every value
+// and every partial sum in range).
+template <int WIRE_BITS>
+FPISA_HD int32_t to_wire(int32_t v) {
+  if constexpr (WIRE_BITS == 16) return (int32_t)(int16_t)v;
+  else if constexpr (WIRE_BITS == 8) return (int32_t)(int8_t)v;
+  else return v;
 }
 
 // int32 register add, wrapping (fpisa._add).

@@ -18,7 +18,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.fpisa import PACKED_DTYPE
-from repro_torch.kernels.fpisa_fused import FMT_CODES, _lib, check_plane, check_row_vector, raise_on
+from repro_torch.kernels.fpisa_fused import (
+    FMT_CODES, _lib, check_aligned, check_plane, check_row_vector, raise_on,
+)
 
 
 def fpisa_decode(man_sum: torch.Tensor, bmax: torch.Tensor, preshift: int = 0,
@@ -26,6 +28,7 @@ def fpisa_decode(man_sum: torch.Tensor, bmax: torch.Tensor, preshift: int = 0,
     """(R, B) int32 CUDA summed mantissas + (R,) int32 block exponents ->
     (R, B) packed FP in the format's dtype."""
     check_plane(man_sum, "man_sum")
+    check_aligned(man_sum, "man_sum")
     if man_sum.dtype != torch.int32:
         raise ValueError(f"man_sum must be int32, got {man_sum.dtype}")
     check_row_vector(bmax, man_sum, "bmax")

@@ -9,7 +9,13 @@ launch to fall back to the plain version.
 Each wrapper keeps a plain integer count of its kernel launches
 (``encode_align.launches``, ``decode_fused.launches``, ``extract.launches``,
 ...), incremented where the kernel is launched and nowhere else, so a run
-can show that it went through the kernels. ``chunked_attention`` (A1, the
+can show that it went through the kernels. K1's three modes are three
+wrappers, each with its own count: ``encode_align`` (local mode),
+``block_max`` (exponent mode) and ``encode_wire`` (wire mode). K2's
+``decode_fused`` also counts its launches by mode in
+``decode_fused.modes``: ``"format"`` where it writes the format's dtype,
+``"leaf"`` where it writes another (the leaf's cast taken in).
+``chunked_attention`` (A1, the
 port's kernel for the reference's ``jnp`` chunked attention) counts on its
 two launch functions in ``kernels/attention.py``:
 ``attention_forward.launches`` and ``attention_backward.launches`` (one per
@@ -37,8 +43,8 @@ def _check_format(x: torch.Tensor, fmt_name: str) -> None:
 
 
 def encode_align(x: torch.Tensor, fmt_name: str = "fp32"):
-    """Fused single-pass extract + align to the LOCAL block max:
-    x (R, B) packed FP -> (man (R, B) int32, bmax (R,) int32)."""
+    """K1's local mode, fused single-pass extract + align to the LOCAL
+    block max: x (R, B) packed FP -> (man (R, B) int32, bmax (R,) int32)."""
     _check_format(x, fmt_name)
     if x.is_cuda:
         out = fpisa_fused.fused_encode_align(x, fmt_name)
@@ -47,15 +53,50 @@ def encode_align(x: torch.Tensor, fmt_name: str = "fp32"):
     return ref.fused_encode_align_ref(x, fpisa.FORMATS[fmt_name])
 
 
-def decode_fused(man_sum: torch.Tensor, bmax: torch.Tensor, preshift: int = 0,
-                 fmt_name: str = "fp32") -> torch.Tensor:
-    """Fused decode accepting narrow wire dtypes (int8/int16/int32):
-    (R, B) summed mantissas + (R,) block exponents -> (R, B) packed FP."""
-    if man_sum.is_cuda:
-        out = fpisa_fused.fused_decode(man_sum, bmax, preshift, fmt_name)
-        decode_fused.launches += 1
+def _check_stack(x: torch.Tensor, fmt_name: str) -> None:
+    if x.dim() != 3:
+        raise ValueError(f"expected a (k, R, B) stack, got shape {tuple(x.shape)}")
+    if not fpisa_fused.widens(x.dtype, fmt_name):
+        raise ValueError(f"fmt_name={fmt_name!r} reads {fpisa.PACKED_DTYPE[fmt_name]} "
+                         f"leaves (fp32 also fp16 and bf16), got {x.dtype}")
+
+
+def block_max(x: torch.Tensor, fmt_name: str = "fp32") -> torch.Tensor:
+    """K1's exponent mode: x (k, R, B) leaf, k workers' rows -> (R,) int32,
+    each block's max exponent over the k workers."""
+    _check_stack(x, fmt_name)
+    if x.is_cuda:
+        out = fpisa_fused.block_max(x, fmt_name)
+        block_max.launches += 1
         return out
-    return ref.fused_decode_ref(man_sum, bmax, preshift, fpisa.FORMATS[fmt_name])
+    return ref.block_max_ref(x, fpisa.FORMATS[fmt_name])
+
+
+def encode_wire(x: torch.Tensor, bmax: torch.Tensor, preshift: int, wire_bits: int,
+                fmt_name: str = "fp32") -> torch.Tensor:
+    """K1's wire mode: x (k, R, B) leaf + the agreed (R,) block exponents ->
+    the (R, B) wire plane (int32; int8 for an 8-bit wire): aligned in one
+    shift, pre-shifted, wire-cast and summed over the k workers."""
+    _check_stack(x, fmt_name)
+    if x.is_cuda:
+        out = fpisa_fused.encode_wire(x, bmax, preshift, wire_bits, fmt_name)
+        encode_wire.launches += 1
+        return out
+    return ref.encode_wire_ref(x, bmax, preshift, wire_bits, fpisa.FORMATS[fmt_name])
+
+
+def decode_fused(man_sum: torch.Tensor, bmax: torch.Tensor, preshift: int = 0,
+                 fmt_name: str = "fp32", out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Fused decode accepting narrow wire dtypes (int8/int16/int32):
+    (R, B) summed mantissas + (R,) block exponents -> (R, B) FP in the
+    format's dtype, or cast to ``out_dtype``."""
+    if man_sum.is_cuda:
+        out = fpisa_fused.fused_decode(man_sum, bmax, preshift, fmt_name, out_dtype)
+        decode_fused.launches += 1
+        decode_fused.modes["format" if out.dtype == fpisa.PACKED_DTYPE[fmt_name]
+                           else "leaf"] += 1
+        return out
+    return ref.fused_decode_ref(man_sum, bmax, preshift, fpisa.FORMATS[fmt_name], out_dtype)
 
 
 def extract(x: torch.Tensor, fmt_name: str = "fp32"):
@@ -122,7 +163,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, caus
 
 
 encode_align.launches = 0
+block_max.launches = 0
+encode_wire.launches = 0
 decode_fused.launches = 0
+decode_fused.modes = {"format": 0, "leaf": 0}
 extract.launches = 0
 align.launches = 0
 decode.launches = 0

@@ -53,11 +53,42 @@ def fused_encode_align_ref(x: torch.Tensor, fmt: fpisa.FpFormat = fpisa.FP32):
     return align_ref(exp, man, bmax, 0, fmt), bmax
 
 
+def block_max_ref(x: torch.Tensor, fmt: fpisa.FpFormat = fpisa.FP32):
+    """Plain version of ``block_max`` (K1's exponent mode): x (k,R,B) leaf
+    -> (R,) int32, each block's max exponent over the k workers (folded in
+    order, worker 0 first). The leaf's cast to the format is exact (the
+    format's dtype, or fp16/bf16 into fp32)."""
+    exp = fpisa.encode(x, fmt).exp.amax(dim=-1)  # (k, R)
+    out = exp[0]
+    for w in range(1, exp.shape[0]):
+        out = torch.maximum(out, exp[w])
+    return out
+
+
+def encode_wire_ref(x: torch.Tensor, bmax: torch.Tensor, preshift: int, wire_bits: int,
+                    fmt: fpisa.FpFormat = fpisa.FP32):
+    """Plain version of ``encode_wire`` (K1's wire mode): x (k,R,B) leaf +
+    the agreed (R,) block exponents -> the (R,B) wire plane. Each worker's
+    mantissas are aligned in one shift, ``arshift(man, (bmax - exp) +
+    preshift)``, cast to the wire, summed in int32 worker 0 first, and the
+    sum cast to the wire again; int32 for 32- and 16-bit wires (a 16-bit
+    wire travels as int32), int8 for the 8-bit wire."""
+    planes = fpisa.encode(x, fmt)
+    man = nx.arshift(planes.man, (bmax[None, :, None] - planes.exp) + preshift)
+    wire = {8: torch.int8, 16: torch.int16, 32: torch.int32}[wire_bits]
+    total = man[0].to(wire).to(torch.int32)
+    for w in range(1, man.shape[0]):
+        total = total + man[w].to(wire).to(torch.int32)
+    return total.to(wire).to(torch.int8 if wire_bits == 8 else torch.int32)
+
+
 def fused_decode_ref(man_sum: torch.Tensor, bmax: torch.Tensor, preshift: int,
-                     fmt: fpisa.FpFormat = fpisa.FP32):
+                     fmt: fpisa.FpFormat = fpisa.FP32, out_dtype: torch.dtype | None = None):
     """Plain version of ``fused_decode``: (R,B) summed mantissas of any wire
-    dtype (int8/int16/int32) + (R,) block exponents -> (R,B) packed FP."""
-    return decode_ref(man_sum.to(torch.int32), bmax, preshift, fmt)
+    dtype (int8/int16/int32) + (R,) block exponents -> (R,B) FP, in the
+    format's dtype or cast to ``out_dtype``."""
+    out = decode_ref(man_sum.to(torch.int32), bmax, preshift, fmt)
+    return out if out_dtype is None else out.to(out_dtype)
 
 
 def accum_ref(x: torch.Tensor, variant: str = "fpisa_a",

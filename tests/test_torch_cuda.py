@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on the card: K1 (fpisa_encode_align), K2
-(fpisa_decode_fused), K3 (fpisa_extract), K4 (fpisa_align), K5
+"""The port's CUDA kernels on the card: K1 (fpisa_encode_align; its exponent
+and wire modes fpisa_block_max and fpisa_encode_wire), K2
+(fpisa_decode_fused, into every dtype), K3 (fpisa_extract), K4 (fpisa_align), K5
 (fpisa_decode) and K6 (fpisa_accum) against their plain PyTorch versions on
 the same CUDA tensors, bit for bit (integer views), over the CPU suite's
 sweep plus the special values; their launch counters; the wrappers'
@@ -136,6 +137,149 @@ def test_cuda_backend_aggregator_equals_torch_backend(dev, fmt):
     got = Aggregator(AggConfig(backend="cuda", fmt_name=fmt)).allreduce(x)
     want = Aggregator(AggConfig(backend="torch", fmt_name=fmt)).allreduce(x)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# K1's exponent and wire modes, K2 into the leaf's dtype
+# ---------------------------------------------------------------------------
+
+LEAF_PAIRS = [("fp32", "fp32"), ("fp32", "bf16"), ("fp32", "fp16"), ("fp16", "fp16"),
+              ("bf16", "bf16")]
+MODE_WORDS = {"fp32": (0x7FC00000, -0x400000, 0x7F800001, -0x7FFFFF, 0x7F7FFFFF, 0x800000, 1),
+              "bf16": (0x7FC0, -0x40, 0x7F81, -0x7F, 0x7F7F, 0x0080, 1),
+              "fp16": (0x7E00, -0x200, 0x7C01, -0x3FF, 0x7BFF, 0x0400, 1)}
+
+
+def _leaf_stack(k, shape, leaf, seed, dev):
+    """(k, R, B) leaves with _x's specials and each dtype's NaN words (both
+    signs, quiet and signalling), largest finite, smallest normal, a denormal."""
+    xs = []
+    for j in range(k):
+        x = _x(shape, leaf, seed + j, dev)
+        words = torch.tensor(MODE_WORDS[leaf], device=dev,
+                             dtype=INT_VIEW[leaf]).view(fpisa.PACKED_DTYPE[leaf])
+        n = max(0, min(len(words), x.numel() - 8))
+        x.view(-1)[8:8 + n] = words[:n]
+        xs.append(x)
+    return torch.stack(xs)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("fmt,leaf", LEAF_PAIRS, ids=[f"{f}-{l}" for f, l in LEAF_PAIRS])
+@pytest.mark.parametrize("k", [1, 4])
+def test_exponent_and_wire_modes_equal_plain(dev, shape, fmt, leaf, k):
+    """Exponent mode, wire mode (wires 32/16/8, block exponents -5..40 off
+    the block max) and K2 into the leaf's dtype: the kernels' bits are the
+    plain versions'."""
+    f = fpisa.FORMATS[fmt]
+    x = _leaf_stack(k, shape, leaf, shape[0] + k, dev)
+    b_r = ref.block_max_ref(x, f)
+    b = ops.block_max(x, fmt)
+    gen = torch.Generator(device=dev).manual_seed(shape[1] + k)
+    be = b_r + torch.randint(-5, 41, b_r.shape, generator=gen, device=dev, dtype=torch.int32)
+    assert torch.equal(b, b_r)
+    for wire in (32, 16, 8):
+        plane = ops.encode_wire(x, be, wire % 3, wire, fmt)
+        plane_r = ref.encode_wire_ref(x, be, wire % 3, wire, f)
+        assert plane.dtype == plane_r.dtype and torch.equal(plane, plane_r)
+        out = ops.decode_fused(plane, be, wire % 3, fmt, x.dtype)
+        want = ref.fused_decode_ref(plane_r, be, wire % 3, f, x.dtype)
+        torch.cuda.synchronize()
+        assert out.dtype == x.dtype
+        assert torch.equal(out.view(INT_VIEW[leaf]), want.view(INT_VIEW[leaf]))
+
+
+def test_fp16_staged_to_fp32_on_the_card_equals_the_cpu(dev):
+    """``to_packed`` of every fp16 word to fp32 gives the CPU's bits on the
+    card: each NaN keeps its sign (the card's own cast makes it positive)."""
+    x = torch.arange(-2**15, 2**15, dtype=torch.int32).to(torch.int16).view(torch.float16)
+    assert torch.equal(fpisa.to_packed(x.to(dev), "fp32").cpu().view(torch.int32),
+                       fpisa.to_packed(x, "fp32").view(torch.int32))
+
+
+@pytest.mark.parametrize("fmt", FMTS)
+@pytest.mark.parametrize("out", FMTS)
+def test_decode_into_every_dtype_equals_plain(dev, fmt, out):
+    gen = torch.Generator(device=dev).manual_seed(FMTS.index(fmt) * 3 + FMTS.index(out))
+    m = torch.randint(-2**31, 2**31 - 1, (300, 256), generator=gen, device=dev,
+                      dtype=torch.int64).to(torch.int32)
+    bmax = torch.randint(0, fpisa.FORMATS[fmt].exp_mask + 2, (300,), generator=gen,
+                         device=dev, dtype=torch.int32)
+    dt = fpisa.PACKED_DTYPE[out]
+    got = ops.decode_fused(m, bmax, 1, fmt, dt)
+    want = ref.fused_decode_ref(m, bmax, 1, fpisa.FORMATS[fmt], dt)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and torch.equal(got.view(INT_VIEW[out]), want.view(INT_VIEW[out]))
+
+
+@pytest.mark.parametrize("wire", [32, 16, 8])
+@pytest.mark.parametrize("leaf", [torch.float32, torch.bfloat16])
+def test_four_worker_modes_equal_the_local_mode_composition(dev, wire, leaf):
+    """The 4 workers' aggregation through the exponent mode, the wire mode
+    (the fold inside) and K2 in the leaf's dtype gives the local mode's
+    composition's bits (the residual shift, wire cast and int sum in torch,
+    K2 in fp32, the cast back)."""
+    shift = _wire_shift(fpisa.FP32, 4, wire)
+    x4 = torch.stack([torch.nan_to_num(_x((300, 256), "fp32", 40 + i, dev), posinf=3.0,
+                                       neginf=-3.0) for i in range(4)]).to(leaf)
+    b = ops.block_max(x4, "fp32")
+    got = ops.decode_fused(ops.encode_wire(x4, b, shift, wire, "fp32"), b, shift, "fp32", leaf)
+    planes = [ops.encode_align(x.float(), "fp32") for x in x4]
+    wdt = {32: torch.int32, 16: torch.int16, 8: torch.int8}[wire]
+    total = sum(nx.arshift(m, (b - lb)[:, None] + shift).to(wdt).to(torch.int32)
+                for m, lb in planes)
+    want = ops.decode_fused(total.to(wdt), b, shift, "fp32").to(leaf)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def test_mode_launch_counters_count_kernel_launches(dev):
+    before = _k1k2_launches() + (dict(ops.decode_fused.modes),)
+    x = torch.ones((2, 4, 256), dtype=torch.bfloat16, device=dev)
+    b = ops.block_max(x, "fp32")
+    m = ops.encode_wire(x, b, 1, 16, "fp32")
+    ops.decode_fused(m, b, 1, "fp32", torch.bfloat16)
+    ops.decode_fused(m, b, 1, "fp32")
+    assert _k1k2_launches(before[:4]) == (0, 1, 1, 2)
+    assert ops.decode_fused.modes == {"format": before[4]["format"] + 1,
+                                      "leaf": before[4]["leaf"] + 1}
+
+
+def test_modes_refuse_what_they_do_not_take(dev):
+    i32 = dict(dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fpisa_fused.block_max(torch.ones((1, 4, 256)))
+    with pytest.raises(ValueError, match=r"\(k, R, B\)"):
+        fpisa_fused.block_max(torch.ones((4, 256), device=dev))
+    with pytest.raises(ValueError, match="reads"):
+        fpisa_fused.block_max(torch.ones((1, 4, 256), device=dev), "bf16")
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fpisa_fused.block_max(torch.ones(1 * 4 * 256 + 1, device=dev)[1:].view(1, 4, 256))
+    with pytest.raises(ValueError, match="bmax must be"):
+        fpisa_fused.encode_wire(torch.ones((1, 4, 256), device=dev), torch.zeros(5, **i32),
+                                0, 32)
+    with pytest.raises(ValueError, match="wire_bits"):
+        fpisa_fused.encode_wire(torch.ones((1, 4, 256), device=dev), torch.zeros(4, **i32),
+                                0, 12)
+    with pytest.raises(ValueError, match="out_dtype"):
+        fpisa_fused.fused_decode(torch.zeros((4, 256), **i32), torch.zeros(4, **i32), 0,
+                                 "fp32", torch.float64)
+
+
+@pytest.mark.parametrize("leaf", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("fmt", FMTS)
+def test_cuda_backend_equals_torch_backend_for_each_leaf_dtype(dev, leaf, fmt):
+    """bf16 and fp16 leaves: read as they are where the format holds them,
+    cast first elsewhere; K2 writes the leaf's dtype. Per leaf (ragged) and
+    stacked, same bits as the torch backend."""
+    x = torch.nan_to_num(_x((5, 1000), "fp32", 9, dev), posinf=1.0, neginf=-1.0).to(leaf)
+    xs = torch.stack([x, x * 0.5, -x, x * 3])
+    view = INT_VIEW["fp16"]
+    for stacked, t in ((False, x), (True, xs)):
+        got = Aggregator(AggConfig(backend="cuda", fmt_name=fmt), stacked=stacked).allreduce(t)
+        want = Aggregator(AggConfig(backend="torch", fmt_name=fmt), stacked=stacked).allreduce(t)
+        assert got.dtype == want.dtype == leaf
+        assert torch.equal(got.view(view), want.view(view))
 
 
 # ---------------------------------------------------------------------------
@@ -278,10 +422,18 @@ def _same_bits(got, want):
         assert torch.equal(got[k].reshape(-1).view(view), want[k].reshape(-1).view(view)), k
 
 
+def _k1k2_launches(before=(0, 0, 0, 0)):
+    """K1's local, exponent and wire mode launches and K2's, less ``before``."""
+    now = (ops.encode_align.launches, ops.block_max.launches, ops.encode_wire.launches,
+           ops.decode_fused.launches)
+    return tuple(a - b for a, b in zip(now, before))
+
+
 @pytest.mark.parametrize("wire", [32, 16, 8])
 @pytest.mark.parametrize("fmt", FMTS)
 def test_bucketed_cuda_equals_per_leaf_plain(dev, wire, fmt):
-    """Bucketed on the cuda backend (K1/K2 once per bucket) equals the
+    """Bucketed on the cuda backend (K1's exponent and wire modes and K2
+    once per bucket, K1's local mode never) equals the
     per-leaf plain torch aggregation, bit for bit."""
     from repro_torch.core.bucketer import make_plan
 
@@ -290,10 +442,9 @@ def test_bucketed_cuda_equals_per_leaf_plain(dev, wire, fmt):
     want = Aggregator(AggConfig(backend="torch", **base)).allreduce_tree(tree)
     cfg = AggConfig(backend="cuda", bucket_bytes=8192, **base)
     buckets = len(make_plan(list(tree.values()), block=256, bucket_bytes=8192).buckets)
-    before = (ops.encode_align.launches, ops.decode_fused.launches)
+    before = _k1k2_launches()
     got = Aggregator(cfg).allreduce_tree(tree)
-    assert (ops.encode_align.launches - before[0], ops.decode_fused.launches - before[1]) \
-        == (buckets, buckets)
+    assert _k1k2_launches(before) == (0, buckets, buckets, buckets)
     _same_bits(got, want)
 
 
@@ -368,13 +519,13 @@ def test_mesh_aggregation_equals_plain(dev, tmp_path):
         rules.distribute(model, cfg, mesh)
         plan = MeshGrads(model, mesh, agg)
         views = plan.views()
-        before = ops.encode_align.launches
+        before = _k1k2_launches()
         with _swapped(model, views), hints.use_mesh(mesh), implicit_replication():
             got_loss = model.loss(batch)
             grads = torch.autograd.grad(got_loss, list(views.values()))
         pairs = [plan.local(g, p) for g, p in zip(grads, views.values())]
         got = plan.aggregate([g for g, _ in pairs], [t for _, t in pairs], views)
-        assert ops.encode_align.launches == before + len(want)
+        assert _k1k2_launches(before) == (0, len(want), len(want), len(want))
         assert torch.equal(got_loss.full_tensor(), loss)
         _same_bits(dict(enumerate(g.full_tensor() for g in got)), dict(enumerate(want)))
     finally:
@@ -399,16 +550,17 @@ def _stacked_tree(dev, k):
 @pytest.mark.parametrize("wire", [32, 16, 8])
 @pytest.mark.parametrize("fmt", FMTS)
 def test_stacked_fpisa_cuda_equals_plain(dev, k, wire, fmt):
-    """Stacked fpisa on the cuda backend (K1 once per leaf over the k
-    workers' rows, K2 once per leaf) equals the plain stacked aggregation,
-    per leaf and bucketed, bit for bit."""
+    """Stacked fpisa on the cuda backend (K1's exponent and wire modes once
+    per leaf over the k workers' rows, the fold in wire mode, K2 once per
+    leaf) equals the plain stacked aggregation, per leaf and bucketed, bit
+    for bit."""
     tree = _stacked_tree(dev, k)
     base = dict(wire_bits=wire, fmt_name=fmt)
     want = Aggregator(AggConfig(backend="torch", **base), stacked=True).allreduce_tree(tree)
-    before = (ops.encode_align.launches, ops.decode_fused.launches)
+    before = _k1k2_launches()
     got = Aggregator(AggConfig(backend="cuda", **base), stacked=True).allreduce_tree(tree)
-    assert (ops.encode_align.launches - before[0], ops.decode_fused.launches - before[1]) \
-        == (len(tree), len(tree))
+    n = len(tree)
+    assert _k1k2_launches(before) == (0, n, n, n)
     _same_bits(got, want)
     _same_bits(Aggregator(AggConfig(backend="cuda", bucket_bytes=8192, **base),
                           stacked=True).allreduce_tree(tree), want)
@@ -509,7 +661,8 @@ def test_serving_decode_on_the_card_matches_cpu(dev, kv_heads):
     assert torch.equal(dense, pg) and torch.equal(alone[0], pg[1])
 
 
-@pytest.mark.parametrize("strategy, kernel", [("fpisa", "encode_align"),
+@pytest.mark.parametrize("strategy, kernel", [("fpisa", "block_max"),
+                                              ("fpisa", "encode_wire"),
                                               ("fpisa", "decode_fused"),
                                               ("fpisa_seq", "accum")])
 def test_serving_telemetry_launches_the_kernels(dev, strategy, kernel):
