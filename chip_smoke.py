@@ -167,9 +167,14 @@ bit at 16 rows, the continuous engine on a seeded 16-request trace with
 ``fpisa`` telemetry (exact, K1 = K2 = flushes; the ``arctic_serve`` path),
 a 16-slot decode step on CUDA events against its byte bound (every step
 reads all 128 experts' weights, 26.78 GB, 7.99 ms at 3.35 TB/s) and its
-``[diagnose]``, and the expert queues that overflowed; (d) qwen1.5-0.5b's
-forward+backward with ``remat`` "full" and "none" (CUDA events, peak
-memory); the group's wall time.
+``[diagnose]``, and the expert queues that overflowed; (d) qwen1.5-0.5b at
+full width trained 3 steps of 8 x 512 with ``remat="dots"`` (selective
+checkpointing that keeps the products with no batch dimension; the ``dots``
+path: K1/K2 once per leaf per step, A1 forward twice and backward once per
+layer per step), then its forward+backward under remat "full", "none" and
+"dots" (CUDA events, peak memory, A1's launches of each), "dots"'s loss
+bit for bit and its gradients against "full"'s (bit for bit where "full"
+repeats "none"'s bits, else within ``DOTS_TOL``); the group's wall time.
 
 Then, in the same group, the encoder-decoder (``encdec_path``, ``[encdec]``
 lines, each with the card's name and power limit): (a) whisper-medium at
@@ -227,7 +232,10 @@ trained at the reference's train_4k length: 3 steps of 4 x 4,096 with
 ``fpisa`` and remat "full" (path ``longctx``: K1/K2 once per leaf per step,
 A1 forward twice and backward once per layer per step), the step's
 breakdown, tok/s, peak memory beside the float32 logits' bytes, A1's share
-of a profiled forward+backward; (c) one 32,768-token qwen row (prefill_32k's
+of a profiled forward+backward; (f) one forward+backward of (b)'s 4 x 4,096
+under remat "dots" beside "full" (path ``longctx_dots``: A1 forward twice
+and backward once per layer), ms, peak memory and tok/s of each; (c) one
+32,768-token qwen row (prefill_32k's
 length): ``prefill`` into a decode cache and 64 greedy ``decode_step``s
 (path ``prefill_32k``: A1 once per layer), prefill and decode times, the
 row's and the cache's K/V bytes, A1 against its plain version at the
@@ -286,7 +294,8 @@ In the ``kernels`` line, ``launches`` is a kernel's launches summed over
 every path above that ran it (main, ``fpisa_seq``, bucketed, stacked
 ``fpisa``, stacked ``fpisa_seq``, ``fig9_native``, ``fig9_fpisa_seq``,
 ``serve``, ``serve_fpisa_seq``, ``mamba2``, ``zamba2_seq``, ``arctic_serve``,
-``whisper``, ``sharded``, ``longctx``, ``prefill_32k``, ``whisper_encoder``,
+``dots``, ``whisper``, ``sharded``, ``longctx``, ``longctx_dots``,
+``prefill_32k``, ``whisper_encoder``,
 the two-pass pipeline, ``switchsim``) and ``launches_by_path`` names each path's count, every
 path's counts zeroed just before it and read just after. K1 and K2 also
 have ``launches_by_mode`` (per path: K1 ``local``, ``exponent``, ``wire``;
@@ -394,6 +403,10 @@ GROUPS, GROUP_ROWS = 64, 2_000_000
 # lengths (configs/base.py SHAPES), A1 against its plain version at qwen's
 # heads (16 x 64) and batch 2 with cq = 32, whisper's 1500-frame encoder
 LONG_TRAIN_BATCH, LONG_TRAIN_SEQ = 4, 4096
+REMATS = ("full", "none", "dots")
+# "dots"'s gradients against "full"'s where the card's "full" does not repeat
+# "none"'s bits: a bf16 gradient's rounding step is 2^-8 of its magnitude
+DOTS_TOL = 1e-2
 LONG_PREFILL, LONG_DECODE = 32768, 64
 A1_SEQS, A1_BATCH, A1_CHUNK = (512, 1024, 4096), 2, 32
 # A1 against its plain version, relative to the plain result's largest |entry|
@@ -2078,7 +2091,8 @@ def family_train(torch, dev, cfg, strategy, seq_len=SEQ_LEN, tag="[models]"):
     if not all(torch.isfinite(p).all() for p in model.parameters()):
         raise AssertionError(f"{cfg.name}: non-finite parameter after training")
     log(f"{tag} {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}): {STEPS} steps "
-        f"of {GLOBAL_BATCH} x {seq_len} with {strategy} in {wall:.2f} s (init included), "
+        f"of {GLOBAL_BATCH} x {seq_len} with {strategy}, remat {cfg.remat}, in {wall:.2f} s "
+        f"(init included), "
         f"losses {losses}; {leaves} gradient leaves ({sum(p.numel() for p in model.parameters()):,}"
         f" parameters), launches {json.dumps({k: launches[k] for k in want})} (K1: two modes "
         f"a leaf) for {leaves} leaves a step; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {CARD}")
@@ -2241,41 +2255,131 @@ def models_arctic(torch, dev):
     return launches, {"decode_ms": ms, "bound_ms": bound, "overflows": overflows}
 
 
+def remat_grads(torch, model, batch, mode):
+    """Loss and gradients of one forward+backward under remat ``mode``, and
+    A1's launches in it, in all and by route (counts zeroed just before,
+    read just after)."""
+    model.cfg = model.cfg.with_(remat=mode)
+    zero_launches()
+    loss = model.loss(batch)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    torch.cuda.synchronize()
+    return [loss.detach()] + list(grads), a1_subset(read_launches())
+
+
+def check_remat_a1(counts, cfg, mode, what):
+    """A1's launches in one forward+backward of the dense ``cfg`` under
+    remat ``mode``: the forward once per layer, once more in the recompute
+    unless ``mode`` is "none"; the backward once per layer."""
+    want = [(1 if mode == "none" else 2) * cfg.num_layers, cfg.num_layers]
+    if [counts[k] for k in A1] != want:
+        raise AssertionError(f"{what}, remat {mode}: A1 launched {[counts[k] for k in A1]} "
+                             f"(forward, backward) in one forward+backward, expected {want}")
+
+
+def same_bits_all(torch, a, b):
+    """Whether the tensors of ``a`` and ``b`` hold the same bits, pair by
+    pair (float32 or 16-bit; 0-d tensors too)."""
+    ints = {4: torch.int32, 2: torch.int16}
+    return all(x.dtype == y.dtype and torch.equal(x.view(ints[x.element_size()]),
+                                                  y.view(ints[y.element_size()]))
+               for x, y in zip(a, b))
+
+
 def qwen_remat(torch, dev):
-    """(d) qwen1.5-0.5b at full width: forward+backward of 8 x 512 tokens
-    with ``remat="full"`` (each layer recomputed in the backward, the
-    configs' default) and ``"none"``, CUDA events, median of 5, in turns;
-    the peak memory of each."""
+    """(d) qwen1.5-0.5b at full width, 8 x 512 tokens. First the slice's
+    path (``dots``): 3 steps with remat "dots" through ``train_loop`` with
+    ``fpisa``, every count zeroed just before and read just after: K1's
+    exponent and wire modes and K2 once per leaf per step, A1 forward twice
+    per layer per step (the recompute replays it) and backward once. Then,
+    on the trained weights, a forward+backward under "full" (each layer
+    recomputed in the backward, the configs' default), "none" and "dots"
+    (recomputed but for the products with no batch dimension): A1's
+    launches of each; the loss bit for bit and the gradients of "dots"
+    against "full"'s: bit for bit where "full" repeats "none"'s bits, else
+    within ``DOTS_TOL`` of each leaf's largest |entry|; ``remat_timing``'s
+    numbers for each. Returns (the path's launches, numbers)."""
     from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import ShardedLoader, SyntheticCorpus
-    from repro_torch.models.registry import build
 
     cfg = get_config("qwen1.5-0.5b")
-    model = build(cfg, device=dev, seed=0)
-    tokens = torch.from_numpy(ShardedLoader(SyntheticCorpus(cfg.vocab_size, 0), GLOBAL_BATCH,
-                                            SEQ_LEN).batch_at(0)["tokens"]).to(dev)
-    params = list(model.parameters())
-    res = {"full": [], "none": []}
-    peak = {}
-    for mode in ("full", "none") * 2:
+    torch.cuda.reset_peak_memory_stats()
+    launches, model, opt_state, _ = family_train(torch, dev, cfg.with_(remat="dots"), "fpisa",
+                                                 tag="[models] (d)")
+    check_a1_launches(launches, cfg, STEPS, "dots")
+    del opt_state
+    torch.cuda.empty_cache()
+    batch = training_batch(torch, dev, cfg)
+    runs, a1 = {}, {}
+    for mode in REMATS:
+        runs[mode], counts = remat_grads(torch, model, batch, mode)
+        check_remat_a1(counts, cfg, mode, f"{cfg.name} {GLOBAL_BATCH} x {SEQ_LEN}")
+        a1[mode] = [counts[k] for k in A1]
+    if not same_bits_all(torch, runs["dots"][:1], runs["full"][:1]):
+        raise AssertionError(f"remat dots: loss {runs['dots'][0]} != full's {runs['full'][0]}")
+    if same_bits_all(torch, runs["full"], runs["none"]):
+        how = "bit for bit (full repeats none's bits)"
+        if not same_bits_all(torch, runs["dots"], runs["full"]):
+            raise AssertionError("remat dots: gradients differ from full's bits")
+    else:
+        how = f"within {DOTS_TOL} of each leaf's largest |entry| (full differs from none)"
+        for g, f in zip(runs["dots"][1:], runs["full"][1:]):
+            if float((g.float() - f.float()).abs().max()) > DOTS_TOL * float(f.float().abs().max()):
+                raise AssertionError(f"remat dots: a gradient leaf off full's by more than {how}")
+    del runs
+    res = remat_timing(torch, model, batch, REMATS, reps=5)
+    log(f"[models] (d) {cfg.name} forward+backward of {GLOBAL_BATCH} x {SEQ_LEN}: "
+        + remat_report(res) + f"; dots: loss == full's bit for bit, gradients == full's {how}; "
+        f"A1 launches (forward, backward) of one forward+backward: "
+        + ", ".join(f"{m} {a1[m]}" for m in REMATS) + f"; {CARD}")
+    del model
+    torch.cuda.empty_cache()
+    return launches, {"timing": res, "grads": how, "a1": a1}
+
+
+def remat_timing(torch, model, batch, modes, reps):
+    """One forward+backward of ``batch`` under each remat of ``modes``: CUDA
+    events, median of ``reps``, two turns of the modes in turn, and the
+    peak memory; then per mode the host's issue time against CUDA events
+    (median of 5) and torch.profiler's kernel time and launches of one run.
+    Returns {mode: numbers}."""
+    cfg, params = model.cfg, list(model.parameters())
+
+    def run():
+        torch.autograd.grad(model.loss(batch), params)
+
+    out = {m: {"ms": []} for m in modes}
+    for mode in modes * 2:
         model.cfg = cfg.with_(remat=mode)
         torch.cuda.reset_peak_memory_stats()
-        res[mode].append(median_ms(
-            torch, lambda: torch.autograd.grad(model.loss({"tokens": tokens}), params),
-            reps=5, warmup=1))
-        peak[mode] = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[models] (d) {cfg.name} forward+backward of {GLOBAL_BATCH} x {SEQ_LEN}, CUDA events "
-        f"(two turns each): remat full {res['full']} ms (peak {peak['full']:.2f} GiB), none "
-        f"{res['none']} ms (peak {peak['none']:.2f} GiB); {CARD}")
-    return {k: statistics.median(v) for k, v in res.items()}, peak
+        out[mode]["ms"].append(median_ms(torch, run, reps=reps, warmup=1))
+        out[mode]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    for mode in modes:
+        model.cfg = cfg.with_(remat=mode)
+        out[mode]["issue_ms"], out[mode]["events_ms"] = issue_vs_device(torch, run)
+        out[mode]["kernels_ms"], out[mode]["kernel_launches"] = (
+            device_profile(torch, run) or (None, None))
+    model.cfg = cfg
+    return out
+
+
+def remat_report(res, tokens=None):
+    """``remat_timing``'s numbers as a line's words."""
+    def one(m, r):
+        kern = (f"{r['kernels_ms']:.2f} ms of kernels in {r['kernel_launches']} launches"
+                if r["kernels_ms"] else "kernels not measured")
+        rate = f", {tokens / statistics.median(r['ms']) * 1e3:,.0f} tok/s" if tokens else ""
+        return (f"remat {m} {[round(t, 2) for t in r['ms']]} ms (CUDA events, two turns{rate}; "
+                f"host issue {r['issue_ms']:.2f} ms against {r['events_ms']:.2f} ms of events; "
+                f"{kern}; peak {r['peak_gib']:.2f} GiB)")
+    return ", ".join(one(m, r) for m, r in res.items())
 
 
 def models_path(torch, dev):
     """The seventh slice's paths (``[models]`` lines): (a) mamba2-780m
     trained at full size and served, (b) zamba2-7b at full width trained
-    with ``fpisa_seq``, (c) arctic-480b at full width served, (d) qwen's
-    forward+backward with and without remat. Returns ({path: launches},
-    numbers)."""
+    with ``fpisa_seq``, (c) arctic-480b at full width served, (d) qwen
+    trained with remat "dots" (path ``dots``) and its forward+backward under
+    each remat. Returns {path: launches}."""
     t0 = time.perf_counter()
     paths = {"mamba2": models_mamba2(torch, dev)}
     torch.cuda.empty_cache()
@@ -2283,11 +2387,10 @@ def models_path(torch, dev):
     torch.cuda.empty_cache()
     paths["arctic_serve"], arctic = models_arctic(torch, dev)
     torch.cuda.empty_cache()
-    remat, peak = qwen_remat(torch, dev)
+    paths["dots"], remat = qwen_remat(torch, dev)
     torch.cuda.empty_cache()
     log(f"[models] the group took {time.perf_counter() - t0:.1f} s; {CARD}")
-    log(json.dumps({"models": {"arctic": arctic, "qwen_fwd_bwd_ms": remat,
-                               "qwen_fwd_bwd_peak_gib": peak}}))
+    log(json.dumps({"models": {"arctic": arctic, "qwen_remat": remat}}))
     return paths
 
 
@@ -2671,9 +2774,9 @@ def check_a1_routes(paths):
 
 def check_a1_launches(counts, cfg, steps, path):
     """A1's launches over ``steps`` training steps of the dense ``cfg`` with
-    remat "full": the forward once per layer per step and once more in the
-    layer's recompute, the backward once per layer per step. Returns A1's
-    counts."""
+    remat "full" or "dots": the forward once per layer per step and once
+    more in the layer's recompute, the backward once per layer per step.
+    Returns A1's counts."""
     want = {"chunked_attention_fwd": 2 * cfg.num_layers * steps,
             "chunked_attention_bwd": cfg.num_layers * steps}
     got = {k: counts[k] for k in A1}
@@ -2944,6 +3047,34 @@ def longctx_train(torch, dev):
                       "logits_gb": logits_gb, "profile": share}
 
 
+def longctx_dots(torch, dev):
+    """(f) qwen1.5-0.5b at full width, one forward+backward of 4 x 4,096
+    under remat "dots" beside "full" (the config's): A1's launches of one
+    "dots" forward+backward (path ``longctx_dots``: the forward twice per
+    layer, the backward once), then ``remat_timing``'s numbers for each
+    (median of 3) and tok/s. Returns (launches, numbers)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build
+
+    cfg = get_config("qwen1.5-0.5b")
+    model = build(cfg, device=dev, seed=0)
+    batch = training_batch(torch, dev, cfg, LONG_TRAIN_SEQ, LONG_TRAIN_BATCH)
+    grads, launches = remat_grads(torch, model, batch, "dots")
+    check_remat_a1(launches, cfg, "dots", f"longctx {LONG_TRAIN_BATCH} x {LONG_TRAIN_SEQ}")
+    if not all(torch.isfinite(g).all() for g in grads):
+        raise AssertionError("longctx dots: a non-finite loss or gradient")
+    del grads
+    tokens = LONG_TRAIN_BATCH * LONG_TRAIN_SEQ
+    res = remat_timing(torch, model, batch, ("full", "dots"), reps=3)
+    log(f"[longctx] (f) {cfg.name} forward+backward of {LONG_TRAIN_BATCH} x {LONG_TRAIN_SEQ}: "
+        + remat_report(res, tokens) + f"; dots: A1 launches (forward, backward) "
+        f"{[launches[k] for k in A1]}; {CARD}")
+    del model, batch
+    torch.cuda.empty_cache()
+    return launches, {"timing": res, "tok_s": {m: tokens / statistics.median(r["ms"]) * 1e3
+                                                for m, r in res.items()}}
+
+
 def longctx_prefill(torch, dev):
     """(c) one 32,768-token qwen row at full width (bf16 weights from a
     seed): ``prefill`` into a decode cache, then 64 greedy ``decode_step``s,
@@ -3095,7 +3226,9 @@ def longctx_encoder(torch, dev):
 
 def longctx_path(torch, dev, par):
     """The tenth slice's paths (``[longctx]`` lines): (a) A1 against its
-    plain version, (b) qwen trained at 4,096 tokens (path ``longctx``), (c)
+    plain version, (b) qwen trained at 4,096 tokens (path ``longctx``), (f)
+    its forward+backward under remat "dots" and "full" (path
+    ``longctx_dots``), (c)
     a 32,768-token prefill and 64 decode steps (path ``prefill_32k``), (d)
     whisper's encoder (path ``whisper_encoder``); then A1's times at (b)'s
     shape (the kernels line), (a)'s, the main path's, whisper's three and
@@ -3105,6 +3238,7 @@ def longctx_path(torch, dev, par):
     torch.cuda.empty_cache()
     paths, numbers = {}, {"parity": parity}
     paths["longctx"], numbers["train"] = longctx_train(torch, dev)
+    paths["longctx_dots"], numbers["dots"] = longctx_dots(torch, dev)
     paths["prefill_32k"], numbers["prefill"] = longctx_prefill(torch, dev)
     paths["whisper_encoder"], numbers["encoder"] = longctx_encoder(torch, dev)
     from repro_torch.configs import get_config
@@ -3991,6 +4125,12 @@ def query_path(torch, dev, revenue, keys):
 
 
 def main() -> int:
+    t0 = time.perf_counter()
+    laps = {}  # phase -> seconds, for the last [smoke] line
+
+    def lap(name):
+        laps[name] = round(time.perf_counter() - t0 - sum(laps.values()), 1)
+
     if not (SRC / "repro_torch" / "kernels").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script; run it "
               "from a checkout of the repository", file=sys.stderr)
@@ -4013,9 +4153,11 @@ def main() -> int:
     torch.cuda.set_device(dev)
     kind = card_facts(torch)
     build_kernels()
+    lap("build")
     par = Parity(torch)
     kernel_parity(torch, dev, par)
     two_pass_accum_parity(torch, dev, par)
+    lap("parity")
 
     tmpdir = ROOT / "build" / "chip_smoke"
     tmpdir.mkdir(parents=True, exist_ok=True)
@@ -4034,6 +4176,7 @@ def main() -> int:
         leaf_sizes = [p.numel() for p in model.parameters()]
         del model, opt_state
         torch.cuda.empty_cache()
+        lap("main")
         seq_launches, model, opt_state = train_seq_path(torch, dev)
         paths["fpisa_seq"] = {"fpisa_accum": seq_launches}
         check_grads_cuda_equals_plain(torch, dev, model, "fpisa_seq")
@@ -4042,22 +4185,20 @@ def main() -> int:
         paths["bucketed"] = bucketed_path(torch, dev, model, tmpdir)
         del model, opt_state
         torch.cuda.empty_cache()
+        lap("fpisa_seq+bucketed")
         stacked_launches, stacked_times = stacked_path(torch, dev, tmpdir, leaf_sizes)
         paths.update(stacked_launches)
         torch.cuda.empty_cache()
-        paths.update(fig9_path(torch, dev))
-        torch.cuda.empty_cache()
-        paths.update(serve_path(torch, dev))
-        torch.cuda.empty_cache()
-        paths.update(models_path(torch, dev))
-        torch.cuda.empty_cache()
-        paths.update(encdec_path(torch, dev))
-        torch.cuda.empty_cache()
-        paths.update(sharding_path(torch, dev))
-        torch.cuda.empty_cache()
+        lap("stacked")
+        for name, path in (("fig9", fig9_path), ("serve", serve_path), ("models", models_path),
+                           ("encdec", encdec_path), ("sharding", sharding_path)):
+            paths.update(path(torch, dev))
+            torch.cuda.empty_cache()
+            lap(name)
         longctx_paths, a1_times = longctx_path(torch, dev, par)
         paths.update(longctx_paths)
         torch.cuda.empty_cache()
+        lap("longctx")
         times = timing(torch, dev, leaf_sizes)
         times.update(a1_times)
         paths["two_pass"], two_pass_times = two_pass_pipeline(torch, dev, leaf_sizes, par)
@@ -4065,13 +4206,16 @@ def main() -> int:
         torch.cuda.empty_cache()
         times["fpisa_accum"] = accum_timing(torch, dev, leaf_sizes, par)
         torch.cuda.empty_cache()
+        lap("timing")
         switch_emu_smoke(torch, dev)
         revenue, keys = uservisits()
         vecs = smoke_vectors(STREAM_WORKERS, STREAM_ELEMS, seed=0)
         paths["switchsim"] = switchsim_path(torch, dev, vecs, keys, revenue[:GROUP_ROWS])
         del vecs
         torch.cuda.empty_cache()
+        lap("switch")
         query_path(torch, dev, revenue, keys)
+        lap("query")
     finally:
         dist.destroy_process_group()
 
@@ -4116,6 +4260,8 @@ def main() -> int:
                                    for m, t in times[name]["ms_by_mode"].items()}}
                    if name in K1K2 else {})}
                for name in KERNELS]
+    log(f"[smoke] every phase passed in {time.perf_counter() - t0:.1f} s (by phase: "
+        f"{json.dumps(laps)}); {CARD}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -20,7 +20,8 @@ the encoder states inside the layer, as the reference's scan body does.
 
 Remat: ``remat="full"`` checkpoints each encoder and each decoder layer
 (``torch.utils.checkpoint``, non-reentrant); ``"none"`` keeps every
-activation; ``"dots"`` raises.
+activation; ``"dots"`` runs as ``"full"``, since the reference's
+``encdec._remat`` checkpoints it without the policy.
 
 Serving (``init_cache``, ``prefill``, ``decode_step``; the reference has no
 paged path for this family) runs under ``torch.inference_mode()``.
@@ -111,6 +112,8 @@ class EncDecCache(NamedTuple):
 class EncDecLM(TreeLM):
     """Encoder-decoder LM; ``loss(batch)`` is the training objective,
     ``batch`` a dict of ``frames`` (B, F, d_model) and ``tokens`` (B, S)."""
+
+    SELECTIVE_DOTS = False  # "dots" is "full" here (module doc)
 
     # --- training ------------------------------------------------------------
 

@@ -10,6 +10,7 @@ stored in ``cfg.param_dtype``; compute upcasts where the reference does
 """
 from __future__ import annotations
 
+import contextvars
 import math
 
 import torch
@@ -72,7 +73,28 @@ def apply_mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
         h = silu(x @ p["wg"]) * h
     else:
         h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
-    return h @ p["wo"]
+    return unread_product(h, p["wo"])
+
+
+_UNREAD = contextvars.ContextVar("repro_torch_unread_product", default=False)
+
+
+def unread_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a product whose output no backward reads: a down
+    projection whose output only enters the residual stream's sum. The
+    reference's ``remat="dots"`` saves a product only where its backward
+    reads it, so it keeps no copy of these, and neither does the port's
+    (``transformer.dots_policy`` reads :func:`in_unread_product`)."""
+    token = _UNREAD.set(True)
+    try:
+        return x @ w
+    finally:
+        _UNREAD.reset(token)
+
+
+def in_unread_product() -> bool:
+    """Whether the op running now belongs to an :func:`unread_product`."""
+    return _UNREAD.get()
 
 
 def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):

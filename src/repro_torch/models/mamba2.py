@@ -17,7 +17,7 @@ import math
 
 import torch
 
-from repro_torch.models.layers import dtype_of, param, rms_norm, silu
+from repro_torch.models.layers import dtype_of, param, rms_norm, silu, unread_product
 
 
 def init_mamba2(gen: torch.Generator, cfg, lead=()) -> dict:
@@ -202,7 +202,7 @@ def apply_mamba2(p: dict, x: torch.Tensor, cfg, ssm_state=None, conv_state=None,
 
     # gated RMSNorm, then the output projection
     y = rms_norm(y * silu(z), p["norm_w"], cfg.norm_eps)
-    return y @ p["out_proj"], final_state, new_conv
+    return unread_product(y, p["out_proj"]), final_state, new_conv
 
 
 def init_ssm_state(batch: int, cfg, device=None):

@@ -23,9 +23,15 @@ function with P = 0), which is how the engines serve text prompts.
 
 Remat. ``remat="full"`` recomputes each layer's body in the backward
 (``torch.utils.checkpoint``, non-reentrant; for the hybrid, each group of
-``every`` mamba blocks and its shared block, as the reference's scan
-bodies), ``"none"`` keeps every activation; ``"dots"`` (no config uses
-it) raises. Neither changes a value. ``flash_remat`` and ``seq_parallel``
+``every`` mamba blocks and its shared block, and each tail block, as the
+reference's scan bodies), ``"none"`` keeps every activation. ``"dots"``
+(no config uses it) checkpoints the same bodies selectively
+(:func:`dots_policy`): the backward keeps the outputs of the products that
+have no batch dimension and recomputes the rest, as the reference's
+``dots_with_no_batch_dims_saveable``; like the reference, it keeps no
+product whose output no backward reads (``layers.unread_product``: the
+MLP's down projection, mamba's ``out_proj``). None of the three changes a
+value. ``flash_remat`` and ``seq_parallel``
 change only memory and sharding; ``attn_q_chunk`` sets the chunks of the
 online softmax (``models/attention.py::chunked_attention``), and with them
 the order of its float32 additions, as in the reference.
@@ -56,7 +62,11 @@ from typing import NamedTuple
 
 import torch
 import torch.nn as nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch import NotPortedError
 from repro_torch.models import attention as attn
@@ -65,6 +75,7 @@ from repro_torch.models.layers import (
     apply_mlp,
     dtype_of,
     embed,
+    in_unread_product,
     init_embedding,
     init_lm_head,
     init_mlp,
@@ -78,6 +89,21 @@ from repro_torch.sharding.hints import constrain, entering, local_product
 # the row tile of a decode step (module doc, "Batch invariance")
 DECODE_ROWS = 16
 ATTN_FAMILIES = ("dense", "moe", "vlm")   # families whose cache is K/V only
+REMATS = ("none", "full", "dots")
+# the products with no batch dimension: a layer writes each of them as
+# ``x @ W`` with a 2-D weight, which torch folds into one of these; an
+# einsum with a batch dimension reaches the policy as ``bmm`` or ``baddbmm``
+NO_BATCH_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``remat="dots"``'s selective checkpointing: save the output of a
+    product with no batch dimension unless no backward reads it
+    (``layers.unread_product``), recompute everything else (the batched
+    products, norms, activations, RoPE, collectives, A1's forward)."""
+    if op in NO_BATCH_PRODUCTS and not in_unread_product():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _tree_module(tree: dict) -> nn.Module:
@@ -321,12 +347,15 @@ def _vocab_parallel_nll(logits, targets: torch.Tensor) -> torch.Tensor:
 class TreeLM(nn.Module):
     """What the port's models share: the reference's parameter tree,
     registered in sorted-key order (the reference's flatten order), and
-    remat "none" or "full" (``_remat`` checkpoints one layer's body)."""
+    remat (``_remat`` checkpoints one layer's body: whole, or under
+    :func:`dots_policy` for ``"dots"`` where ``SELECTIVE_DOTS``)."""
+
+    SELECTIVE_DOTS = True
 
     def __init__(self, cfg, params: dict):
         super().__init__()
-        if cfg.remat not in ("none", "full"):
-            raise NotPortedError(f"remat={cfg.remat!r}")
+        if cfg.remat not in REMATS:
+            raise ValueError(f"remat must be one of {REMATS}, got {cfg.remat!r}")
         self.cfg = cfg
         for k in sorted(params):
             setattr(self, k, _tree_module(params[k]))
@@ -335,6 +364,9 @@ class TreeLM(nn.Module):
     def _remat(self, fn, *args):
         if self.cfg.remat == "none" or not torch.is_grad_enabled():
             return fn(*args)
+        if self.cfg.remat == "dots" and self.SELECTIVE_DOTS:
+            return checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=lambda: create_selective_checkpoint_contexts(dots_policy))
         return checkpoint(fn, *args, use_reentrant=False)
 
     @property

@@ -18,8 +18,9 @@ CPU; the switch dataplane (``BatchedDataplane`` single- and multi-tenant)
 and the query operators on the card against the CPU and the numpy
 dataplane, also under deterministic algorithms; the model families on the
 card: GQA at g = 7, the MoE overflow (F10) and the SSD recurrence against
-the chunked scan; the encoder-decoder's training and serving against the
-CPU. These tests
+the chunked scan; ``remat="dots"`` against ``"full"`` bit for bit on every
+decoder-only family, A1 launched as under ``"full"``; the encoder-decoder's
+training and serving against the CPU. These tests
 need an NVIDIA GPU and nvcc;
 elsewhere they skip. They import nothing of JAX, so the GPU machine runs them with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -1095,3 +1096,39 @@ def test_chunked_attention_kernel_refuses_what_it_does_not_take(dev):
         z = torch.zeros(1 * 64 * 2 * 64 + 1, device=dev, dtype=torch.bfloat16)[1:]
         z = z.view(1, 64, 2, 64)
         attention.attention_forward(z, z, z, True, 32)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "arctic-480b", "mamba2-780m", "zamba2-7b",
+                                  "llava-next-34b"])
+def test_remat_dots_on_the_card_gives_the_bits_of_full(dev, arch):
+    """``remat="dots"`` (selective checkpointing) on the card at smoke size,
+    bf16, inside ``runtime.elastic.reproducible``: the loss and every
+    gradient equal ``"full"``'s bit for bit, and A1 launches as under
+    ``"full"`` (its forward is replayed by the recompute: twice per
+    attention layer, the backward once)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import attention
+    from repro_torch.models.registry import build
+    from repro_torch.runtime.elastic import reproducible
+
+    cfg = get_smoke_config(arch).with_(param_dtype="bfloat16", activation_dtype="bfloat16")
+    rng = np.random.default_rng(21)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64))).to(dev)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.num_patches, cfg.d_model)).astype(np.float32)).to(dev)
+    runs, a1 = {}, {}
+    with reproducible(dev):
+        for mode in ("full", "dots"):
+            model = build(cfg.with_(remat=mode), device=dev, seed=0)
+            before = (attention.attention_forward.launches, attention.attention_backward.launches)
+            loss = model.loss(batch)
+            runs[mode] = [loss] + list(torch.autograd.grad(loss, list(model.parameters())))
+            a1[mode] = (attention.attention_forward.launches - before[0],
+                        attention.attention_backward.launches - before[1])
+    assert a1["dots"] == a1["full"]
+    assert a1["full"][0] == 2 * a1["full"][1] and (a1["full"][1] > 0) == (cfg.family != "ssm")
+    ints = {4: torch.int32, 2: torch.int16}
+    for a, b in zip(runs["full"], runs["dots"]):
+        assert a.dtype == b.dtype and torch.equal(a.view(ints[a.element_size()]),
+                                                  b.view(ints[b.element_size()]))

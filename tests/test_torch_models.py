@@ -13,8 +13,8 @@ loss and every gradient leaf 2e-5 relative; serving logits 2e-5, caches
   gradients; prefill, decode and paged decode.
 * GQA at every ratio the configs use (g = 4 in the smoke models; 6, 7, 8
   on one attention layer), training, prefill, decode and paged decode.
-* ``remat``: "full" (checkpointed layer bodies) and "none" give the same
-  bits; "dots" raises.
+* ``remat``: "full" (checkpointed layer bodies), "dots" (selective
+  checkpointing that keeps the products) and "none" give the same bits.
 * The weights of every family carry across in the reference's layout, the
   float32 leaves of a bf16 model in float32.
 * One FPISA aggregation per family over 2 gloo ranks, fed the same
@@ -37,7 +37,6 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro import configs as jax_configs  # noqa: E402
-from repro_torch import NotPortedError  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.configs import base as torch_base  # noqa: E402
 from repro_torch.interop import params_to_jax  # noqa: E402
@@ -171,23 +170,23 @@ def test_gqa_every_ratio(g):
 
 
 def test_remat_full_and_none_give_the_same_bits():
-    """``remat="full"`` recomputes each layer in the backward and ``"none"``
-    keeps the activations: same loss and gradients bit for bit, on every
-    family's layer loop. ``flash_remat`` (each step of the chunked attention
+    """``remat="full"`` recomputes each layer in the backward, ``"dots"``
+    recomputes it but for the products with no batch dimension, and
+    ``"none"`` keeps the activations: same loss and gradients bit for bit,
+    on every family's layer loop. ``flash_remat`` (each step of the chunked attention
     checkpointed) and ``seq_parallel`` change only memory and sharding, so
     they change no value either. ``attn_q_chunk`` sets the chunks of the
     online softmax and so the order of its float32 additions (as in the
     reference): 8 instead of 32 gives the loss within 2e-5 relative and
     every gradient within 2e-5 of its leaf's largest |entry| (the parity
-    harness's tolerances). ``"dots"`` (no config uses it) raises
-    NotPortedError."""
+    harness's tolerances)."""
     from repro_torch.models.registry import build
 
     for arch in FAMILY_ARCH.values():
         cfg = configs.get_smoke_config(arch)
         batch = torch_batch(make_batch(cfg, 2, 32, seed=7))
         runs = []
-        for kw in ({"remat": "full"}, {"remat": "none"},
+        for kw in ({"remat": "full"}, {"remat": "none"}, {"remat": "dots"},
                    {"flash_remat": not cfg.flash_remat, "seq_parallel": True},
                    {"attn_q_chunk": 8}):
             model = build(cfg.with_(**kw), device=torch.device("cpu"), seed=0)
@@ -200,9 +199,6 @@ def test_remat_full_and_none_give_the_same_bits():
             a, b = a.detach(), b.detach()
             np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=0,
                                        atol=2e-5 * float(a.abs().max()), err_msg=arch)
-    with pytest.raises(NotPortedError, match="dots"):
-        build(configs.get_smoke_config("qwen1.5-0.5b").with_(remat="dots"),
-              device=torch.device("cpu"))
 
 
 @pytest.mark.parametrize("family", [f for f in FAMILY_ARCH if f != "ssm"])

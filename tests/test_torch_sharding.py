@@ -18,9 +18,9 @@ DeviceMesh) against the JAX reference (repro.sharding.rules).
     group's plain aggregation of the whole leaves, for fpisa at wire 32,
     fpisa at wire 16 bucketed, and fpisa_seq;
   - a smoke-size TP train step (qwen1.5-0.5b on (data 2, model 2), in
-    the 'head', 'hdim' and 'qhead' attention modes) keeps the replica
-    step's losses within rtol 1e-5 (float32; TP sums partial products in
-    another order);
+    the 'head', 'hdim' and 'qhead' attention modes, and in 'head' mode
+    under ``remat="dots"``) keeps the replica step's losses within rtol
+    1e-5 (float32; TP sums partial products in another order);
   - arctic-480b's smoke config on (pod 2, data 1, model 2) takes the pod
     boundary (FPISA over ``mesh["pod"]`` alone) and keeps the 2-rank
     replica run's losses within rtol 1e-5; on (data 2, model 2), with no
@@ -270,6 +270,11 @@ for mode, over in (("hdim", dict(num_heads=3, num_kv_heads=3, head_dim=16)),
     _, _, res[f"tp/{mode}/mesh"] = train_loop(mcfg, mesh=mesh, **dict(kw, steps=2))
     _, _, res[f"tp/{mode}/replica"] = train_loop(mcfg, group=mesh["data"].get_group(),
                                                  **dict(kw, steps=2))
+# remat="dots" (selective checkpointing) on the head-mode TP step
+dcfg = cfg.with_(remat="dots")
+_, _, res["tp/dots/mesh"] = train_loop(dcfg, mesh=mesh, **dict(kw, steps=2))
+_, _, res["tp/dots/replica"] = train_loop(dcfg, group=mesh["data"].get_group(),
+                                          **dict(kw, steps=2))
 # (3) arctic: the pod boundary, and no boundary without a pod axis
 acfg = get_smoke_config("arctic-480b")
 pmesh = make_mesh_for(4, model_parallel=2, pods=2)
@@ -356,7 +361,7 @@ def test_mesh_aggregation_equals_unsharded_bits(gloo, tag):
             assert np.array_equal(got.view(np.int32), want.view(np.int32)), (r, k)
 
 
-@pytest.mark.parametrize("mode", ["head", "hdim", "qhead"])
+@pytest.mark.parametrize("mode", ["head", "hdim", "qhead", "dots"])
 def test_tp_step_keeps_the_replica_losses(gloo, mode):
     ranks, _ = gloo
     tag = "tp" if mode == "head" else f"tp/{mode}"
