@@ -13,7 +13,10 @@ Phases (each prints on its own lines; any failure raises, exit code != 0):
    work the FMA pipe executes; see the rate note in phase 6); for K1's
    three modes and K2, each template's instantiations and instruction
    counts, and the main path's instantiation's loads and stores (it fails
-   if the exponent mode, the wire mode or K2 there has no 16-byte load).
+   if the exponent mode, the wire mode or K2 there has no 16-byte load);
+   for K6, each instantiation's instructions, instructions per element,
+   longest loop and loads and stores (it fails if local mode at fp32, W =
+   1, or leaf mode at bf16 under fp32, W = 1, has no 16-byte load).
 3. Kernel parity on the card: K1 (local mode ``fpisa_encode_align``,
    exponent mode ``fpisa_block_max``, wire mode ``fpisa_encode_wire``) and
    K2 (``fpisa_decode_fused``, into every dtype) against their plain
@@ -28,9 +31,13 @@ Phases (each prints on its own lines; any failure raises, exit code != 0):
    mode, the wire mode and K2 in the leaf's dtype, at fp32 and bf16 leaves,
    which must give the same bits. Then K3 (``fpisa_extract``), K4
    (``fpisa_align``, preshift 0/2), K5 (``fpisa_decode``, preshift 0/2) and
-   K6 (``fpisa_accum``, W in {1, 2, 4, 8} x ``fpisa_a``/``full``, with
-   inputs that make FPISA-A overwrite, shift left into the headroom and
-   wrap the int32 register) over the same sweep and the largest leaf.
+   K6 in local mode (``fpisa_accum``, W in {1, 2, 3, 4, 8} x
+   ``fpisa_a``/``full``, with inputs that make FPISA-A overwrite, shift
+   left into the headroom and wrap the int32 register) over the same sweep
+   and the largest leaf, and in leaf mode (``fpisa_accum_leaf``: the leaf's
+   dtype in and out) at every (format, leaf dtype) pair it reads, with the
+   non-finite words and the same FPISA-A edges, plus a ragged row and a
+   base off the 16-byte boundary in both modes.
    Tolerance: none, outputs are compared as integers (bit patterns), and
    ``max_abs_err`` is the largest absolute difference of those integers.
 4. Training (the main path): qwen1.5-0.5b at full width (24 layers,
@@ -51,10 +58,14 @@ Phases (each prints on its own lines; any failure raises, exit code != 0):
    optimizer) follows, on CUDA events.
 5. Training with switch-arrival aggregation (the ``fpisa_seq`` path): the
    same model, batch and group, 3 steps with ``strategy="fpisa_seq"`` on
-   the ``auto`` backend. K6's launch count is zeroed just before and read
-   just after: one launch per gradient leaf per step. Then the cuda and the
-   plain ``fpisa_seq`` aggregation of the trained model's gradients must
-   give the same bits, and the step's breakdown follows.
+   the ``auto`` backend. K6's launch counts are zeroed just before and read
+   just after: one leaf-mode launch per gradient leaf per step, on the
+   leaf's bf16 gathered as it is, and no local-mode launch (no upcast,
+   staging cast or downcast runs around K6). Then the cuda and the plain
+   ``fpisa_seq`` aggregation of the trained model's gradients must give
+   the same bits, a profiled cuda ``fpisa_seq`` aggregation of them must
+   run no device op but K6's and NCCL's, and the step's breakdown
+   follows.
 6. Timing at the main path's shapes (the 14 gradient leaves of one step,
    1,812,452 rows of 256, bf16, and the largest leaf alone): CUDA events,
    median of 25 timed runs after warm-up, for each kernel (K1 as the path
@@ -76,9 +87,14 @@ Phases (each prints on its own lines; any failure raises, exit code != 0):
    K5's launch counts are zeroed just before that run and read just after
    (one extract per leaf, one align and one decode per leaf and preshift).
    Then K3, K4 and K5 are timed as above at preshift 0.
-8. K6 at the ``fpisa_seq`` step's shape (W = 1, the 14 leaves) and at the
+8. K6 at the ``fpisa_seq`` step's shape (W = 1, the 14 leaves): leaf mode
+   at bf16 (the path's) beside the eager composition it replaced (the
+   float32 upcast, local mode, the cast back: same bits, host issue and
+   CUDA events in turns) and local mode at fp32; local mode at the
    accuracy shape (W = 8 stacked gradients of the embedding leaf's shape,
-   both variants, each held against its plain version).
+   both variants, each held against its plain version); one step's
+   ``fpisa_seq`` aggregation through the Aggregator, W = 1 and stacked W
+   = 4, host issue and CUDA events.
 9. ``switch_emu`` at smoke size (its numpy dataplane is a per-packet loop on
    the host): 3 smoke steps of ``switch_emu`` and of ``fpisa_seq`` give the
    same losses (rtol 1e-6: the card's float backward sums in a varying
@@ -100,7 +116,8 @@ steps through ``make_train_step(logical_workers=4)`` with stacked ``fpisa``
 after; K1 over the 4 workers' rows) and 3 with stacked ``fpisa_seq`` (K6
 once per leaf per step at W = 4); on the trained per-worker gradients the
 cuda and plain stacked aggregations give the same bits, and bucketed
-stacked ``fpisa`` (32 MiB) equals per-leaf stacked; the stacked step's
+stacked ``fpisa`` (32 MiB) equals per-leaf stacked; K6 ran in leaf mode
+only; the stacked step's
 breakdown; ``[determinism]``: which gradient leaves and which ops alone
 repeat their bits on the card with and without deterministic algorithms
 (``runtime.elastic.reproducible``), and the forward+backward time of each
@@ -109,7 +126,8 @@ mode; ``[ckpt]``: checkpointed resume through ``train_loop(ckpt_dir=)``
 parameters and moments to an uninterrupted run, in the default mode, then
 one bundle saved and restored on its own (bytes, seconds) and the directory
 removed (the phase fails if the disk cannot hold two bundles); K1, K2 and
-K6 timed at the stacked shapes.
+K6 timed at the stacked shapes (K6 in both modes, leaf mode beside the
+composition it replaced).
 
 Then, in the same group, the paper's Fig. 9 gate at full width (``fig9_path``,
 ``[fig9]`` lines, each with the card's name and power limit; the
@@ -142,7 +160,7 @@ requests the continuous engine's tokens equal the static engine's run one
 request at a time, a differing token passing only where the oracle's top-2
 logit gap is no larger than the largest |logit difference| of the two
 paths' rows at that step (each divergence printed); 8 requests with
-``fpisa_seq`` telemetry (the ``serve_fpisa_seq`` path, K6 once per flush,
+``fpisa_seq`` telemetry (the ``serve_fpisa_seq`` path, K6's leaf mode once per flush,
 traced); a decode step and prefills on CUDA events; ``[diagnose] serve
 decode``. Before the engines, ``make_serve_steps``' prefill and decode
 (``train/step.py``) give the model methods' greedy tokens, the logits bit
@@ -159,7 +177,7 @@ engine serving 8 seeded requests with ``fpisa`` telemetry (exact totals,
 K1/K2 once per flush; the ``mamba2`` path); (b) zamba2-7b at full width
 (d_model 3584, d_ff 14336, state 64, the shared attention block after every
 6 mamba blocks) with ``num_layers`` cut to 7 (one group and one tail block),
-3 steps of ``fpisa_seq`` (K6 once per leaf per step; the ``zamba2_seq``
+3 steps of ``fpisa_seq`` (K6's leaf mode once per leaf per step; the ``zamba2_seq``
 path), cuda == plain ``fpisa_seq`` bits, the step's breakdown; (c)
 arctic-480b at full width (128 experts top-2, d_ff 4864, moe_dense_ff 4864,
 56 / 8 heads) with ``num_layers`` cut to 1: paged == dense decode bit for
@@ -265,10 +283,10 @@ dataplane runs as torch ops on the card, as the reference runs it as jitted
 dataplane on the host and the per-packet ``FpisaSwitch`` on the card, bits
 and counters, at a small size (both variants, P = 1 and 4, drop 0 and 0.3,
 a worker failure, J = 2 with overlapping quotas and priorities (1, 0));
-(b) the full-size stream: one full-width qwen1.5-0.5b MLP leaf (24 x 1024 x
-2816 = 69,206,016 elements) from each of 4 workers through 4 pipelines x
-256 slots (G = 2048, a window of 1024 chunks, up to 4,096 packets a driver
-round), both variants at drop 0 and 0.01, each result held bit for bit
+(b) the stream: the full-width qwen1.5-0.5b MLP leaf cut to 6 of its 24
+layers (6 x 1024 x 2816 = 17,301,504 elements) from each of 4 workers
+through 4 pipelines x 256 slots (G = 2048, a window of 1024 chunks, up to
+4,096 packets a driver round), both variants at drop 0 and 0.01, each result held bit for bit
 against K6 in arrival order (the chunks grouped by their arrival
 permutation, one ``ops.accum`` per group: the ``switchsim`` path's K6
 launches, counted from zero over (a) and (b)); driver and inner rounds,
@@ -284,7 +302,7 @@ Then in-switch query processing (``query_path``, ``[query]`` lines): (e)
 the uservisits adRevenue column (AMPLab Big Data Benchmark; gamma(2, 50),
 float32, numpy seed 1) on the card: Top-10 over 50,000,000 rows in batches
 of 1,048,576, exact against the full scan, with its prune rate; group-by
-SUM of 64 groups over 2,000,000 rows (``full``): the timed run's planes
+SUM of 64 groups over 262,144 rows (``full``): the timed run's planes
 equal to the CPU's over the same rows, its totals within rel 2e-3 of
 ``spark_like_groupby``, rows/s on the card and the baseline's on the host;
 (f) ``python -m repro_torch.launch.query`` on the card. Every time is
@@ -297,11 +315,12 @@ every path above that ran it (main, ``fpisa_seq``, bucketed, stacked
 ``dots``, ``whisper``, ``sharded``, ``longctx``, ``longctx_dots``,
 ``prefill_32k``, ``whisper_encoder``,
 the two-pass pipeline, ``switchsim``) and ``launches_by_path`` names each path's count, every
-path's counts zeroed just before it and read just after. K1 and K2 also
-have ``launches_by_mode`` (per path: K1 ``local``, ``exponent``, ``wire``;
-K2 ``format``, ``leaf``) and ``ms_by_mode`` (each mode's ms, plain ms,
-bound and ``copy_`` at the main path's shapes); their ``ms`` is the main
-path's (K1: exponent + wire mode; K2: into bf16). A1 has two
+path's counts zeroed just before it and read just after. K1, K2 and K6
+also have ``launches_by_mode`` (per path: K1 ``local``, ``exponent``,
+``wire``; K2 ``format``, ``leaf``; K6 ``local``, ``leaf``) and
+``ms_by_mode`` (each mode's ms, plain ms, bound and ``copy_`` at the main
+path's shapes); their ``ms`` is the main path's (K1: exponent + wire mode;
+K2: into bf16; K6: leaf mode at the fpisa_seq step's bf16 leaves). A1 has two
 entries, ``chunked_attention_fwd`` and ``chunked_attention_bwd`` (its dQ
 and dK/dV kernels, one launch of the pair per backward), each also with
 ``launches_by_route`` (per path: ``wgmma``, ``cuda_cores``); their
@@ -375,6 +394,10 @@ KERNEL_WRAPPER = {"fused_encode_align": "encode_align", "fused_decode": "decode_
 K1_MODES = {"local": "encode_align", "exponent": "block_max", "wire": "encode_wire"}
 K2_MODES = ("format", "leaf")
 K1K2 = ("fused_encode_align", "fused_decode")
+# K6's modes, counted in ``ops.accum.launches_by_mode``: "local" (ops.accum,
+# the TPU kernel's float32 out) and "leaf" (ops.accum_leaf, a leaf stack in
+# its own dtype, that dtype out: the fpisa_seq paths)
+K6_MODES = ("local", "leaf")
 # the serve phase: engines' sizes and the Poisson trace
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_PAGE = 16, 1024, 16
 SERVE_REQUESTS, SERVE_RATE = 32, 0.5
@@ -392,13 +415,17 @@ WHISPER_PROMPT, WHISPER_DECODE, WHISPER_ROWS = 4, 32, (8, 16)
 # (the reference's own prefill tolerance, tests/test_models.py; its decode
 # check allows 5e-3)
 WHISPER_ATOL = 2e-4
-# the switchsim phase: one full-width qwen1.5-0.5b MLP leaf (24 layers x d_model
-# 1024 x d_ff 2816) from each of 4 workers, through 4 pipelines x 256 slots
-STREAM_WORKERS, STREAM_ELEMS = 4, 24 * 1024 * 2816
+# the switchsim phase: the full-width qwen1.5-0.5b MLP leaf (d_model 1024 x d_ff
+# 2816 a layer) cut in depth from 24 layers to 6, from each of 4 workers,
+# through 4 pipelines x 256 slots
+STREAM_WORKERS, STREAM_ELEMS = 4, 6 * 1024 * 2816
 SWITCH_SLOTS, SWITCH_PIPES = 256, 4
 # the query phase: the uservisits adRevenue column (AMPLab Big Data Benchmark)
 QUERY_ROWS, QUERY_BATCH = 50_000_000, 1_048_576
-GROUPS, GROUP_ROWS = 64, 2_000_000
+# the group-by: 64 groups over 262,144 rows, four of GroupBySum's 65,536-row
+# batches (each a few seconds of eager rounds on the card and on the host);
+# the profiled batch is 8,192 rows (about 20,000 launches to trace, not 160,000)
+GROUPS, GROUP_ROWS, PROFILED_ROWS = 64, 262_144, 8192
 # the longctx group: qwen1.5-0.5b at the reference's train_4k and prefill_32k
 # lengths (configs/base.py SHAPES), A1 against its plain version at qwen's
 # heads (16 x 64) and batch 2 with cq = 32, whisper's 1500-frame encoder
@@ -422,9 +449,20 @@ ENCODER_RTOL = 1e-4
 CARD = "card not read yet"    # nvidia-smi's name and power limit, beside every number
 
 
-def accum_ops_per_elem(workers: int) -> int:
-    """K6: encode + one add per worker, one renormalize at the end."""
-    return 28 * workers + 34
+def accum_ops_per_elem(workers: int, bf16_leaf: bool = False) -> int:
+    """K6's integer operations per element: the fewest of the card's
+    instructions the function needs (a three-input LOP3 or IADD3, a min,
+    max or select count one each; loads, stores, address math and loop
+    control are left out). Per worker the encode (8: the exponent field 2,
+    mantissa and implied one 1, the inf/NaN clamp 2, the denormal flush 1,
+    the sign 2) and the add (7: the exponent difference 1, two clamped
+    shift distances 2, two shifts 2, the add 1, the exponent 1), then one
+    renormalize (8: the round-down conversion 1, its exponent 2, the new
+    exponent 1, the range test 2, the result and its select 2); a bf16 leaf
+    adds its widening (1 a worker) and the round to nearest even back (3).
+    Not derived from the compiled kernel, so more instructions there do not
+    loosen the bound; ``check_k6_sass`` holds it under the compiled count."""
+    return 15 * workers + 8 + (workers + 3 if bf16_leaf else 0)
 
 
 def log(*parts):
@@ -489,9 +527,12 @@ def build_kernels():
             f"({100 * imad / max(len(opcodes), 1):.1f} %, integer work on the FMA pipe)")
         if stem == "chunked_attention":
             a1_sass_check(sass)
+        cufilt = cuobjdump.with_name("cu++filt")
+        cufilt = str(cufilt) if cufilt.is_file() else shutil.which("c++filt")
         if stem == "fpisa_fused":
-            cufilt = cuobjdump.with_name("cu++filt")
-            k1k2_sass_record(sass, str(cufilt) if cufilt.is_file() else shutil.which("c++filt"))
+            k1k2_sass_record(sass, cufilt)
+        if stem == "fpisa_accum":
+            check_k6_sass(k6_sass_record(sass, cufilt))
 
 
 # the main path's instantiation of each K1 mode and of K2 (fp32 format,
@@ -502,6 +543,36 @@ K1K2_MAIN = {"local mode": "encode_align_kernel<fpisa::Format<8, 23>, unsigned i
              "K2 into bf16": "decode_kernel<fpisa::Format<8, 23>, int, 2, 256>"}
 
 
+def sass_functions(sass, cufilt):
+    """{kernel name: its SASS text} of ``cuobjdump -sass`` output, the names
+    demangled by ``cufilt`` where there is one and written without casts
+    and spaces (cu++filt may write a template argument as "(int)2")."""
+    bodies = {}
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        name, rest = body.split("\n", 1)
+        bodies[name.strip()] = rest
+    names = list(bodies)
+    if cufilt:  # demangle
+        names = subprocess.run([cufilt], input="\n".join(names), capture_output=True,
+                               text=True, timeout=60, check=True).stdout.splitlines()
+    return {re.sub(r"\((?:unsigned |bool)?(?:int)?\)|\s", "", n): b
+            for n, b in zip(names, bodies.values())}
+
+
+def sass_loop(body):
+    """Instructions in the longest backward branch's span of one kernel's
+    SASS text (a loop's body; 0 where the code is straight)."""
+    spans = [(int(at, 16) - int(to, 16)) // 16 + 1 for at, to in re.findall(
+        r"/\*([0-9a-f]{4,})\*/[^;\n]*?\bBRA\s+(?:`\()?0x([0-9a-f]+)", body)]
+    return max([s for s in spans if s > 0], default=0)
+
+
+def memory_opcodes(opcodes):
+    """The global load and store opcodes among ``opcodes``."""
+    return {"loads": sorted({o for o in opcodes if o.startswith("LDG")}),
+            "stores": sorted({o for o in opcodes if o.startswith("STG")})}
+
+
 def k1k2_sass_record(sass, cufilt):
     """K1's modes and K2 in ``cuobjdump -sass`` of csrc/fpisa_fused.cu: per
     kernel template, its instantiations and their instruction counts; for
@@ -509,16 +580,7 @@ def k1k2_sass_record(sass, cufilt):
     count and its global load and store opcodes. Raises if the exponent
     mode, the wire mode or K2 at the main path's shape has no 16-byte load
     (LDG.E.128)."""
-    bodies = {}
-    for body in re.split(r"\n\s*Function : ", sass)[1:]:
-        name, rest = body.split("\n", 1)
-        bodies[name.strip()] = SASS_OPCODE.findall(rest)
-    names = list(bodies)
-    if cufilt:  # demangle
-        names = subprocess.run([cufilt], input="\n".join(names), capture_output=True,
-                               text=True, timeout=60, check=True).stdout.splitlines()
-    # cu++filt may write template arguments as "(int)2": compare without casts and spaces
-    ops_of = {re.sub(r"\((?:unsigned )?int\)|\s", "", n): o for n, o in zip(names, bodies.values())}
+    ops_of = {n: SASS_OPCODE.findall(b) for n, b in sass_functions(sass, cufilt).items()}
     families = {}
     for name, opcodes in ops_of.items():
         fam = next((f for f in ("encode_align_kernel", "block_max_kernel",
@@ -534,15 +596,85 @@ def k1k2_sass_record(sass, cufilt):
             fam = want.split("<")[0]
             raise AssertionError(f"{mode}: {want} not in the SASS; the {fam} names: "
                                  f"{[n for n in ops_of if fam in n][:3]}")
-        ops_ = found[0]
-        main[mode] = {"instructions": len(ops_),
-                      "loads": sorted({o for o in ops_ if o.startswith("LDG")}),
-                      "stores": sorted({o for o in ops_ if o.startswith("STG")})}
+        main[mode] = {"instructions": len(found[0]), **memory_opcodes(found[0])}
     log("[build] fpisa_fused SASS, the main path's instantiations: " + json.dumps(main))
     for mode in ("exponent mode", "wire mode", "K2 into bf16"):
         if not any(o.startswith("LDG.E.128") for o in main[mode]["loads"]):
             raise AssertionError(f"{mode}: no 16-byte load in the SASS of "
                                  f"{K1K2_MAIN[mode]}: {main[mode]}")
+
+
+# K6's kernel template (csrc/fpisa_accum.cu): accum_kernel<format, input
+# dtype, output dtype, full, W>, dtype codes 0 = fp32, 1 = fp16, 2 = bf16, W
+# = 0 the runtime loop over the workers; a thread takes K6_WORDS[W] 16-byte
+# words of 16 / itemsize elements. The main paths' instantiations must load
+# 16-byte words: local mode at the fp32 format, W = 1 (the TPU kernel's
+# function at the fpisa_seq step's shape), and leaf mode at bf16 leaves
+# under the fp32 format, W = 1 (the fpisa_seq paths).
+K6_KERNEL = re.compile(r"accum_kernel<fpisa::Format<(\d+),(\d+)>,(\d),(\d),(\d),(\d)>")
+K6_WORDS = {1: 4, 2: 2, 4: 1, 8: 1}
+K6_MAIN = {"local mode, fp32, W = 1": ("8", "23", "0", "0", "0", "1"),
+           "leaf mode, bf16 under fp32, W = 1": ("8", "23", "2", "2", "0", "1")}
+
+
+def k6_sass_record(sass, cufilt):
+    """K6 in ``cuobjdump -sass`` of csrc/fpisa_accum.cu: each instantiation's
+    instruction count, instructions per element (the count over the
+    elements a thread takes; straight-line code at a templated W), its
+    global loads and stores per element and their opcodes. Returns
+    {template arguments: record}."""
+    record = {}
+    for name, body in sass_functions(sass, cufilt).items():
+        name = name.replace("false", "0").replace("true", "1")
+        opcodes = SASS_OPCODE.findall(body)
+        m = K6_KERNEL.search(name)
+        if m:
+            _, _, din, _, _, w = m.groups()
+            elems = K6_WORDS.get(int(w), 0) * (4 if din == "0" else 8)
+            key = ",".join(m.groups())
+        elif "accum" in name:  # one element a thread (the edges' kernel, the first design)
+            elems, key = 1, re.sub(r"^.*?(\w*accum\w*<[^(]*>?)\(.*$", r"\1", name)
+        else:
+            continue
+        imad = sum(op.startswith("IMAD") for op in opcodes)
+        memory = sum(op.startswith(("LDG", "STG")) for op in opcodes)
+        record[key] = {"instructions": len(opcodes),
+                       "per_element": round(len(opcodes) / elems, 1) if elems else None,
+                       "imad_per_element": round(imad / elems, 1) if elems else None,
+                       "memory_per_element": round(memory / elems, 2) if elems else None,
+                       "loop": sass_loop(body), **memory_opcodes(opcodes)}
+    log("[build] fpisa_accum SASS (format exp,man, input dtype, output dtype, full, W: "
+        "instructions, per element, IMAD forms per element (the FMA pipe's share), the "
+        "longest loop's body, loads, stores): " + json.dumps(
+            {k: [r["instructions"], r["per_element"], r["imad_per_element"], r["loop"],
+                 r["loads"], r["stores"]] for k, r in record.items()}))
+    return record
+
+
+def check_k6_sass(record):
+    """Raises unless K6's main instantiations (``K6_MAIN``) load 16-byte
+    words (LDG.E.128), and unless the operations the bound counts
+    (``accum_ops_per_elem``) are at most the compiled instructions per
+    element net of loads and stores, in each fp32-format instantiation the
+    timing phase bounds (local mode at fp32, leaf mode at bf16; W 1, 2, 4,
+    8; both variants)."""
+    for what, args in K6_MAIN.items():
+        got = record.get(",".join(args))
+        if not got or not any(o.startswith("LDG.E.128") for o in got["loads"]):
+            raise AssertionError(f"K6 {what}: no 16-byte load in the SASS of accum_kernel"
+                                 f"<{','.join(args)}>: {got}")
+    for key, got in record.items():
+        args = key.split(",")
+        if args[:2] != ["8", "23"] or args[2] not in ("0", "2") or int(args[5]) not in K6_WORDS:
+            continue
+        w, leaf = int(args[5]), args[2] == "2"
+        net = got["per_element"] - got["memory_per_element"]
+        if accum_ops_per_elem(w, bf16_leaf=leaf) > net:
+            raise AssertionError(f"K6 accum_kernel<{key}>: the bound counts "
+                                 f"{accum_ops_per_elem(w, bf16_leaf=leaf)} operations an "
+                                 f"element, the SASS has {net} besides loads and stores")
+    log("[build] fpisa_accum SASS, the main paths' instantiations: " + json.dumps(
+        {what: record[",".join(args)] for what, args in K6_MAIN.items()}))
 
 
 def a1_kernel_name(mangled):
@@ -789,8 +921,66 @@ def accum_sample(torch, workers, shape, fmt, seed, dev):
     return x
 
 
+def leaf_accum_sample(torch, workers, shape, fmt, leaf, seed, dev):
+    """(W, *shape) stack of ``leaf_sample``'s values in dtype ``leaf`` (the
+    non-finite words and range edges included); where the leaf dtype has
+    the format's exponent range (its own dtype, bf16 under fp32), row 0
+    also holds ``accum_sample``'s FPISA-A edges: the largest mantissa at
+    exponent = headroom from every worker in columns 0..4 (shifted left
+    into the exponent-0 accumulator, the second one wrapping the register),
+    column 4 from worker 1 at headroom + 1 (an overwrite)."""
+    from repro_torch.core import fpisa
+
+    x = torch.stack([leaf_sample(torch, shape, leaf, seed + i, dev) for i in range(workers)])
+    if leaf == fmt or (leaf, fmt) == ("bf16", "fp32"):
+        h, lf = fpisa.FORMATS[fmt].headroom, fpisa.FORMATS[leaf]
+        bits = x.view(torch.int32 if leaf == "fp32" else torch.int16).reshape(workers, -1)
+        bits[:, :5] = (h << lf.man_bits) | lf.man_mask
+        bits[1:2, 4] = ((h + 1) << lf.man_bits) | lf.man_mask
+    return x
+
+
+def leaf_accum_parity(torch, dev, par):
+    """K6's leaf mode against its plain version over SWEEP x LEAF_PAIRS x W
+    in ACCUM_WORKERS and 3 (the kernel's loop over the workers) x both
+    variants, with the non-finite words and the
+    FPISA-A edges; then a ragged row (N = 1,000,003) and a base off the
+    16-byte boundary (a view one element in), which take the
+    one-element-a-thread edge kernel, in leaf and in local mode."""
+    from repro_torch.core import fpisa
+    from repro_torch.kernels import ops, ref
+
+    for shape in SWEEP:
+        for i, (fmt, leaf) in enumerate(LEAF_PAIRS):
+            f = fpisa.FORMATS[fmt]
+            for workers in ACCUM_WORKERS + (3,):
+                x = leaf_accum_sample(torch, workers, shape, fmt, leaf,
+                                      shape[0] + 13 * i + workers, dev)
+                for variant in ("fpisa_a", "full"):
+                    par.check("fpisa_accum", ops.accum_leaf(x, variant, fmt),
+                              ref.accum_leaf_ref(x, variant, f),
+                              f"leaf mode {fmt} from {leaf} {shape} W{workers} {variant}")
+    for fmt, leaf in LEAF_PAIRS:
+        f = fpisa.FORMATS[fmt]
+        for workers in (1, 3, 4):
+            x = leaf_accum_sample(torch, workers, (1_000_003,), fmt, leaf, 90 + workers, dev)
+            buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+            buf[1:].copy_(x.reshape(-1))
+            for what, xs in (("ragged", x), ("unaligned base", buf[1:].view(x.shape))):
+                for variant in ("fpisa_a", "full"):
+                    par.check("fpisa_accum", ops.accum_leaf(xs, variant, fmt),
+                              ref.accum_leaf_ref(xs, variant, f),
+                              f"leaf mode {fmt} from {leaf} {what} W{workers} {variant}")
+                    if leaf == fmt:
+                        x3 = xs.reshape(workers, 1, -1)
+                        par.check("fpisa_accum", ops.accum(x3, variant, fmt),
+                                  ref.accum_ref(x3, variant, f).to(torch.float32),
+                                  f"local mode {fmt} {what} W{workers} {variant}")
+
+
 def two_pass_accum_parity(torch, dev, par):
-    """K3, K4, K5 and K6 against their plain versions on the card."""
+    """K3, K4, K5 and K6 (local and leaf mode) against their plain versions
+    on the card."""
     from repro_torch.core import fpisa
     from repro_torch.kernels import ops, ref
 
@@ -814,7 +1004,7 @@ def two_pass_accum_parity(torch, dev, par):
                                    device=dev, dtype=torch.int32)
                 par.check("fpisa_decode", ops.decode(m, be, preshift, fmt),
                           ref.decode_ref(m, be, preshift, f), f"{fmt} {shape} p{preshift}")
-            for workers in ACCUM_WORKERS:
+            for workers in ACCUM_WORKERS + (3,):  # 3: the kernel's loop over the workers
                 xs = accum_sample(torch, workers, shape, fmt, shape[0] + workers, dev)
                 for variant in ("fpisa_a", "full"):
                     plain, st = fpisa.fpisa_sum_sequential(xs, f, variant, return_stats=True)
@@ -835,13 +1025,18 @@ def two_pass_accum_parity(torch, dev, par):
     par.check("fpisa_decode", ops.decode(aligned, bmax, 0, "fp32"),
               ref.decode_ref(aligned, bmax, 0, fpisa.FP32), "embedding leaf")
     del x, exp, man, bmax, aligned
+    local = par.cases["fpisa_accum"]
+    leaf_accum_parity(torch, dev, par)
     torch.cuda.synchronize()
     log(f"[parity] bit-equal to the plain versions: fpisa_extract "
         f"{par.cases['fpisa_extract']} cases, fpisa_align {par.cases['fpisa_align']}, "
         f"fpisa_decode {par.cases['fpisa_decode']}, fpisa_accum {par.cases['fpisa_accum']} "
-        f"(sweep x {FMTS}, preshift 0/2, W {ACCUM_WORKERS} x fpisa_a/full with "
-        f"{events['overwrite']} overwrites and {events['overflow']} register overflows, "
-        f"the embedding leaf)")
+        f"(local mode {local}: sweep x {FMTS}, W {ACCUM_WORKERS} and 3 x fpisa_a/full with "
+        f"{events['overwrite']} overwrites and {events['overflow']} register overflows; leaf "
+        f"mode {par.cases['fpisa_accum'] - local}: sweep x {LEAF_PAIRS} x W {ACCUM_WORKERS} "
+        f"and 3 x "
+        f"fpisa_a/full with the non-finite words and FPISA-A's edges, a ragged row and an "
+        f"unaligned base at W 1/3/4, local mode there too; preshift 0/2, the embedding leaf)")
 
 
 def train_main_path(torch, dev):
@@ -884,32 +1079,30 @@ def train_main_path(torch, dev):
 
 
 def train_seq_path(torch, dev):
-    """The fpisa_seq path, with K6's launch count zeroed just before and
-    read just after. Returns the launch count, the model and its optimizer
-    state."""
+    """The fpisa_seq path, with K6's launch counts zeroed just before and
+    read just after. Returns K6's counts (in all and by mode), the model and
+    its optimizer state."""
     from repro_torch.configs import get_config
     from repro_torch.core.agg import AggConfig
-    from repro_torch.kernels import ops
     from repro_torch.launch.train import train_loop
 
     cfg = get_config("qwen1.5-0.5b")
-    ops.accum.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     model, opt_state, losses = train_loop(
         cfg, steps=STEPS, global_batch=GLOBAL_BATCH, seq_len=SEQ_LEN,
         agg=AggConfig(strategy="fpisa_seq", backend="auto"), device=dev, log_every=1)
     torch.cuda.synchronize()
-    launches = ops.accum.launches
+    launches = k6_subset(read_launches())
     leaves = len(list(model.parameters()))
     log(f"[train] fpisa_seq: {STEPS} steps of {cfg.name} in {time.perf_counter() - t0:.2f} s "
         f"(init included); peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(json.dumps({"fpisa_seq_launches_per_step": {"fpisa_accum": launches / STEPS},
+    log(json.dumps({"fpisa_seq_launches_per_step": {k: v / STEPS for k, v in launches.items()},
                     "gradient_leaves": leaves}))
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite fpisa_seq loss: {losses}")
-    if launches != leaves * STEPS:
-        raise AssertionError(f"fpisa_accum launched {launches} times in {STEPS} steps, "
-                             f"expected {leaves} per step (one per gradient leaf)")
+    # one leaf-mode launch per gradient leaf per step, in the leaf's bf16
+    check_seq_launches(launches, leaves * STEPS, "fpisa_seq path")
     if not all(torch.isfinite(p).all() for p in model.parameters()):
         raise AssertionError("non-finite parameter after fpisa_seq training")
     return launches, model, opt_state
@@ -983,7 +1176,7 @@ def bucketed_path(torch, dev, model, tmpdir):
        for bit: bucketed cuda, per-leaf plain torch, chunked cuda
        (``chunk_elems`` = 2^20), hierarchical over a pair of one-rank groups
        (bucketed, stripes), and bucketed ``fpisa_seq`` must equal per-leaf
-       ``fpisa_seq`` with K6 once per bucket;
+       ``fpisa_seq`` with K6's leaf mode once per bucket;
     4. the step's breakdown, bucketed against per-leaf, on CUDA events, and
        the traced encode / collective / finish sums of the bucketed
        aggregation. Returns the bucketed run's launch counts."""
@@ -992,7 +1185,6 @@ def bucketed_path(torch, dev, model, tmpdir):
     from repro_torch.configs import get_config
     from repro_torch.core.agg import AggConfig, Aggregator
     from repro_torch.core.bucketer import make_plan
-    from repro_torch.kernels import ops
     from repro_torch.launch.train import train_loop
     from repro_torch.runtime.elastic import make_groups
 
@@ -1069,12 +1261,12 @@ def bucketed_path(torch, dev, model, tmpdir):
     same(Aggregator(AggConfig(backend="cuda", bucket_bytes=bucket_bytes), pair)
          .allreduce_tree(grads), want, "hierarchical bucketed cuda")
     seq_want = Aggregator(AggConfig(strategy="fpisa_seq", backend="cuda")).allreduce_tree(grads)
-    before = ops.accum.launches
+    zero_launches()
     same(Aggregator(AggConfig(strategy="fpisa_seq", backend="cuda", bucket_bytes=bucket_bytes))
          .allreduce_tree(grads), seq_want, "bucketed fpisa_seq")
-    if ops.accum.launches - before != buckets:
-        raise AssertionError(f"bucketed fpisa_seq: K6 launched {ops.accum.launches - before} "
-                             f"times, expected {buckets} (one per bucket)")
+    # a bucket is packed in float32 (held to the reference's plan): leaf mode
+    # at the fp32 format's own dtype, once per bucket
+    check_seq_launches(read_launches(), buckets, "bucketed fpisa_seq")
     log(f"[check] full-width gradients ({len(grads)} leaves, {grads[0].dtype}): per-leaf cuda fpisa "
         f"bit-equal to bucketed cuda ({buckets} launches each of K1's exponent and wire modes "
         f"and K2), per-leaf plain, chunked cuda "
@@ -1142,8 +1334,7 @@ def train_stacked(torch, dev, strategy):
         losses.append(float(metrics["loss"]))
     torch.cuda.synchronize()
     counts = read_launches()
-    launches = k1k2_subset(counts) if strategy == "fpisa" else {"fpisa_accum":
-                                                                counts["fpisa_accum"]}
+    launches = k1k2_subset(counts) if strategy == "fpisa" else k6_subset(counts)
     peak = torch.cuda.max_memory_allocated() / 2**30
     params = list(model.parameters())
     leaves = len(params)
@@ -1158,9 +1349,8 @@ def train_stacked(torch, dev, strategy):
     if strategy == "fpisa":
         check_fpisa_launches(counts, leaves * STEPS, "stacked fpisa",
                              leaf=sum(p.dtype != torch.float32 for p in params) * STEPS)
-    elif launches["fpisa_accum"] != leaves * STEPS:
-        raise AssertionError(f"stacked {strategy}: K6 launched {launches['fpisa_accum']} times "
-                             f"in {STEPS} steps, expected {leaves} per step (one per leaf)")
+    else:
+        check_seq_launches(counts, leaves * STEPS, f"stacked {strategy}")
     if not all(torch.isfinite(p).all() for p in model.parameters()):
         raise AssertionError(f"non-finite parameter after stacked {strategy} training")
     return launches, model, opt_state, losses, peak
@@ -1444,16 +1634,35 @@ def stacked_timing(torch, dev, leaf_sizes):
         copy_ms(torch, dev, [elems * 6 + rows * 4]),
         f"stacked step: {len(planes)} leaves, {rows} rows x 256 (the folded plane) into bf16")
     del planes
+    out["fpisa_accum"] = accum_stacked_timing(torch, dev, leaf_sizes)
+    return out
+
+
+def accum_stacked_timing(torch, dev, leaf_sizes):
+    """K6 at the stacked fpisa_seq step's shape, once per leaf over the (4,
+    N) stack of the k = 4 workers' leaves: local mode at fp32, then leaf
+    mode at bf16 (the stacked fpisa_seq path's) beside the composition it
+    replaced (``leaf_mode_timing``); CUDA events against the bound, as in
+    ``timing``. Returns leaf mode's times with ``ms_by_mode``."""
+    from repro_torch.core import fpisa
+    from repro_torch.kernels import ops, ref
+
+    k = LOGICAL_WORKERS
     workers = [step_leaves(torch, dev, leaf_sizes, seed=100 * j) for j in range(k)]
     stacks = [torch.stack(per_leaf).reshape(k, 1, -1) for per_leaf in zip(*workers)]
     del workers
     n = sum(s.shape[-1] for s in stacks)
-    out["fpisa_accum"] = time_kernel(
+    what = f"stacked fpisa_seq step, W = {k} over {len(stacks)} leaves, {n} elements"
+    local = time_kernel(
         torch, "fpisa_accum", lambda: [ops.accum(s, "fpisa_a", "fp32") for s in stacks],
-        lambda: [ref.accum_ref(s, "fpisa_a", fmt) for s in stacks],
+        lambda: [ref.accum_ref(s, "fpisa_a", fpisa.FP32) for s in stacks],
         n * (k + 1) * 4, n * accum_ops_per_elem(k),
         copy_ms(torch, dev, [s.numel() // k * (k + 1) * 4 for s in stacks]),
-        f"stacked fpisa_seq step, W = {k} over {len(stacks)} leaves, {n} elements", plain_reps=3)
+        f"local mode, {what} of fp32", plain_reps=3)
+    bf16 = [s.reshape(k, -1).to(torch.bfloat16) for s in stacks]
+    del stacks
+    out = leaf_mode_timing(torch, dev, bf16, f"{what} of bf16, fp32 format")
+    out["ms_by_mode"] = {"local": local, "leaf": dict(out)}
     return out
 
 
@@ -1659,7 +1868,7 @@ def fig9_path(torch, dev):
     is the card's own run-to-run spread (the backward's float order).
     Fails unless both curves learn (last loss < 0.9 x the first), the mean
     relative gap over the last 10 steps is under 0.05 (the reference's
-    bounds), K6 launched once per leaf per step in the ``fpisa_seq`` run and
+    bounds), K6's leaf mode launched once per leaf per step in the ``fpisa_seq`` run and
     never in the ``native`` one, and A1 launched as the four workers'
     remat'd passes need, every launch on the bf16 tensor-core kernels
     (``check_a1_routes`` over the returned paths). Prints the curves, each
@@ -1676,10 +1885,8 @@ def fig9_path(torch, dev):
         leaves = len(list(model.parameters()))
         curves.append(losses)
         paths.setdefault(f"fig9_{strategy}", launches)
-        want_k6 = leaves * FIG9_STEPS if strategy == "fpisa_seq" else 0
-        if launches["fpisa_accum"] != want_k6:
-            raise AssertionError(f"[fig9] {strategy}: K6 launched {launches['fpisa_accum']} "
-                                 f"times in {FIG9_STEPS} steps, expected {want_k6}")
+        check_seq_launches(launches, leaves * FIG9_STEPS if strategy == "fpisa_seq" else 0,
+                           f"[fig9] {strategy}")
         want_a1 = {"chunked_attention_fwd": 2 * cfg.num_layers * LOGICAL_WORKERS * FIG9_STEPS,
                    "chunked_attention_bwd": cfg.num_layers * LOGICAL_WORKERS * FIG9_STEPS}
         got_a1 = {k: launches[k] for k in A1}
@@ -1740,20 +1947,23 @@ def zero_launches():
     for fn in k1_mode_wrappers().values():
         fn.launches = 0
     wrapper("fused_decode").modes = dict.fromkeys(K2_MODES, 0)
+    wrapper("fpisa_accum").launches_by_mode = dict.fromkeys(K6_MODES, 0)
     for name in A1:
         wrapper(name).routes = dict.fromkeys(wrapper(name).routes, 0)
 
 
 def read_launches():
-    """Every kernel's count (K1's summed over its three modes), K1's and
-    K2's per mode as ``name@mode``, and A1's per route as ``name@route``
-    (``wgmma``: the bf16 tensor-core kernels; ``cuda_cores``: the float32
-    ones)."""
+    """Every kernel's count (K1's summed over its three modes), K1's, K2's
+    and K6's per mode as ``name@mode``, and A1's per route as
+    ``name@route`` (``wgmma``: the bf16 tensor-core kernels;
+    ``cuda_cores``: the float32 ones)."""
     counts = {name: wrapper(name).launches for name in KERNELS}
     k1 = {mode: fn.launches for mode, fn in k1_mode_wrappers().items()}
     counts["fused_encode_align"] = sum(k1.values())
     counts.update({f"fused_encode_align@{mode}": n for mode, n in k1.items()})
     counts.update({f"fused_decode@{mode}": n for mode, n in wrapper("fused_decode").modes.items()})
+    counts.update({f"fpisa_accum@{mode}": n
+                   for mode, n in wrapper("fpisa_accum").launches_by_mode.items()})
     counts.update({f"{name}@{route}": n
                    for name in A1 for route, n in wrapper(name).routes.items()})
     return counts
@@ -1777,6 +1987,22 @@ def check_fpisa_launches(counts, n, what, leaf=None):
         got["K2 leaf"], want["K2 leaf"] = counts["fused_decode@leaf"], leaf
     if got != want:
         raise AssertionError(f"{what}: K1/K2 launches {got}, expected {want}")
+
+
+def k6_subset(counts):
+    """K6's counts, in all and by mode, out of ``read_launches()``'s."""
+    return {k: v for k, v in counts.items() if k.split("@")[0] == "fpisa_accum"}
+
+
+def check_seq_launches(counts, n, what):
+    """An ``fpisa_seq`` path's K6 counts (``read_launches()``) for ``n``
+    aggregated tensors (leaves x steps, buckets, telemetry flushes): leaf
+    mode n launches, local mode none (no upcast, staging cast or downcast
+    runs around K6 for a leaf the format widens)."""
+    got = {m: counts[f"fpisa_accum@{m}"] for m in K6_MODES}
+    want = {"local": 0, "leaf": n}
+    if got != want:
+        raise AssertionError(f"{what}: K6 launches by mode {got}, expected {want}")
 
 
 def a1_subset(counts):
@@ -2002,10 +2228,7 @@ def serve_path(torch, dev):
     trace.disable()
     paths["serve_fpisa_seq"] = read_launches()
     seq_flushes = check_telemetry(seq, seq_res, "continuous fpisa_seq")
-    if paths["serve_fpisa_seq"]["fpisa_accum"] != seq_flushes:
-        raise AssertionError(f"serve_fpisa_seq: fpisa_accum launched "
-                             f"{paths['serve_fpisa_seq']['fpisa_accum']} times for "
-                             f"{seq_flushes} telemetry flushes")
+    check_seq_launches(paths["serve_fpisa_seq"], seq_flushes, "serve_fpisa_seq telemetry")
     want = {r.rid: r.tokens for r in cont_res}
     same = sum(len(r.tokens) == len(want[r.rid]) and bool((r.tokens == want[r.rid]).all())
                for r in seq_res)
@@ -2079,15 +2302,14 @@ def family_train(torch, dev, cfg, strategy, seq_len=SEQ_LEN, tag="[models]"):
     launches = read_launches()
     params = list(model.parameters())
     leaves = len(params)
-    want = {"fpisa": K1K2, "fpisa_seq": ("fpisa_accum",)}[strategy]
+    want = {"fpisa": K1K2, "fpisa_seq": ("fpisa_accum", "fpisa_accum@leaf")}[strategy]
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{cfg.name}: non-finite loss {losses}")
     if strategy == "fpisa":
         check_fpisa_launches(launches, leaves * STEPS, f"{cfg.name} fpisa",
                              leaf=sum(p.dtype != torch.float32 for p in params) * STEPS)
-    elif launches["fpisa_accum"] != leaves * STEPS:
-        raise AssertionError(f"{cfg.name} {strategy}: K6 launched {launches['fpisa_accum']} "
-                             f"times in {STEPS} steps, expected {leaves} per step (one per leaf)")
+    else:
+        check_seq_launches(launches, leaves * STEPS, f"{cfg.name} {strategy}")
     if not all(torch.isfinite(p).all() for p in model.parameters()):
         raise AssertionError(f"{cfg.name}: non-finite parameter after training")
     log(f"{tag} {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}): {STEPS} steps "
@@ -3314,14 +3536,17 @@ def diagnose(torch, run, what):
 # device-op names of the aggregation's kernels in a profile (csrc/fpisa_fused.cu)
 AGG_KERNELS = {"block_max_kernel": "K1 exponent", "encode_wire_kernel": "K1 wire",
                "decode_kernel": "K2", "nccl": "NCCL"}
+SEQ_KERNELS = {"accum_kernel": "K6", "accum_edge_kernel": "K6", "nccl": "NCCL"}
 
 
-def aggregation_kernels(torch, run, what):
-    """The device ops of one ``run()`` of an ``fpisa`` aggregation on the
-    cuda backend, from torch.profiler, by kind: K1's exponent and wire
-    modes, K2, NCCL, and anything else (an eager shift, cast, fold or
-    copy). Raises if anything else ran; "not measured" when the profiler
-    recorded no device op. Returns the counts by kind."""
+def aggregation_kernels(torch, run, what, kinds=AGG_KERNELS):
+    """The device ops of one ``run()`` of an aggregation on the cuda
+    backend, from torch.profiler, by kind (``kinds``: a kernel name's
+    substring -> its kind): for ``fpisa`` K1's exponent and wire modes, K2
+    and NCCL, for ``fpisa_seq`` (``SEQ_KERNELS``) K6 and NCCL; and anything
+    else (an eager shift, cast, fold or copy). Raises if anything else ran;
+    "not measured" when the profiler recorded no device op. Returns the
+    counts by kind."""
     from torch.autograd import DeviceType
 
     events = profiled_events(torch, run) or []
@@ -3329,9 +3554,10 @@ def aggregation_kernels(torch, run, what):
     if not device_ops:
         log(f"[diagnose] {what}: device ops by kind not measured (the profiler recorded none)")
         return None
-    kinds, other = dict.fromkeys(AGG_KERNELS.values(), 0), {}
+    names, other = kinds, {}
+    kinds = dict.fromkeys(names.values(), 0)
     for e in device_ops:
-        kind = next((v for k, v in AGG_KERNELS.items() if k in e.key), None)
+        kind = next((v for k, v in names.items() if k in e.key), None)
         if kind is None:
             other[e.key[:90]] = other.get(e.key[:90], 0) + e.count
         else:
@@ -3339,8 +3565,8 @@ def aggregation_kernels(torch, run, what):
     log(f"[diagnose] {what}: device ops of one run by kind {json.dumps(kinds)}, other "
         f"{json.dumps(other)}")
     if other:
-        raise AssertionError(f"{what}: device ops other than K1's modes, K2 and NCCL ran "
-                             f"between the kernels and the collectives: {other}")
+        raise AssertionError(f"{what}: device ops other than {sorted(set(names.values()))} "
+                             f"ran between the kernels and the collectives: {other}")
     return kinds
 
 
@@ -3364,6 +3590,11 @@ def check_grads_cuda_equals_plain(torch, dev, model, strategy, seq_len=SEQ_LEN):
     log(f"[check] {strategy}, {model.cfg.name} full-width gradients ({len(names)} leaves, "
         f"{sorted({str(g.dtype) for g in grads})}): cuda aggregation bit-equal to the plain "
         f"aggregation, all finite")
+    if strategy == "fpisa_seq":  # K6's leaf mode and the all-gather, nothing between
+        kern.allreduce_tree(list(grads))
+        aggregation_kernels(torch, lambda: kern.allreduce_tree(list(grads)),
+                            f"fpisa_seq aggregation of {model.cfg.name}'s gradients",
+                            SEQ_KERNELS)
 
 
 def check_against_plain(torch, dev, model):
@@ -3624,24 +3855,87 @@ def two_pass_pipeline(torch, dev, leaf_sizes, par):
     return launches, times
 
 
+def leaf_composition(torch, rows):
+    """What the cuda backend's fpisa_seq ran around K6 before its leaf mode,
+    on (W, N) bf16 rows: the float32 upcast, the staging cast, local mode
+    over the (W, 1, N) stack and the cast back to bf16."""
+    from repro_torch.core import fpisa
+    from repro_torch.kernels import ops
+
+    up = fpisa.to_packed(rows.to(torch.float32), "fp32")
+    return ops.accum(up[:, None], "fpisa_a", "fp32").reshape(-1).to(torch.bfloat16)
+
+
+def leaf_mode_timing(torch, dev, stacks, what):
+    """K6's leaf mode over the bf16 (W, N) ``stacks`` (one per leaf), the
+    fp32 format, against its bound, its plain version and a ``copy_`` of the
+    same bytes, then beside the eager composition it replaced
+    (``leaf_composition``: W x 6 + 8 + 6 bytes an element), host issue
+    against CUDA events in turns; the two must give the same bits."""
+    from repro_torch.core import fpisa
+    from repro_torch.kernels import ops, ref
+
+    w = stacks[0].shape[0]
+    elems = sum(x.shape[1] for x in stacks)
+    out = time_kernel(
+        torch, "fpisa_accum", lambda: [ops.accum_leaf(x, "fpisa_a", "fp32") for x in stacks],
+        lambda: [ref.accum_leaf_ref(x, "fpisa_a", fpisa.FP32) for x in stacks],
+        elems * (2 * w + 2), elems * accum_ops_per_elem(w, bf16_leaf=True),
+        copy_ms(torch, dev, [x.shape[1] * (2 * w + 2) for x in stacks]),
+        f"leaf mode, {what}", plain_reps=3)
+    for x in stacks:
+        if not torch.equal(ops.accum_leaf(x, "fpisa_a", "fp32").view(torch.int16),
+                           leaf_composition(torch, x).view(torch.int16)):
+            raise AssertionError(f"leaf mode differs from the composition it replaced, {what}")
+    runs = {"composition": lambda: [leaf_composition(torch, x) for x in stacks],
+            "leaf mode": lambda: [ops.accum_leaf(x, "fpisa_a", "fp32") for x in stacks]}
+    turns = {}
+    for name in ("composition", "leaf mode", "composition", "leaf mode"):
+        runs[name]()
+        torch.cuda.synchronize()
+        turns.setdefault(name, []).append(issue_vs_device(torch, runs[name]))
+        torch.cuda.empty_cache()
+    comp_bytes = elems * (6 * w + 4 * w + 4 + 6)
+    log(f"[time] fpisa_accum: {what}: the composition leaf mode replaced (upcast, local mode, "
+        f"cast back: {comp_bytes // elems} B an element, floor "
+        f"{comp_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms) host issue / CUDA events "
+        + ", ".join(f"{i:.3f} / {d:.3f}" for i, d in turns["composition"])
+        + f" ms; leaf mode ({2 * w + 2} B an element) "
+        + ", ".join(f"{i:.3f} / {d:.3f}" for i, d in turns["leaf mode"])
+        + f" ms; same bits; {CARD}")
+    out["composition"] = {"ms": min(d for _, d in turns["composition"]),
+                          "bytes_ms": comp_bytes / HBM_BYTES_PER_S * 1e3, "turns": turns}
+    return out
+
+
 def accum_timing(torch, dev, leaf_sizes, par):
-    """K6 at the fpisa_seq step's shape (W = 1 over the 14 leaves) and at
-    the accuracy shape (W = 8 stacks of the embedding leaf's shape, both
-    variants, each also held against its plain version). Returns the step
-    shape's times."""
+    """K6 at the fpisa_seq step's shape (W = 1 over the 14 leaves): leaf
+    mode at the leaves' bf16 (what the fpisa_seq paths run) beside the
+    eager composition it replaced (``leaf_mode_timing``), local mode at fp32
+    leaves (the TPU kernel's function); then local mode at the accuracy
+    shape (W = 8 stacks of the embedding leaf's shape, both variants, each
+    also held against its plain version); then one step's fpisa_seq
+    aggregation (``seq_aggregation_timing``). Returns leaf mode's times at
+    the step's shape, with ``ms_by_mode``, the accuracy shape's and the
+    aggregation's."""
     from repro_torch.core import fpisa
     from repro_torch.kernels import ops, ref
 
     fmt = fpisa.FP32
     xs = [x[None] for x in step_leaves(torch, dev, leaf_sizes)]
     elems = sum(x.numel() for x in xs)
-    out = time_kernel(
+    local = time_kernel(
         torch, "fpisa_accum", lambda: [ops.accum(x, "fpisa_a", "fp32") for x in xs],
         lambda: [ref.accum_ref(x, "fpisa_a", fmt) for x in xs],
         elems * 8, elems * accum_ops_per_elem(1), copy_ms(torch, dev, [x.numel() * 8 for x in xs]),
-        f"fpisa_seq step, W = 1 over {len(xs)} leaves, {elems // 256} rows x 256 fp32",
-        plain_reps=5)
+        f"local mode, fpisa_seq step, W = 1 over {len(xs)} leaves, {elems // 256} rows x 256 "
+        f"fp32", plain_reps=5)
+    bf16 = [x.reshape(1, -1).to(torch.bfloat16) for x in xs]
     del xs
+    out = leaf_mode_timing(torch, dev, bf16, f"fpisa_seq step, W = 1 over {len(bf16)} leaves, "
+                                             f"{elems} elements of bf16, fp32 format")
+    del bf16
+    out["ms_by_mode"] = {"local": local, "leaf": dict(out)}
     workers = ACCUM_WORKERS[-1]
     x = torch.stack([torch.nan_to_num(sample(torch, (EMBED_ROWS, 256), "fp32", 60 + i, dev),
                                       posinf=1.0, neginf=-1.0) for i in range(workers)])
@@ -3655,8 +3949,43 @@ def accum_timing(torch, dev, leaf_sizes, par):
             torch, "fpisa_accum", lambda: ops.accum(x, variant, "fp32"),
             lambda: ref.accum_ref(x, variant, fmt), elems * (workers + 1) * 4,
             elems * accum_ops_per_elem(workers), copy,
-            f"accuracy shape, {variant}, W = {workers} x {EMBED_ROWS} x 256 fp32", plain_reps=3)
+            f"local mode, accuracy shape, {variant}, W = {workers} x {EMBED_ROWS} x 256 fp32",
+            plain_reps=3)
+    del x
+    torch.cuda.empty_cache()
     out["accuracy_shape"] = accuracy
+    out["aggregation"] = seq_aggregation_timing(torch, dev, leaf_sizes)
+    return out
+
+
+def seq_aggregation_timing(torch, dev, leaf_sizes):
+    """One step's ``fpisa_seq`` aggregation on the cuda backend through the
+    Aggregator, as the training step calls it (the group's all-gather
+    included): the 14 leaves in bf16 at W = 1, then their (4, ...) stacks
+    at W = 4 logical workers; host issue against CUDA events, two turns
+    each. Returns {"flat": [(issue ms, events ms)], "stacked": [...]}."""
+    from repro_torch.core.agg import AggConfig, Aggregator
+
+    cfg = AggConfig(strategy="fpisa_seq", backend="cuda")
+    xs = [x.to(torch.bfloat16) for x in step_leaves(torch, dev, leaf_sizes)]
+    runs = {"flat": (Aggregator(cfg), xs)}
+    k = LOGICAL_WORKERS
+    workers = [step_leaves(torch, dev, leaf_sizes, seed=100 * j) for j in range(k)]
+    runs["stacked"] = (Aggregator(cfg, stacked=True),
+                       [torch.stack(per_leaf).to(torch.bfloat16) for per_leaf in zip(*workers)])
+    del workers
+    out = {}
+    for name in ("flat", "stacked", "flat", "stacked"):
+        agg, leaves = runs[name]
+        agg.allreduce_tree(leaves)
+        torch.cuda.synchronize()
+        out.setdefault(name, []).append(issue_vs_device(torch, lambda: agg.allreduce_tree(leaves)))
+    elems = sum(x.numel() for x in xs)
+    log(f"[time] one step's fpisa_seq aggregation (cuda backend, the Aggregator, the group's "
+        f"all-gather included), {len(xs)} bf16 leaves of {elems} elements, host issue / CUDA "
+        f"events: W = 1 " + ", ".join(f"{i:.3f} / {d:.3f}" for i, d in out["flat"])
+        + f" ms; stacked W = {k} " + ", ".join(f"{i:.3f} / {d:.3f}" for i, d in out["stacked"])
+        + f" ms; {CARD}")
     return out
 
 
@@ -4020,15 +4349,15 @@ def switchsim_path(torch, dev, vecs, keys, values):
     zero_launches()
     switchsim_parity(torch, dev)
     streams = switchsim_stream(torch, dev, vecs)
-    launches = read_launches()
-    if launches["fpisa_accum"] == 0:
-        raise AssertionError("[switchsim] K6 never ran as the stream's oracle")
+    launches = k6_subset(read_launches())
+    if launches["fpisa_accum@local"] == 0 or launches["fpisa_accum@leaf"]:
+        raise AssertionError(f"[switchsim] K6 ran as the stream's oracle in local mode only, "
+                             f"at least once: {launches}")
     switchsim_tenancy(torch, dev, vecs, keys, values)
     switchsim_shared_agg(torch, dev)
-    log(json.dumps({"switchsim_launches": {"fpisa_accum": launches["fpisa_accum"]},
-                    "streams": streams}))
+    log(json.dumps({"switchsim_launches": launches, "streams": streams}))
     log(f"[switchsim] phase {time.perf_counter() - t0:.1f} s")
-    return {"fpisa_accum": launches["fpisa_accum"]}
+    return launches
 
 
 def uservisits():
@@ -4093,14 +4422,15 @@ def query_path(torch, dev, revenue, keys):
                              f"(bound 2e-3) over groups {sorted(got)}")
 
     def one_batch():
-        q.GroupBySum(num_slots=GROUPS, variant="full", device=dev).run(kd[:65536], vd[:65536])
+        q.GroupBySum(num_slots=GROUPS, variant="full", device=dev).run(kd[:PROFILED_ROWS],
+                                                                       vd[:PROFILED_ROWS])
 
     prof = device_profile(torch, one_batch)
     batch_wall, split = host_split(one_batch, {"ingest": swq.groupby_ingest,
                                                "renormalize": fpisa.renormalize,
                                                "encode": fpisa.encode})
     busy = ("device busy not measured" if prof is None else
-            f"one 65,536-row batch profiled: kernels {prof[0]:.1f} ms in {prof[1]:,} "
+            f"one {PROFILED_ROWS:,}-row batch profiled: kernels {prof[0]:.1f} ms in {prof[1]:,} "
             f"launches") + (
         f"; cProfile of that batch: {batch_wall:.3f} s, groupby_ingest "
         f"{split['ingest']:.3f} s, of which the always-computed flush's renormalize "
@@ -4177,8 +4507,7 @@ def main() -> int:
         del model, opt_state
         torch.cuda.empty_cache()
         lap("main")
-        seq_launches, model, opt_state = train_seq_path(torch, dev)
-        paths["fpisa_seq"] = {"fpisa_accum": seq_launches}
+        paths["fpisa_seq"], model, opt_state = train_seq_path(torch, dev)
         check_grads_cuda_equals_plain(torch, dev, model, "fpisa_seq")
         step_breakdown(torch, dev, model, opt_state, "fpisa_seq")
         torch.cuda.empty_cache()
@@ -4258,7 +4587,7 @@ def main() -> int:
                                          or name + "@leaf" in n},
                     "ms_by_mode": {m: {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "copy_ms")}
                                    for m, t in times[name]["ms_by_mode"].items()}}
-                   if name in K1K2 else {})}
+                   if name in K1K2 + ("fpisa_accum",) else {})}
                for name in KERNELS]
     log(f"[smoke] every phase passed in {time.perf_counter() - t0:.1f} s (by phase: "
         f"{json.dumps(laps)}); {CARD}")

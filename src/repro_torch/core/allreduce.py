@@ -15,10 +15,12 @@ fpisa_seq : bit-faithful switch-arrival semantics: the leaf is all-gathered
            in rank order and summed with sequential FPISA-A over the worker
            axis, worker 0 first (``fpisa.fpisa_sum_sequential``). Used by
            accuracy experiments; not a production path (W x bytes on the
-           wire). The reference runs its sum as a jnp scan; the port runs
-           it as the Hopper kernel K6 (``ops.accum``) on the ``cuda``
-           backend and as ``fpisa_sum_sequential`` on ``torch``, which give
-           the same bits.
+           wire). The reference gathers float32 rows and runs its sum as a
+           jnp scan; the port gathers the leaf in its own dtype where the
+           cast to the format is exact and runs the sum as K6's leaf mode
+           (``ops.accum_leaf``: the widening, the sum and the cast back in
+           one pass) on the ``cuda`` backend, as ``fpisa_sum_sequential``
+           on ``torch``; the two give the same bits.
 switch_emu : validation strategy: the all-gathered per-worker gradients go
            to the host as numpy and through the switch-dataplane emulator
            (``repro_torch.switchsim``: slot pool, worker bitmaps, streaming
@@ -41,7 +43,8 @@ shift, cast or fold runs in torch between the kernels and the collectives.
 The kernels read a leaf whose cast to the format is exact (the format's
 dtype, or fp16/bf16 into fp32) as it is; any other leaf is cast first
 (``fpisa.to_packed``, with F9's NaN rule). What stays eager: that narrowing
-cast, the bucketer's pack and unpack casts, and the hierarchical path's
+cast (on the ``fpisa_seq`` paths too), the bucketer's pack and unpack casts
+(``fpisa_seq``'s float32 pack included), and the hierarchical path's
 pod-hop shift and cast and its decode to the format's dtype.
 
 16-bit wire: neither gloo nor NCCL has an int16 SUM, so a 16-bit wire plane
@@ -97,8 +100,9 @@ def _all_reduce_(t: torch.Tensor, op, group) -> torch.Tensor:
 
 def _all_gather_rows(flat: torch.Tensor, group) -> torch.Tensor:
     """(N,) -> (W, N): every rank's tensor, in rank order (worker 0 first;
-    over a pair, pod-major: pod * w_data + data)."""
-    if not _initialized():
+    over a pair, pod-major: pod * w_data + data). A group of one rank
+    gathers nothing: the rows are a view of ``flat``."""
+    if world_size(group) == 1:
         return flat[None]
     if isinstance(group, tuple):
         pod_group, data_group = group
@@ -385,25 +389,37 @@ def fpisa_allreduce_hierarchical(x: torch.Tensor, data_group, pod_group,
 # ---------------------------------------------------------------------------
 
 
+def _seq_input(x: torch.Tensor, cfg: AggConfig) -> torch.Tensor:
+    """A leaf as the switch-arrival sum reads it: as it is where its cast to
+    the format is exact (``widens``: K6's leaf mode widens it in registers),
+    else staged in the format's dtype as the reference stages it, the
+    float32 upcast and then the narrowing cast (``fpisa.to_packed``, F11's
+    and F9's NaN rules)."""
+    if widens(x.dtype, cfg.fmt_name):
+        return x
+    return fpisa.to_packed(fpisa.to_packed(x, "fp32"), cfg.fmt_name)
+
+
 def _seq_sum(rows: torch.Tensor, cfg: AggConfig, backend: str) -> torch.Tensor:
-    """(W, N) float32 rows in worker order -> (N,) switch-arrival FPISA-A sum
-    in the format, worker 0 first: K6 over one (W, 1, N) row on the cuda
-    backend (float32 out, the format's value exactly), ``fpisa_sum_sequential``
-    on torch (the format's dtype): the same values."""
-    stacked = fpisa.to_packed(rows, cfg.fmt_name)
+    """(W, N) rows in worker order, of a dtype the format widens -> (N,)
+    switch-arrival FPISA-A sum, worker 0 first: K6's leaf mode on the cuda
+    backend (the rows' dtype out, rounded as the cast to it rounds),
+    ``fpisa_sum_sequential`` on torch (the format's dtype): the same values
+    once cast to the leaf's dtype."""
     if backend == "cuda":
-        return ops.accum(stacked[:, None], "fpisa_a", cfg.fmt_name).reshape(-1)
-    return fpisa.fpisa_sum_sequential(stacked, cfg.fmt, variant="fpisa_a")
+        return ops.accum_leaf(rows, "fpisa_a", cfg.fmt_name)
+    return fpisa.fpisa_sum_sequential(rows, cfg.fmt, variant="fpisa_a")
 
 
 def fpisa_seq_allreduce(x: torch.Tensor, group, cfg: AggConfig) -> torch.Tensor:
     """bit-faithful sequential switch-arrival FPISA-A
 
-    The (W, N) stack of all ranks' leaves, cast to the format's packed dtype,
-    summed worker 0 first (``_seq_sum``); the result is cast back to the
-    leaf's dtype."""
+    The (W, N) stack of all ranks' leaves, gathered in the leaf's dtype
+    (``_seq_input``), summed worker 0 first (``_seq_sum``); the result is
+    cast back to the leaf's dtype. The reference gathers float32 rows; the
+    widening to them is exact, so the sum is the same."""
     backend = resolve_backend(cfg.backend, x.device)
-    rows = _all_gather_rows(x.to(torch.float32).reshape(-1), group)
+    rows = _all_gather_rows(_seq_input(x, cfg).reshape(-1), group)
     return _seq_sum(rows, cfg, backend).reshape(x.shape).to(x.dtype)
 
 
@@ -560,20 +576,19 @@ def stacked_switchml_allreduce(x: torch.Tensor, group, cfg: AggConfig) -> torch.
     return _unflatten(out, pad, orig_shape, orig_dtype)
 
 
-def _gather_logical(x: torch.Tensor, group) -> torch.Tensor:
-    """(k, ...) per-rank stacks -> (W, N) float32 rows in logical-worker
-    order. Rank d hosts workers [d*k, (d+1)*k), so the rank-order all-gather
-    IS the logical order, for every group size."""
-    k = x.shape[0]
-    rows = x.to(torch.float32).reshape(k, -1)
+def _gather_logical(rows: torch.Tensor, group) -> torch.Tensor:
+    """(k, N) per-rank rows -> (W, N) rows in logical-worker order, in the
+    rows' dtype. Rank d hosts workers [d*k, (d+1)*k), so the rank-order
+    all-gather IS the logical order, for every group size."""
     return _all_gather_rows(rows.reshape(-1), group).reshape(-1, rows.shape[1])
 
 
 def stacked_fpisa_seq_allreduce(x: torch.Tensor, group, cfg: AggConfig) -> torch.Tensor:
-    """switch-arrival FPISA-A over the W logical workers in logical order"""
+    """switch-arrival FPISA-A over the W logical workers in logical order,
+    gathered in the leaf's dtype as in ``fpisa_seq_allreduce``"""
     backend = resolve_backend(cfg.backend, x.device)
-    out = _seq_sum(_gather_logical(x, group), cfg, backend)
-    return out.reshape(x.shape[1:]).to(x.dtype)
+    rows = _gather_logical(_seq_input(x, cfg).reshape(x.shape[0], -1), group)
+    return _seq_sum(rows, cfg, backend).reshape(x.shape[1:]).to(x.dtype)
 
 
 def stacked_switch_emu_allreduce(x: torch.Tensor, group, cfg: AggConfig) -> torch.Tensor:
@@ -588,7 +603,7 @@ def stacked_switch_emu_allreduce(x: torch.Tensor, group, cfg: AggConfig) -> torc
             "switch_shared tenancy is wired for the flat switch_emu path; "
             "the stacked (elastic logical-worker) variant does not support "
             "a shared dataplane")
-    out = _switch_emulate(_gather_logical(x, group), cfg)
+    out = _switch_emulate(_gather_logical(_stacked_rows(x, torch.float32), group), cfg)
     return out.reshape(x.shape[1:]).to(x.dtype)
 
 

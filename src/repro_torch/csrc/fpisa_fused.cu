@@ -61,43 +61,13 @@
 namespace {
 
 using fpisa::Bits;
+using fpisa::Frag;
 using fpisa::kRowThreads;
 using fpisa::row_grid;
 using fpisa::warp_row;
 
 template <int V>
 using Int = std::integral_constant<int, V>;
-
-// The unsigned word of BYTES bytes.
-template <int BYTES> struct Word;
-template <> struct Word<16> { using T = uint4; };
-template <> struct Word<8> { using T = uint2; };
-template <> struct Word<4> { using T = uint32_t; };
-template <> struct Word<2> { using T = uint16_t; };
-template <> struct Word<1> { using T = uint8_t; };
-
-// N elements of T in registers, moved to and from global memory in words of
-// at most 16 bytes (global addresses aligned to the fragment's size).
-template <typename T, int N>
-struct alignas(sizeof(T) * N < 16 ? sizeof(T) * N : 16) Frag {
-  static constexpr int kBytes = sizeof(T) * N;
-  static constexpr int kWordBytes = kBytes < 16 ? kBytes : 16;
-  using W = typename Word<kWordBytes>::T;
-  T v[N];
-
-  __device__ __forceinline__ void load(const T* __restrict__ src) {
-    const W* s = reinterpret_cast<const W*>(src);
-    W* d = reinterpret_cast<W*>(v);
-#pragma unroll
-    for (int i = 0; i < kBytes / kWordBytes; ++i) d[i] = s[i];
-  }
-  __device__ __forceinline__ void store(T* __restrict__ dst) const {
-    const W* s = reinterpret_cast<const W*>(v);
-    W* d = reinterpret_cast<W*>(dst);
-#pragma unroll
-    for (int i = 0; i < kBytes / kWordBytes; ++i) d[i] = s[i];
-  }
-};
 
 // Elements a lane moves per word for input T at block B.
 template <typename T, int B>

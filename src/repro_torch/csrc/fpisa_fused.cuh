@@ -15,6 +15,11 @@
 #pragma once
 
 #include <stdint.h>
+#include <string.h>
+
+#if !defined(__CUDA_ARCH__)
+#include <cfenv>
+#endif
 
 #if defined(__CUDACC__)
 #define FPISA_HD __host__ __device__ __forceinline__
@@ -223,47 +228,133 @@ FPISA_HD int32_t wrap_add(int32_t a, int32_t b) {
   return (int32_t)((uint32_t)a + (uint32_t)b);
 }
 
-// fpisa._overflowed: did s = a + b wrap?
-FPISA_HD bool overflowed(int32_t a, int32_t b, int32_t s) { return ((a ^ s) & (b ^ s)) < 0; }
-
-struct AddStats {
-  bool overwrite;  // FPISA-A dropped a non-zero accumulator
-  bool overflow;   // the int32 register add wrapped
-};
-
-// fpisa.fpisa_a_add: only the incoming mantissa is shifted; right when its
-// exponent is not larger, left into the headroom when it is larger by at most
-// the headroom, else it overwrites the accumulator.
-template <class F>
-FPISA_HD Plane fpisa_a_add(Plane acc, Plane in, AddStats* st) {
-  const int32_t d = in.exp - acc.exp;  // exponents are in [0, 255]
-  if (d > F::headroom) {
-    st->overwrite = acc.man != 0;
-    st->overflow = false;
-    return in;
+// K6's add, without the event flags (overwrite, overflow) that nothing on
+// the card reads, and without branches. FPISA-A (fpisa.fpisa_a_add): only
+// the incoming mantissa is shifted, right when its exponent is not larger,
+// left into the headroom when it is larger by at most the headroom (a
+// register shift: it wraps), else it overwrites the accumulator. Full
+// (fpisa.fpisa_add_full, kFull): the operand with the smaller exponent is
+// shifted right, the result keeps the larger exponent (RSAW). Each shift
+// distance is clamped once: right = clamp(-d) shifts the incoming mantissa
+// right where d <= 0, left = clamp(d) shifts it left (FPISA-A) or the
+// accumulator right (full) where d > 0; the other distance is then 0. A
+// zero accumulator is not special: a first value whose exponent is at most
+// the headroom is shifted left into exponent 0.
+template <class F, bool kFull>
+FPISA_HD Plane accum_add(Plane acc, Plane in) {
+  const int32_t d = in.exp - acc.exp;
+  const int32_t right = clamp_shift(-d);
+  const int32_t left = clamp_shift(d);
+  if constexpr (kFull) {
+    return Plane{acc.exp > in.exp ? acc.exp : in.exp,
+                 wrap_add(acc.man >> left, in.man >> right)};
+  } else {
+    const int32_t sum = wrap_add(acc.man, (int32_t)((uint32_t)(in.man >> right) << left));
+    const bool over = d > F::headroom;
+    return Plane{over ? in.exp : acc.exp, over ? in.man : sum};
   }
-  const int32_t shifted = d <= 0 ? arshift(in.man, -d) : lshift(in.man, d);
-  const int32_t sum = wrap_add(acc.man, shifted);
-  st->overwrite = false;
-  st->overflow = overflowed(acc.man, shifted, sum);
-  return Plane{acc.exp, sum};
 }
 
-// fpisa.fpisa_add_full: the operand with the smaller exponent is shifted
-// right; the result keeps the larger exponent (RSAW).
+// The bits of the float32 nearest m from below (a conversion rounding toward
+// -inf): the int32 register floored to 24 significant bits, as renormalize
+// floors it in the fp32 format, with the carry of a negative sum's floor to
+// the next power of two included. On the host the conversion runs under the
+// downward rounding mode: the host harness of tests/test_torch_accum_leaf.py
+// checks that emulation, not __int2float_rd. The card's conversion is held to
+// the plain versions by tests/test_torch_cuda.py's K6 parity cases (W 1, 2,
+// 3, 4, 8, the non-finite words) and by chip_smoke.py's.
+FPISA_HD uint32_t i2f_rd_bits(int32_t m) {
+#if defined(__CUDA_ARCH__)
+  return __float_as_uint(__int2float_rd(m));
+#else
+  const int mode = std::fegetround();
+  std::fesetround(FE_DOWNWARD);
+  volatile float f = (float)m;  // converted at run time, under the mode
+  std::fesetround(mode);
+  const float g = f;
+  uint32_t u;
+  memcpy(&u, &g, sizeof u);
+  return u;
+#endif
+}
+
+// renormalize's bits without a branch, for K6, where the renormalization
+// is most of an element's instructions at W = 1. In the fp32 format one
+// conversion (i2f_rd_bits: the floor to 24 bits on the card's conversion
+// unit, beside the integer pipe) gives sign, mantissa and the leading bit's
+// position; the exponent is moved by e - 150 where it stays in [1, 254], and
+// zero, underflow (to a zero of the sum's sign) and overflow (to an inf)
+// are two selects. In the 16-bit formats: one normalizing shift pair (right
+// for a wide sum, left for a narrow one, the other distance 0), the carry of
+// a negative sum's round toward -inf as a shift by 0 or 1 (the magnitude
+// reaches at most 2^(man_bits + 1)), and zero, underflow and overflow as one
+// clamp and two selects. The host harness of tests/test_torch_accum_leaf.py
+// holds it to renormalize.
 template <class F>
-FPISA_HD Plane fpisa_add_full(Plane acc, Plane in, AddStats* st) {
-  const int32_t d = in.exp - acc.exp;
-  const bool le = d <= 0;
-  const int32_t s_in = le ? arshift(in.man, -d) : in.man;
-  const int32_t s_acc = le ? acc.man : arshift(acc.man, d);
-  const int32_t sum = wrap_add(s_acc, s_in);
-  st->overwrite = false;
-  st->overflow = overflowed(s_acc, s_in, sum);
-  return Plane{le ? acc.exp : in.exp, sum};
+FPISA_HD uint32_t renormalize_lean(int32_t e, int32_t m) {
+  if constexpr (F::total_bits == 32) {
+    const uint32_t u = i2f_rd_bits(m);  // sign | (127 + leading bit) << 23 | mantissa
+    const int32_t new_e = e + (int32_t)((u >> 23) & 0xFFu) - 150;
+    const bool live = m != 0 && (uint32_t)(new_e - 1) < 254u;
+    const uint32_t edge = (u & 0x80000000u) | (m != 0 && new_e >= 255 ? 0x7F800000u : 0u);
+    return live ? u + ((uint32_t)(e - 150) << 23) : edge;
+  } else {
+    const int32_t shift = (31 - clz32(abs_u32(m))) - F::man_bits;  // -1 - man_bits at 0
+    const int32_t right = shift > 0 ? shift : 0;
+    const int32_t left = shift < 0 ? -shift : 0;
+    uint32_t q = abs_u32((int32_t)((uint32_t)(m >> right) << left));
+    const uint32_t carry = q >> (F::man_bits + 1);
+    q >>= carry;
+    const int32_t new_e = e + shift + (int32_t)carry;
+    const bool live = (uint32_t)(new_e - 1) < (uint32_t)(F::exp_mask - 1);
+    const int32_t exp_out =
+        m == 0 ? 0 : (new_e < 0 ? 0 : (new_e > F::exp_mask ? F::exp_mask : new_e));
+    const uint32_t man_out = live ? (q & (uint32_t)F::man_mask) : 0u;
+    return ((uint32_t)(m < 0) << (F::total_bits - 1)) | ((uint32_t)exp_out << F::man_bits) |
+           man_out;
+  }
+}
+
+// K6's result: the accumulator renormalized in the format, as dtype D (the
+// float32 the TPU kernel emits, exactly, or the leaf's dtype, rounded to
+// nearest even).
+template <class F, int D>
+FPISA_HD uint32_t accum_out(Plane acc) {
+  return cast_to<F, D>(renormalize_lean<F>(acc.exp, acc.man));
 }
 
 #if defined(__CUDACC__)
+// The unsigned word of BYTES bytes.
+template <int BYTES> struct Word;
+template <> struct Word<16> { using T = uint4; };
+template <> struct Word<8> { using T = uint2; };
+template <> struct Word<4> { using T = uint32_t; };
+template <> struct Word<2> { using T = uint16_t; };
+template <> struct Word<1> { using T = uint8_t; };
+
+// N elements of T in registers, moved to and from global memory in words of
+// at most 16 bytes (global addresses aligned to the fragment's size).
+template <typename T, int N>
+struct alignas(sizeof(T) * N < 16 ? sizeof(T) * N : 16) Frag {
+  static constexpr int kBytes = sizeof(T) * N;
+  static constexpr int kWordBytes = kBytes < 16 ? kBytes : 16;
+  using W = typename Word<kWordBytes>::T;
+  T v[N];
+
+  __device__ __forceinline__ void load(const T* __restrict__ src) {
+    const W* s = reinterpret_cast<const W*>(src);
+    W* d = reinterpret_cast<W*>(v);
+#pragma unroll
+    for (int i = 0; i < kBytes / kWordBytes; ++i) d[i] = s[i];
+  }
+  __device__ __forceinline__ void store(T* __restrict__ dst) const {
+    const W* s = reinterpret_cast<const W*>(v);
+    W* d = reinterpret_cast<W*>(dst);
+#pragma unroll
+    for (int i = 0; i < kBytes / kWordBytes; ++i) d[i] = s[i];
+  }
+};
+
 // Launch shape of the warp-per-row kernels (one row, one FPISA block, per
 // warp): 8 warps, so 8 rows, per thread block.
 constexpr int kWarpsPerBlock = 8;

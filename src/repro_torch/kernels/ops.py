@@ -14,7 +14,10 @@ wrappers, each with its own count: ``encode_align`` (local mode),
 ``block_max`` (exponent mode) and ``encode_wire`` (wire mode). K2's
 ``decode_fused`` also counts its launches by mode in
 ``decode_fused.modes``: ``"format"`` where it writes the format's dtype,
-``"leaf"`` where it writes another (the leaf's cast taken in).
+``"leaf"`` where it writes another (the leaf's cast taken in). K6 has two
+modes, ``accum`` (local: the TPU kernel's float32 out) and ``accum_leaf``
+(leaf: a leaf stack in its own dtype, that dtype out); both count in
+``accum.launches`` and, by mode, in ``accum.launches_by_mode``.
 ``chunked_attention`` (A1, the
 port's kernel for the reference's ``jnp`` chunked attention) counts on its
 two launch functions in ``kernels/attention.py``:
@@ -133,16 +136,33 @@ def decode(man_sum: torch.Tensor, bmax: torch.Tensor, preshift: int = 0,
 
 
 def accum(x: torch.Tensor, variant: str = "fpisa_a", fmt_name: str = "fp32") -> torch.Tensor:
-    """Switch-arrival accumulation (K6): x (W, R, B) packed FP, worker 0
-    first -> (R, B) float32 (the format's value, upcast exactly)."""
+    """Switch-arrival accumulation (K6's local mode): x (W, R, B) packed FP,
+    worker 0 first -> (R, B) float32 (the format's value, upcast exactly)."""
     if x.dim() != 3 or x.dtype != fpisa.PACKED_DTYPE[fmt_name]:
         raise ValueError(f"expected a (W, R, B) stack of {fpisa.PACKED_DTYPE[fmt_name]} "
                          f"for fmt_name={fmt_name!r}, got {x.dtype}{tuple(x.shape)}")
     if x.is_cuda:
         out = fpisa_accum.fpisa_accum(x, variant, fmt_name)
         accum.launches += 1
+        accum.launches_by_mode["local"] += 1
         return out
     return ref.accum_ref(x, variant, fpisa.FORMATS[fmt_name]).to(torch.float32)
+
+
+def accum_leaf(x: torch.Tensor, variant: str = "fpisa_a", fmt_name: str = "fp32") -> torch.Tensor:
+    """K6's leaf mode: x (W, ...) leaf stack in its own dtype, which the
+    format widens exactly (the format's dtype, or fp16/bf16 under fp32),
+    worker 0 first -> (...) in that dtype (the format's value rounded to
+    nearest even). Its launches count in ``accum.launches``."""
+    if x.dim() < 1 or not fpisa_fused.widens(x.dtype, fmt_name):
+        raise ValueError(f"expected a (W, ...) stack of a dtype fmt_name={fmt_name!r} "
+                         f"widens, got {x.dtype}{tuple(x.shape)}")
+    if x.is_cuda:
+        out = fpisa_accum.fpisa_accum_leaf(x, variant, fmt_name)
+        accum.launches += 1
+        accum.launches_by_mode["leaf"] += 1
+        return out
+    return ref.accum_leaf_ref(x, variant, fpisa.FORMATS[fmt_name])
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
@@ -171,3 +191,4 @@ extract.launches = 0
 align.launches = 0
 decode.launches = 0
 accum.launches = 0
+accum.launches_by_mode = {"local": 0, "leaf": 0}

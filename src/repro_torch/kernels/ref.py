@@ -9,8 +9,9 @@ Every function takes the format explicitly and honours it. (The reference's
 ``ops.decode`` / ``ops.accum`` with ``use_pallas=False`` drop their
 ``fmt_name`` and so always decode fp32; the port does not copy that.)
 ``accum_ref`` returns the format's dtype, as the reference's does; the
-kernel K6 emits float32, and ``ops.accum`` upcasts the plain version to
-match it.
+kernel K6 emits float32 in its local mode, and ``ops.accum`` upcasts the
+plain version to match it. ``accum_leaf_ref`` is K6's leaf mode: the same
+sum over a leaf stack in its own dtype, cast back to it.
 """
 from __future__ import annotations
 
@@ -97,3 +98,13 @@ def accum_ref(x: torch.Tensor, variant: str = "fpisa_a",
     accumulation, x (W,R,B) packed FP -> (R,B) packed FP in the format's
     dtype (worker 0 first)."""
     return fpisa.fpisa_sum_sequential(x, fmt, variant=variant)
+
+
+def accum_leaf_ref(x: torch.Tensor, variant: str = "fpisa_a",
+                   fmt: fpisa.FpFormat = fpisa.FP32):
+    """Plain version of K6's leaf mode ``fpisa_accum_leaf``: x (W,...) leaf
+    stack of a dtype the format widens exactly (its own dtype, or fp16/bf16
+    under fp32) -> (...) in that dtype, worker 0 first: the reference's
+    ``fpisa_sum_sequential`` of the stack, then the cast to the leaf's
+    dtype (rounding to nearest even)."""
+    return fpisa.fpisa_sum_sequential(x, fmt, variant=variant).to(x.dtype)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: K1 (fpisa_encode_align; its exponent
 and wire modes fpisa_block_max and fpisa_encode_wire), K2
 (fpisa_decode_fused, into every dtype), K3 (fpisa_extract), K4 (fpisa_align), K5
-(fpisa_decode) and K6 (fpisa_accum) against their plain PyTorch versions on
+(fpisa_decode) and K6 (fpisa_accum; its leaf mode fpisa_accum_leaf, with a
+ragged row and an unaligned base) against their plain PyTorch versions on
 the same CUDA tensors, bit for bit (integer views), over the CPU suite's
 sweep plus the special values; their launch counters; the wrappers'
 refusals; and bucketed (K1/K2 once per bucket), chunked, hierarchical (a
@@ -340,7 +341,7 @@ def _stack(workers, fmt, dev, seed):
     return x
 
 
-@pytest.mark.parametrize("workers", [1, 2, 4, 8])
+@pytest.mark.parametrize("workers", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("variant", ["fpisa_a", "full"])
 @pytest.mark.parametrize("fmt", FMTS)
 def test_accum_kernel_equals_plain(dev, workers, variant, fmt):
@@ -350,6 +351,66 @@ def test_accum_kernel_equals_plain(dev, workers, variant, fmt):
     torch.cuda.synchronize()
     assert out.dtype == torch.float32 and out.shape == (64, 256)
     assert torch.equal(out.view(torch.int32), want.to(torch.float32).view(torch.int32))
+
+
+def _accum_leaf_stack(workers, fmt, leaf, shape, seed, dev):
+    """(W, *shape) leaf stack in dtype ``leaf``: ``_leaf_stack``'s values,
+    specials and non-finite words; where the leaf has the format's exponent
+    range, ``_stack``'s FPISA-A edges in its first 5 elements (the headroom
+    shift, the wrap, the overwrite). K6's leaf mode reads ``LEAF_PAIRS``."""
+    x = _leaf_stack(workers, shape, leaf, seed, dev)
+    if leaf == fmt or (leaf, fmt) == ("bf16", "fp32"):
+        h, lf = fpisa.FORMATS[fmt].headroom, fpisa.FORMATS[leaf]
+        bits = x.view(INT_VIEW[leaf]).reshape(workers, -1)
+        bits[:, :5] = (h << lf.man_bits) | lf.man_mask
+        bits[1:2, 4] = ((h + 1) << lf.man_bits) | lf.man_mask
+    return x
+
+
+@pytest.mark.parametrize("workers", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("variant", ["fpisa_a", "full"])
+@pytest.mark.parametrize("fmt,leaf", LEAF_PAIRS)
+def test_accum_leaf_kernel_equals_plain(dev, workers, variant, fmt, leaf):
+    """K6's leaf mode: the leaf's dtype in and out, bit for bit the plain
+    version's (the reference's sum, cast to the leaf's dtype)."""
+    x = _accum_leaf_stack(workers, fmt, leaf, (64, 256), 10 + workers, dev)
+    out = ops.accum_leaf(x, variant, fmt)
+    want = ref.accum_leaf_ref(x, variant, fpisa.FORMATS[fmt])
+    torch.cuda.synchronize()
+    assert out.dtype == x.dtype and out.shape == (64, 256)
+    assert torch.equal(out.view(INT_VIEW[leaf]), want.view(INT_VIEW[leaf]))
+
+
+@pytest.mark.parametrize("workers", [1, 3, 4])
+@pytest.mark.parametrize("fmt,leaf", LEAF_PAIRS)
+def test_accum_modes_take_a_ragged_row_and_an_unaligned_base(dev, workers, fmt, leaf):
+    """A row of 100,003 elements (the tail after the last 16-byte word) and
+    the same stack one element off a 16-byte boundary (the whole of it in
+    the one-element-a-thread kernel): both modes, both variants, equal to
+    their plain versions."""
+    x = _accum_leaf_stack(workers, fmt, leaf, (100_003,), 30 + workers, dev)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    buf[1:].copy_(x.reshape(-1))
+    f = fpisa.FORMATS[fmt]
+    for xs in (x, buf[1:].view(x.shape)):
+        for variant in ("fpisa_a", "full"):
+            got = ops.accum_leaf(xs, variant, fmt)
+            want = ref.accum_leaf_ref(xs, variant, f)
+            assert torch.equal(got.view(INT_VIEW[leaf]), want.view(INT_VIEW[leaf]))
+            if leaf == fmt:
+                x3 = xs.reshape(workers, 1, -1)
+                assert torch.equal(ops.accum(x3, variant, fmt).view(torch.int32),
+                                   ref.accum_ref(x3, variant, f).float().view(torch.int32))
+
+
+def test_accum_counts_its_launches_by_mode(dev):
+    before = (ops.accum.launches, dict(ops.accum.launches_by_mode))
+    ops.accum(torch.ones((2, 4, 256), device=dev), "full", "fp32")
+    ops.accum_leaf(torch.ones((2, 1000), dtype=torch.bfloat16, device=dev), "fpisa_a", "fp32")
+    ops.accum_leaf(torch.ones((3, 7), device=dev), "full", "fp32")
+    assert ops.accum.launches == before[0] + 3
+    assert ops.accum.launches_by_mode == {"local": before[1]["local"] + 1,
+                                          "leaf": before[1]["leaf"] + 2}
 
 
 def test_new_launch_counters_count_kernel_launches(dev):
@@ -387,12 +448,46 @@ def test_new_kernels_refuse_what_they_do_not_take(dev):
         fpisa_accum.fpisa_accum(torch.ones((2, 4, 256), device=dev), "fpisa_b")
     with pytest.raises(ValueError, match="CUDA tensor"):
         fpisa_accum.fpisa_accum(torch.ones((2, 4, 256)))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fpisa_accum.fpisa_accum_leaf(torch.ones((2, 256), dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="reads torch.bfloat16"):
+        fpisa_accum.fpisa_accum_leaf(torch.ones((2, 256), device=dev), fmt_name="bf16")
+    with pytest.raises(ValueError, match="reads torch.float16"):
+        fpisa_accum.fpisa_accum_leaf(torch.ones((2, 256), dtype=torch.bfloat16, device=dev),
+                                     fmt_name="fp16")
+    with pytest.raises(ValueError, match="contiguous"):
+        fpisa_accum.fpisa_accum_leaf(torch.ones((256, 2), device=dev).t())
+    with pytest.raises(ValueError, match="variant"):
+        fpisa_accum.fpisa_accum_leaf(torch.ones((2, 256), device=dev), "fpisa_b")
+    with pytest.raises(ValueError, match="W >= 1"):
+        fpisa_accum.fpisa_accum_leaf(torch.ones((0, 256), device=dev))
+
+
+@pytest.mark.parametrize("leaf", FMTS)
+@pytest.mark.parametrize("fmt", FMTS)
+def test_cuda_fpisa_seq_of_each_leaf_dtype_equals_torch_backend(dev, leaf, fmt):
+    """fpisa_seq per leaf and stacked (k = 4) on a ragged leaf of each dtype
+    under each format: one leaf-mode launch each (the leaf gathered as it
+    is, or staged to the format's dtype first), no local-mode launch, the
+    torch backend's bits."""
+    x = torch.nan_to_num(_x((4, 5, 1000), "fp32", 9, dev), posinf=1.0, neginf=-1.0)
+    x = x.to(fpisa.PACKED_DTYPE[leaf])
+    for stacked, t in ((False, x[0]), (True, x)):
+        want = Aggregator(AggConfig(strategy="fpisa_seq", backend="torch", fmt_name=fmt),
+                          stacked=stacked).allreduce(t)
+        before = dict(ops.accum.launches_by_mode)
+        got = Aggregator(AggConfig(strategy="fpisa_seq", backend="cuda", fmt_name=fmt),
+                         stacked=stacked).allreduce(t)
+        assert ops.accum.launches_by_mode == {"local": before["local"],
+                                              "leaf": before["leaf"] + 1}
+        assert got.dtype == t.dtype and torch.equal(got.view(INT_VIEW[leaf]),
+                                                    want.view(INT_VIEW[leaf]))
 
 
 @pytest.mark.parametrize("fmt", FMTS)
 def test_cuda_fpisa_seq_equals_torch_backend(dev, fmt):
-    """The fpisa_seq strategy on a ragged leaf: K6 over the (W, 1, N) stack
-    on the cuda backend, fpisa_sum_sequential on torch; same bits."""
+    """The fpisa_seq strategy on a ragged leaf: K6's leaf mode over the (W,
+    N) stack on the cuda backend, fpisa_sum_sequential on torch; same bits."""
     x = torch.nan_to_num(_x((5, 1000), "fp32", 8, dev), posinf=1.0, neginf=-1.0)
     got = Aggregator(AggConfig(strategy="fpisa_seq", backend="cuda", fmt_name=fmt)).allreduce(x)
     want = Aggregator(AggConfig(strategy="fpisa_seq", backend="torch",
@@ -570,8 +665,8 @@ def test_stacked_fpisa_cuda_equals_plain(dev, k, wire, fmt):
 @pytest.mark.parametrize("k", [2, 4, 8])
 @pytest.mark.parametrize("fmt", FMTS)
 def test_stacked_fpisa_seq_cuda_equals_plain(dev, k, fmt):
-    """Stacked fpisa_seq: K6 once per leaf over the (k, 1, N) stack on the
-    cuda backend, fpisa_sum_sequential on torch; the same bits."""
+    """Stacked fpisa_seq: K6's leaf mode once per leaf over the (k, N) stack
+    on the cuda backend, fpisa_sum_sequential on torch; the same bits."""
     tree = _stacked_tree(dev, k)
     want = Aggregator(AggConfig(strategy="fpisa_seq", backend="torch", fmt_name=fmt),
                       stacked=True).allreduce_tree(tree)
