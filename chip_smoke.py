@@ -54,8 +54,9 @@ Phases (each prints on its own lines; any failure raises, exit code != 0):
    must give the same bits, a profiled cuda aggregation of them must run no
    device op but K1's modes, K2 and NCCL's, and the loss of the smoke
    config must agree between the two backends.
-   A breakdown of one step by layer (forward+backward, aggregation,
-   optimizer) follows, on CUDA events.
+   A breakdown of one step by phase (forward+backward, aggregation,
+   optimizer) follows: the train step's own phase spans, their device
+   times (CUDA events).
 5. Training with switch-arrival aggregation (the ``fpisa_seq`` path): the
    same model, batch and group, 3 steps with ``strategy="fpisa_seq"`` on
    the ``auto`` backend. K6's launch counts are zeroed just before and read
@@ -1120,38 +1121,53 @@ def training_batch(torch, dev, cfg, seq_len=SEQ_LEN, batch=GLOBAL_BATCH):
             for k, v in global_batch_at(cfg, loader, 0, STEPS).items()}
 
 
+TRAIN_PHASES = ("train.forward_backward", "agg.allreduce_tree", "train.optimizer")
+
+
+def phase_ms(torch, step, opt_state, batch, reps=5):
+    """The program's own split of a training step (``train/step.py``'s
+    phase spans, ``TRAIN_PHASES``): ``step`` once to warm up, then ``reps``
+    steps on ``batch`` with the tracer on; the median of each phase span's
+    device time (its CUDA events, first queued work to last), in ms, in
+    ``TRAIN_PHASES``' order. The aggregation span waits for its output, as
+    in every traced step. Each step gets ``opt_state`` itself (the moments
+    move in place, the step count does not)."""
+    from repro_torch import trace
+
+    step(opt_state, batch)
+    tr = trace.enable()
+    try:
+        for _ in range(reps):
+            step(opt_state, batch)
+        torch.cuda.synchronize()
+    finally:
+        trace.disable()
+    spans = tr.spans
+    return [statistics.median(1e3 * s["dev_dur"] for s in spans if s["name"] == name)
+            for name in TRAIN_PHASES]
+
+
 def step_breakdown(torch, dev, model, opt_state, strategy="fpisa", bucket_bytes=0,
                    seq_len=SEQ_LEN, batch_size=GLOBAL_BATCH):
-    """Where a full-width training step's time goes, by layer: forward +
+    """Where a full-width training step's time goes, by phase: forward +
     backward, the aggregation of the gradient leaves (for fpisa K1's
     exponent mode, the MAX, K1's wire mode, the SUM and K2 in the leaf's
     dtype, with nothing eager between them; for fpisa_seq the all-gather,
     K6 and its casts; per leaf, or in buckets of ``bucket_bytes``, whose
-    pack and unpack casts are eager), and the
-    AdamW update; CUDA events, median of 5 runs each after one warm-up, on
-    the same batch (``training_batch``)."""
-    from repro_torch.core.agg import AggConfig, Aggregator
+    pack and unpack casts are eager), and the AdamW update: the program's
+    train step and its phase spans (``phase_ms``) on the same batch
+    (``training_batch``)."""
+    from repro_torch.core.agg import AggConfig
     from repro_torch.optim import optimizers
+    from repro_torch.train.step import make_train_step
 
     cfg = model.cfg
     batch = training_batch(torch, dev, cfg, seq_len, batch_size)
-    params = list(model.parameters())
     opt_cfg = optimizers.OptConfig(name=cfg.optimizer, lr=cfg.learning_rate)
-    aggregator = Aggregator(AggConfig(strategy=strategy, bucket_bytes=bucket_bytes))
-    held = {}
-
-    def grads():
-        held["g"] = torch.autograd.grad(model.loss(batch), params)
-
-    def aggregate():
-        held["a"] = aggregator.allreduce_tree(list(held["g"]))
-
-    def update():
-        optimizers.update(params, held["a"], opt_state, opt_cfg)
-
-    parts = {name: median_ms(torch, fn, reps=5, warmup=1)
-             for name, fn in (("forward+backward", grads), ("aggregation", aggregate),
-                              ("optimizer", update))}
+    step = make_train_step(model, AggConfig(strategy=strategy, bucket_bytes=bucket_bytes),
+                           opt_cfg, batch_size)
+    parts = dict(zip(("forward+backward", "aggregation", "optimizer"),
+                     phase_ms(torch, step, opt_state, batch)))
     total = sum(parts.values())
     what = f"{strategy}, buckets of {bucket_bytes} bytes" if bucket_bytes else strategy
     log(f"[breakdown] {what}: one step, " + ", ".join(
@@ -1292,8 +1308,8 @@ def bucketed_path(torch, dev, model, tmpdir):
     log(f"[breakdown] bucketed aggregation, traced (each phase waited on): {traced_ms:.2f} ms "
         f"per tree on the host clock, of it encode {sums['encode']:.2f} ms, collective "
         f"{sums['collective']:.2f} ms, finish {sums['finish']:.2f} ms over {buckets} "
-        f"buckets; untraced {parts[bucket_bytes]['aggregation']:.2f} ms (CUDA events), "
-        f"per-leaf untraced {parts[0]['aggregation']:.2f} ms")
+        f"buckets; in a traced step {parts[bucket_bytes]['aggregation']:.2f} ms on the card "
+        f"(span events), per-leaf {parts[0]['aggregation']:.2f} ms")
     for bb in (0, bucket_bytes):
         aggregator = Aggregator(AggConfig(bucket_bytes=bb))
         diagnose(torch, lambda: aggregator.allreduce_tree(grads),
@@ -1381,37 +1397,22 @@ def same_bits(torch, got, want, what):
 
 
 def stacked_breakdown(torch, dev, model, opt_state, strategy):
-    """One logical-worker step by layer on CUDA events (median of 5 after
-    one warm-up): the k forward+backward passes into the (k, ...) stacks,
-    the stacked aggregation, the AdamW update."""
-    from repro_torch.core.agg import AggConfig, Aggregator
+    """One logical-worker step by phase (``phase_ms``): the k forward+backward
+    passes into the (k, ...) stacks, the stacked aggregation, the AdamW
+    update."""
+    from repro_torch.core.agg import AggConfig
     from repro_torch.data.pipeline import ShardedLoader, SyntheticCorpus
     from repro_torch.optim import optimizers
+    from repro_torch.train.step import make_train_step
 
     cfg = model.cfg
     tokens = torch.from_numpy(ShardedLoader(SyntheticCorpus(cfg.vocab_size, 0), GLOBAL_BATCH,
                                             SEQ_LEN).batch_at(STEPS)["tokens"]).to(dev)
-    params = list(model.parameters())
     opt_cfg = optimizers.OptConfig(name=cfg.optimizer, lr=cfg.learning_rate)
-    aggregator = Aggregator(AggConfig(strategy=strategy), stacked=True)
-    stacks = [torch.empty((LOGICAL_WORKERS, *p.shape), dtype=p.dtype, device=dev)
-              for p in params]
-    held = {}
-
-    def grads():
-        for j, mb in enumerate(tokens.reshape(LOGICAL_WORKERS, -1, SEQ_LEN)):
-            for s, g in zip(stacks, torch.autograd.grad(model.loss({"tokens": mb}), params)):
-                s[j].copy_(g)
-
-    def aggregate():
-        held["a"] = aggregator.allreduce_tree(stacks)
-
-    def update():
-        optimizers.update(params, held["a"], opt_state, opt_cfg)
-
-    parts = {name: median_ms(torch, fn, reps=5, warmup=1)
-             for name, fn in ((f"{LOGICAL_WORKERS} x forward+backward", grads),
-                              ("stacked aggregation", aggregate), ("optimizer", update))}
+    step = make_train_step(model, AggConfig(strategy=strategy), opt_cfg, GLOBAL_BATCH,
+                           logical_workers=LOGICAL_WORKERS)
+    parts = dict(zip((f"{LOGICAL_WORKERS} x forward+backward", "stacked aggregation",
+                      "optimizer"), phase_ms(torch, step, opt_state, {"tokens": tokens})))
     total = sum(parts.values())
     log(f"[breakdown] stacked {strategy}, W = {LOGICAL_WORKERS} on one rank: one step, "
         + ", ".join(f"{k} {v:.2f} ms ({100 * v / total:.1f}%)" for k, v in parts.items())

@@ -23,9 +23,13 @@ def add_trace_args(parser: argparse.ArgumentParser):
     g = parser.add_argument_group("tracing", "span tracer (repro_torch.trace)")
     g.add_argument(
         "--trace", action="store_true",
-        help="record per-phase timing spans (agg/bucketer/switchsim); "
-             "implied by --trace-out. A traced step waits for each phase, so "
-             "its time is not an untraced step's")
+        help="record per-phase timing spans (the train step's train.step > "
+             "train.forward_backward, agg.allreduce_tree, train.optimizer; "
+             "agg/bucketer/switchsim); implied by --trace-out. On a card each "
+             "span also records its device interval with CUDA events, without "
+             "waiting; a traced step still waits only where a span calls "
+             "sync() (the aggregation's), so its time there is not an "
+             "untraced step's")
     g.add_argument(
         "--trace-out", default=None, metavar="PATH",
         help="write the recorded spans here on exit: JSONL with a schema "

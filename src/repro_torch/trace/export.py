@@ -9,7 +9,10 @@ following line is one span dict::
     {"name": "bucketer.encode", "id": 3, "parent": 2, "depth": 1, ...}
 
 ``read_jsonl`` refuses files whose header version it does not know, so a
-cost model never silently fits fields that changed meaning.
+cost model never silently fits fields that changed meaning. Spans that
+recorded device events add ``dev_ts`` and ``dev_dur`` (the stream's
+interval on the same clock, tracer module doc); a reader that does not know
+them skips them, so the schema stays 1.
 """
 from __future__ import annotations
 
@@ -68,12 +71,17 @@ def read_jsonl(path) -> tuple[dict, list[dict]]:
     return head, [json.loads(ln) for ln in lines[1:]]
 
 
+DEVICE_PID = 1  # the chrome process whose row holds the spans' device intervals
+
+
 def to_chrome(trace: Tracer | Iterable[dict]) -> dict:
     """chrome://tracing / Perfetto "trace event" JSON (complete 'X' events;
-    perf_counter seconds -> microsecond timestamps)."""
-    events = []
+    perf_counter seconds -> microsecond timestamps). A span with a device
+    interval draws it a second time on the device row (process
+    ``DEVICE_PID``, under the host's), on the same clock."""
+    events, device = [], False
     for sp in _spans_of(trace):
-        events.append({
+        event = {
             "name": sp["name"],
             "ph": "X",
             "ts": sp["ts"] * 1e6,
@@ -82,7 +90,15 @@ def to_chrome(trace: Tracer | Iterable[dict]) -> dict:
             "tid": sp.get("tid", 0),
             "cat": str(sp.get("tags", {}).get("phase", "span")),
             "args": sp.get("tags", {}),
-        })
+        }
+        events.append(event)
+        if "dev_ts" in sp:
+            device = True
+            events.append(dict(event, ts=sp["dev_ts"] * 1e6, dur=sp["dev_dur"] * 1e6,
+                               pid=DEVICE_PID, tid=0))
+    if device:
+        events += [{"name": "process_name", "ph": "M", "pid": pid, "args": {"name": name}}
+                   for pid, name in ((0, "host"), (DEVICE_PID, "device (CUDA stream)"))]
     return {
         "traceEvents": events,
         "displayTimeUnit": "ms",

@@ -78,6 +78,13 @@ DTensor's redistribution, as the reference's runs outside the
 ``shard_map`` under automatic sharding. On a mesh whose compute axes all
 have size 1 (model = 1), stacked logical workers, buckets and chunks keep
 the bits they have without a mesh.
+
+Every step opens the tracer's ``train.step`` span (``repro_torch.trace``)
+with the phases as children: ``train.forward_backward`` (the losses and
+gradients, every microbatch or logical worker), the aggregator's own
+``agg.allreduce_tree``, and ``train.optimizer`` (``optimizers.update``,
+clipping included). None of them waits for the device; the loss's
+reduction and the glue between the phases are the step's own time.
 """
 from __future__ import annotations
 
@@ -87,6 +94,7 @@ import math
 import torch
 import torch.distributed as dist
 
+from repro_torch import trace as _trace
 from repro_torch.core.agg import AggConfig, Aggregator, world_size
 from repro_torch.core.allreduce import _all_gather_rows
 from repro_torch.optim import optimizers
@@ -167,18 +175,21 @@ def make_train_step(model, agg: AggConfig, opt_cfg: optimizers.OptConfig,
         return loss_acc * inv, [a * inv for a in acc]
 
     def train_step(opt_state: optimizers.OptState, batch: dict):
-        loss, grads = grads_and_loss(batch)
-        grads = aggregator.allreduce_tree(dict(zip(names, grads)))
-        if agg.strategy == "native" and world > 1:
-            grads = {k: g / world for k, g in grads.items()}
-        if world > 1:
-            for g in reversed(groups):
-                # the reported scalar loss, not a gradient: those went through the Aggregator
-                # repro-lint: disable=torch-bit-identity
-                dist.all_reduce(loss, group=g)
-            loss = loss / world
-        opt_state, metrics = optimizers.update(
-            params, [grads[n] for n in names], opt_state, opt_cfg)
+        with _trace.span("train.step"):
+            with _trace.span("train.forward_backward"):
+                loss, grads = grads_and_loss(batch)
+            grads = aggregator.allreduce_tree(dict(zip(names, grads)))
+            if agg.strategy == "native" and world > 1:
+                grads = {k: g / world for k, g in grads.items()}
+            if world > 1:
+                for g in reversed(groups):
+                    # the reported scalar loss, not a gradient: those went through the Aggregator
+                    # repro-lint: disable=torch-bit-identity
+                    dist.all_reduce(loss, group=g)
+                loss = loss / world
+            with _trace.span("train.optimizer"):
+                opt_state, metrics = optimizers.update(
+                    params, [grads[n] for n in names], opt_state, opt_cfg)
         metrics["loss"] = loss
         return opt_state, metrics
 
@@ -217,12 +228,15 @@ def _logical_worker_step(model, agg: AggConfig, opt_cfg: optimizers.OptConfig, g
     names, params = zip(*model.named_parameters())
 
     def train_step(opt_state: optimizers.OptState, batch: dict):
-        losses, stacks = _worker_grads(model, params, batch, k)
-        grads = aggregator.allreduce_tree(dict(zip(names, stacks)))
-        del stacks
-        loss = _fold_losses(losses, group, workers)
-        opt_state, metrics = optimizers.update(
-            params, [grads[n] for n in names], opt_state, opt_cfg)
+        with _trace.span("train.step"):
+            with _trace.span("train.forward_backward"):
+                losses, stacks = _worker_grads(model, params, batch, k)
+            grads = aggregator.allreduce_tree(dict(zip(names, stacks)))
+            del stacks
+            loss = _fold_losses(losses, group, workers)
+            with _trace.span("train.optimizer"):
+                opt_state, metrics = optimizers.update(
+                    params, [grads[n] for n in names], opt_state, opt_cfg)
         metrics["loss"] = loss
         return opt_state, metrics
 
@@ -423,22 +437,24 @@ def _mesh_step(model, mesh, agg: AggConfig, opt_cfg: optimizers.OptConfig,
         return loss_acc * inv, [a * inv for a in acc], targets
 
     def train_step(opt_state: optimizers.OptState, batch: dict):
-        v = plan.views()
-        with _swapped(model, v), hints.use_mesh(mesh), implicit_replication():
-            loss, local, targets = grads(v, batch)
-        full = plan.aggregate(local, targets, v)
-        if logical_workers:
-            loss = _fold_losses(loss, groups[0] if len(groups) == 1 else groups,
-                                logical_workers)
-        elif boundary:
-            for g in reversed(groups):
-                # the reported scalar loss, not a gradient: those went through the Aggregator
-                # repro-lint: disable=torch-bit-identity
-                dist.all_reduce(loss, group=g)
-            loss = loss / replicas
-        params = [p for _, p in model.named_parameters()]
-        with implicit_replication():
-            opt_state, metrics = optimizers.update(params, full, opt_state, opt_cfg)
+        with _trace.span("train.step"):
+            v = plan.views()
+            with _trace.span("train.forward_backward"), _swapped(model, v), \
+                    hints.use_mesh(mesh), implicit_replication():
+                loss, local, targets = grads(v, batch)
+            full = plan.aggregate(local, targets, v)
+            if logical_workers:
+                loss = _fold_losses(loss, groups[0] if len(groups) == 1 else groups,
+                                    logical_workers)
+            elif boundary:
+                for g in reversed(groups):
+                    # the reported scalar loss, not a gradient: those went through the Aggregator
+                    # repro-lint: disable=torch-bit-identity
+                    dist.all_reduce(loss, group=g)
+                loss = loss / replicas
+            params = [p for _, p in model.named_parameters()]
+            with _trace.span("train.optimizer"), implicit_replication():
+                opt_state, metrics = optimizers.update(params, full, opt_state, opt_cfg)
         metrics = {k: (m.full_tensor() if isinstance(m, DTensor) else m)
                    for k, m in metrics.items()}
         metrics["loss"] = loss

@@ -21,7 +21,9 @@ dataplane, also under deterministic algorithms; the model families on the
 card: GQA at g = 7, the MoE overflow (F10) and the SSD recurrence against
 the chunked scan; ``remat="dots"`` against ``"full"`` bit for bit on every
 decoder-only family, A1 launched as under ``"full"``; the encoder-decoder's
-training and serving against the CPU. These tests
+training and serving against the CPU; the train step's phase spans on the
+card (device intervals that tile the step, the profiler's GPU user
+annotations). These tests
 need an NVIDIA GPU and nvcc;
 elsewhere they skip. They import nothing of JAX, so the GPU machine runs them with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -1227,3 +1229,100 @@ def test_remat_dots_on_the_card_gives_the_bits_of_full(dev, arch):
     for a, b in zip(runs["full"], runs["dots"]):
         assert a.dtype == b.dtype and torch.equal(a.view(ints[a.element_size()]),
                                                   b.view(ints[b.element_size()]))
+
+
+TRAIN_PHASES = ["train.forward_backward", "agg.allreduce_tree", "train.optimizer"]
+
+
+@pytest.fixture
+def qwen_step(dev):
+    """qwen1.5-0.5b at full width cut to 4 layers (bf16), its train step
+    (``fpisa`` on the cuda backend) warmed once, the optimizer state and a
+    2 x 2,048-token batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build
+    from repro_torch.optim import optimizers
+    from repro_torch.train.step import make_train_step
+
+    cfg = get_config("qwen1.5-0.5b").with_(num_layers=4)
+    model = build(cfg, device=dev, seed=0)
+    opt_cfg = optimizers.OptConfig()
+    step = make_train_step(model, AggConfig(strategy="fpisa", backend="auto"), opt_cfg, 2)
+    state = optimizers.init(list(model.parameters()), opt_cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 2048), device=dev, generator=gen)}
+    step(state, batch)
+    torch.cuda.synchronize()
+    return step, state, batch
+
+
+def test_train_step_phases_tile_the_step_on_the_card(qwen_step):
+    """The tracer's device intervals (CUDA events, no wait) of a step's
+    three phases come in order inside ``train.step``'s, do not overlap, and
+    sum to within 5 % of the step's synchronized wall time, in each of 3
+    traced steps."""
+    import time
+
+    from repro_torch import trace
+
+    step, state, batch = qwen_step
+    tr = trace.enable()
+    walls = []
+    try:
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    finally:
+        trace.disable()
+    spans = tr.spans
+    tops = [s for s in spans if s["name"] == "train.step"]
+    assert len(tops) == 3
+    eps = 1e-6  # the events' resolution, in seconds
+    for top, wall in zip(tops, walls):
+        kids = sorted((s for s in spans if s["parent"] == top["id"]),
+                      key=lambda s: s["dev_ts"])
+        assert [s["name"] for s in kids] == TRAIN_PHASES
+        for a, b in zip(kids, kids[1:]):
+            assert a["dev_ts"] + a["dev_dur"] <= b["dev_ts"] + eps
+        assert top["dev_ts"] <= kids[0]["dev_ts"] + eps
+        assert kids[-1]["dev_ts"] + kids[-1]["dev_dur"] <= top["dev_ts"] + top["dev_dur"] + eps
+        covered = sum(s["dev_dur"] for s in kids)
+        assert abs(covered / wall - 1) <= 0.05, (covered, wall)
+
+
+def test_train_step_phases_in_the_profiler_and_on_the_device_row(qwen_step, tmp_path):
+    """One profiled step on the card: the step and its phases are host
+    ranges of the profiler's trace; the ranges that launch device work
+    themselves (forward+backward, the optimizer, the aggregation's per-leaf
+    ``agg.allreduce``) are GPU user annotations too (the profiler gives a
+    launch to its innermost range, so ``train.step`` and
+    ``agg.allreduce_tree``, whose launches all lie in their children, show
+    there through them); the tracer's chrome export draws all four on its
+    device row."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import trace
+
+    step, state, batch = qwen_step
+    names = {"train.step", *TRAIN_PHASES}
+    tr = trace.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(state, batch)
+            torch.cuda.synchronize()
+    finally:
+        trace.disable()
+    prof.export_chrome_trace(str(tmp_path / "p.json"))
+    events = json.load(open(tmp_path / "p.json"))["traceEvents"]
+    assert names <= {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    gpu = {e["name"] for e in events if e.get("cat") == "gpu_user_annotation"}
+    assert {"train.forward_backward", "train.optimizer", "agg.allreduce"} <= gpu
+    doc = trace.to_chrome(tr)
+    device = {e["name"] for e in doc["traceEvents"]
+              if e["ph"] == "X" and e["pid"] == trace.export.DEVICE_PID}
+    assert names <= device

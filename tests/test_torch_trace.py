@@ -12,6 +12,7 @@ switchsim rounds, the CLI session).
   clock and records nothing, on the hot paths included.
 """
 import argparse
+import dataclasses
 import json
 import threading
 
@@ -368,3 +369,225 @@ def test_cli_session_writes_jsonl_and_chrome(tmp_path, capsys):
     session = trace.from_args(ap.parse_args(["--trace"]))
     assert session.finish() is None
     assert "spans recorded" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# the train step's phases (train/step.py), device intervals, the profiler
+# ---------------------------------------------------------------------------
+
+PHASES = ["train.forward_backward", "agg.allreduce_tree", "train.optimizer"]
+STEP_KINDS = {"plain": {}, "accum_steps=2": {"accum_steps": 2},
+              "logical_workers=2": {"logical_workers": 2}}
+
+
+def _tiny_step(**step_kw):
+    """One CPU train step of a one-layer smoke qwen (4 x 16 tokens, fpisa)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.registry import build
+    from repro_torch.optim import optimizers
+    from repro_torch.train.step import make_train_step
+
+    cfg = dataclasses.replace(get_smoke_config("qwen1.5-0.5b"), num_layers=1)
+    model = build(cfg, device=torch.device("cpu"))
+    opt_cfg = optimizers.OptConfig()
+    step = make_train_step(model, AggConfig(strategy="fpisa"), opt_cfg, 4, **step_kw)
+    state = optimizers.init(list(model.parameters()), opt_cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 16),
+                           generator=torch.Generator().manual_seed(0))
+    return lambda: step(state, {"tokens": tokens})
+
+
+@pytest.mark.parametrize("kind", sorted(STEP_KINDS))
+def test_train_step_emits_its_phases_in_order(kind):
+    """train.step holds forward+backward, the aggregation and the optimizer,
+    in that order, as its children; none of the three waits or tags."""
+    run = _tiny_step(**STEP_KINDS[kind])
+    tr = trace.enable()
+    run()
+    trace.disable()
+    spans = tr.spans
+    (top,) = [s for s in spans if s["name"] == "train.step"]
+    assert top["parent"] == -1 and top["depth"] == 0
+    kids = sorted((s for s in spans if s["parent"] == top["id"]), key=lambda s: s["ts"])
+    assert [s["name"] for s in kids] == PHASES
+    for a, b in zip(kids, kids[1:]):
+        assert a["ts"] + a["dur"] <= b["ts"]
+    for s in kids:
+        assert s["depth"] == 1
+        assert top["ts"] <= s["ts"] and s["ts"] + s["dur"] <= top["ts"] + top["dur"]
+    fwd_bwd, _, opt = kids
+    for s in (top, fwd_bwd, opt):
+        assert s["tags"] == {} and s["synced"] is False
+
+
+def test_train_step_with_the_tracer_off_reads_no_clock(clock_reads):
+    run = _tiny_step()
+    before = list(trace.get().spans)
+    run()
+    assert clock_reads == []
+    assert trace.get().spans == before
+
+
+def _profiled(run, tmp_path) -> list:
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run()
+    prof.export_chrome_trace(str(tmp_path / "p.json"))
+    return json.load(open(tmp_path / "p.json"))["traceEvents"]
+
+
+def test_profiler_sees_the_phases_with_the_tracer_off(tmp_path):
+    """With the tracer off and torch.profiler on, each span opens a
+    record_function range: the phases are user annotations of the
+    profiler's own trace, nested as the spans are, and the tracer records
+    nothing."""
+    run = _tiny_step()
+    before = list(trace.get().spans)
+    events = _profiled(run, tmp_path)
+    assert not trace.enabled() and trace.get().spans == before
+    ranges = {e["name"]: e for e in events if e.get("cat") == "user_annotation"}
+    assert {"train.step", *PHASES} <= set(ranges)
+    top = ranges["train.step"]
+    for name in PHASES:
+        e = ranges[name]
+        assert top["ts"] <= e["ts"] and e["ts"] + e["dur"] <= top["ts"] + top["dur"]
+    order = [ranges[n]["ts"] for n in PHASES]
+    assert order == sorted(order)
+    # the null path is back once the profiler stops
+    assert trace.span("train.step") is tracer.NULL_SPAN
+
+
+def test_profiler_and_tracer_on_record_both(tmp_path):
+    run = _tiny_step()
+    tr = trace.enable()
+    events = _profiled(run, tmp_path)
+    trace.disable()
+    names = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"train.step", *PHASES} <= names
+    assert {"train.step", *PHASES} <= {s["name"] for s in tr.spans}
+
+
+def test_cpu_spans_carry_no_device_fields():
+    run = _tiny_step()
+    tr = trace.enable()
+    run()
+    trace.disable()
+    assert tr.spans and all("dev_ts" not in s and "dev_dur" not in s for s in tr.spans)
+    doc = export.to_chrome(tr)
+    assert {e["pid"] for e in doc["traceEvents"]} == {0}
+    assert all(e["ph"] == "X" for e in doc["traceEvents"])
+
+
+class _Event:
+    """Stands in for torch.cuda.Event: each record advances a device clock
+    by 1 ms; counts how many were made."""
+
+    clock_ms = 0.0
+    made = 0
+
+    def __init__(self, enable_timing=False):
+        assert enable_timing
+        type(self).made += 1
+        self.t = None
+
+    def record(self):
+        type(self).clock_ms += 1.0
+        self.t = type(self).clock_ms
+
+    def query(self):
+        return True
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        return end.t - self.t
+
+
+@pytest.fixture
+def fake_cuda(monkeypatch):
+    """CUDA as the tracer sees it, without a card: ``started`` says whether
+    CUDA has started, events come from ``_Event``."""
+    state = {"started": True}
+    monkeypatch.setattr(_Event, "clock_ms", 0.0)
+    monkeypatch.setattr(_Event, "made", 0)
+    monkeypatch.setattr(tracer.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(tracer.torch.cuda, "is_initialized", lambda: state["started"])
+    monkeypatch.setattr(tracer.torch.cuda, "synchronize", lambda device=None: None)
+    monkeypatch.setattr(tracer.torch.cuda, "Event", _Event)
+    return state
+
+
+def test_device_intervals_resolve_on_the_anchor_clock(fake_cuda):
+    tr = tracer.Tracer()
+    t_anchor = tr._anchor[1]                       # device clock 1 ms
+    with tr.span("outer"):                         # opens at 2 ms
+        with tr.span("inner"):                     # 3 .. 4 ms
+            pass
+    assert len(tr._pending) == 2                   # nothing resolved on the hot path
+    by = {s["name"]: s for s in tr.spans}
+    assert by["inner"]["dev_ts"] == pytest.approx(t_anchor + 2e-3)
+    assert by["inner"]["dev_dur"] == pytest.approx(1e-3)
+    assert by["outer"]["dev_ts"] == pytest.approx(t_anchor + 1e-3)
+    assert by["outer"]["dev_dur"] == pytest.approx(3e-3)
+    assert not tr._pending and len(tr._free) == 4
+    made = _Event.made
+    with tr.span("again"):                         # events come from the pool
+        pass
+    assert _Event.made == made and tr.spans[-1]["dev_dur"] == pytest.approx(1e-3)
+
+
+def test_device_intervals_on_the_device_row_and_in_jsonl(fake_cuda, tmp_path):
+    tr = tracer.Tracer()
+    with tr.span("outer", phase="finish"):
+        with tr.span("inner"):
+            pass
+    doc = export.to_chrome(tr)
+    dev = {e["name"]: e for e in doc["traceEvents"]
+           if e["ph"] == "X" and e["pid"] == export.DEVICE_PID}
+    host = {e["name"]: e for e in doc["traceEvents"] if e["ph"] == "X" and e["pid"] == 0}
+    assert set(dev) == set(host) == {"outer", "inner"}
+    for s in tr.spans:
+        assert dev[s["name"]]["ts"] == pytest.approx(s["dev_ts"] * 1e6)
+        assert dev[s["name"]]["dur"] == pytest.approx(s["dev_dur"] * 1e6)
+        assert dev[s["name"]]["cat"] == host[s["name"]]["cat"]
+    assert {e["args"]["name"] for e in doc["traceEvents"] if e["ph"] == "M"} \
+        == {"host", "device (CUDA stream)"}
+    export.write_jsonl(tr, tmp_path / "d.jsonl")
+    head, spans = jtrace.read_jsonl(tmp_path / "d.jsonl")
+    assert head["schema"] == 1 and spans == json.loads(json.dumps(tr.spans))
+    assert all({"dev_ts", "dev_dur"} <= set(s) for s in spans)
+
+
+def test_device_anchor_waits_for_cuda_to_start(fake_cuda):
+    fake_cuda["started"] = False
+    tr = tracer.Tracer()
+    with tr.span("before"):
+        pass
+    assert tr._anchor is None and _Event.made == 0
+    fake_cuda["started"] = True
+    with tr.span("after"):
+        pass
+    before, after = tr.spans
+    assert "dev_ts" not in before and after["dev_dur"] == pytest.approx(1e-3)
+    assert tr._anchor is not None
+
+
+def test_finished_events_are_retired_without_a_wait(fake_cuda, monkeypatch):
+    monkeypatch.setattr(tracer, "_PENDING", 8)
+    tr = tracer.Tracer()
+    for _ in range(20):
+        with tr.span("s"):
+            pass
+    assert len(tr._pending) <= 8 and len(tr._free) >= 2
+    assert _Event.made < 2 * 20
+    assert all("dev_dur" in s for s in tr.spans)
+
+
+def test_disabled_path_makes_no_event(fake_cuda):
+    assert not trace.enabled()
+    for _ in range(100):
+        with trace.span("hot"):
+            pass
+    assert _Event.made == 0
