@@ -688,9 +688,12 @@ def a1_kernel_name(mangled):
 
 
 def a1_sass_check(sass):
-    """A1's bf16 kernels (``attn_*_tc``) run their products on the tensor
-    cores and take their operands by TMA: count HGMMA and UTMALDG in each
-    one's SASS, and raise where either is 0."""
+    """A1's bf16 kernels (``attn_*_tc``, the set ``attention.TC_KERNELS``
+    names) run their products on the tensor cores and take their operands
+    by TMA: count HGMMA and UTMALDG in each one's SASS, and raise where
+    either is 0 or the set differs."""
+    from repro_torch.kernels.attention import TC_KERNELS
+
     counts = {}
     for body in re.split(r"\n\s*Function : ", sass)[1:]:
         name = body.split("\n", 1)[0].strip()
@@ -701,7 +704,8 @@ def a1_sass_check(sass):
                 "UTMALDG": sum(op.startswith("UTMALDG") for op in ops_)}
     log(f"[build] chunked_attention bf16 kernels' SASS (HGMMA = wgmma, UTMALDG = TMA load): "
         + json.dumps(counts))
-    if len(counts) != 6 or not all(c["HGMMA"] and c["UTMALDG"] for c in counts.values()):
+    if set(counts) != set(TC_KERNELS) or not all(c["HGMMA"] and c["UTMALDG"]
+                                                 for c in counts.values()):
         raise AssertionError(f"A1's bf16 kernels lack wgmma or TMA in their SASS: {counts}")
 
 
@@ -3133,6 +3137,22 @@ def a1_work(b, s, sk, h, hd, causal, itemsize):
     return 4 * hd * pairs, fwd_bytes, 10 * hd * pairs, bwd_bytes
 
 
+A1_KERNEL_PARTS = ("attn_fwd", "attn_bwd_dq", "attn_bwd_dkv")
+
+
+def a1_kernel_split(kernels):
+    """{part: {"ms", "calls"}} of A1's kernels among profiled device events,
+    by the name parts ``A1_KERNEL_PARTS`` (the forward, dQ, dK/dV)."""
+    split = {}
+    for e in kernels:
+        part = next((p for p in A1_KERNEL_PARTS if p in e.key), None)
+        if part:
+            d = split.setdefault(part, {"ms": 0.0, "calls": 0})
+            d["ms"] += getattr(e, "self_device_time_total", 0) / 1e3
+            d["calls"] += e.count
+    return split
+
+
 def a1_timing(torch, dev, b, s, ck, what, sk=None, heads=16, hd=64, causal=True, cq=None):
     """A1 forward and backward at (B ``b``, S ``s``, Sk ``sk`` (default S),
     ``heads`` heads of ``hd``, chunks (``cq``, ``ck``), cq defaulting to
@@ -3210,6 +3230,7 @@ def longctx_train(torch, dev):
     forward+backward. Returns (launches, numbers)."""
     from repro_torch.configs import get_config
     from repro_torch.core.agg import AggConfig
+    from repro_torch.kernels import attention
     from repro_torch.launch.train import train_loop
 
     cfg = get_config("qwen1.5-0.5b")
@@ -3254,14 +3275,18 @@ def longctx_train(torch, dev):
         busy = sum(getattr(e, "self_device_time_total", 0) for e in kern) / 1e3
         a1 = sum(getattr(e, "self_device_time_total", 0) for e in kern
                  if "attn_fwd" in e.key or "attn_bwd" in e.key) / 1e3
-        share = {"kernels_ms": busy, "a1_ms": a1}
+        share = {"kernels_ms": busy, "a1_ms": a1, "a1_kernels": a1_kernel_split(kern)}
     total = sum(parts.values())
+    split = "; ".join(f"{k} {v['ms']:.2f} ms over {v['calls']} calls ({v['ms'] / v['calls']:.3f} ms "
+                      f"a call)" for k, v in (share or {}).get("a1_kernels", {}).items())
     log(f"[longctx] (b) step, CUDA events: " + ", ".join(
         f"{k} {v:.2f} ms" for k, v in parts.items()) + f"; {total:.2f} ms = "
         f"{tokens / total * 1e3:,.0f} tok/s; peak memory of the step {peak:.2f} GiB; profiled "
         f"forward+backward: " + (f"{share['kernels_ms']:.2f} ms of kernels, A1 {share['a1_ms']:.2f}"
-                                 f" ms ({100 * share['a1_ms'] / share['kernels_ms']:.1f} %)"
-                                 if share and share["kernels_ms"] else "not measured")
+                                 f" ms ({100 * share['a1_ms'] / share['kernels_ms']:.1f} %): "
+                                 f"{split}" if share and share["kernels_ms"] else "not measured")
+        + f"; A1's bf16 kernels' registers a thread and CTAs an SM: " + json.dumps(
+            {k: [v["registers"], v["ctas_per_sm"]] for k, v in attention.kernel_info().items()})
         + f"; {CARD}")
     del model
     torch.cuda.empty_cache()
@@ -3551,7 +3576,10 @@ def aggregation_kernels(torch, run, what, kinds=AGG_KERNELS):
     from torch.autograd import DeviceType
 
     events = profiled_events(torch, run) or []
-    device_ops = [e for e in events if e.device_type == DeviceType.CUDA]
+    # the port's spans are record_function ranges, which the profiler also
+    # draws on the device row (user annotations, not work on the card)
+    ranges = {e.key for e in events if getattr(e, "is_user_annotation", False)}
+    device_ops = [e for e in events if e.device_type == DeviceType.CUDA and e.key not in ranges]
     if not device_ops:
         log(f"[diagnose] {what}: device ops by kind not measured (the profiler recorded none)")
         return None

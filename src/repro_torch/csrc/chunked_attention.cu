@@ -42,9 +42,9 @@
 // P = exp(s - m) / l, as flash_remat recomputes the pair step; nothing of
 // size (S, Sk) is saved. dQ kernel: D = rowsum(dO * O) first (written for
 // the dK/dV kernel), then over the key tiles dP = dO V^T, dS = P (dP - D),
-// dQ += dS K. dK/dV kernel: one CTA per (b, h, 64 keys), over the query
-// tiles at or below the diagonal: dV += P^T dO, dK += dS^T Q. No atomics:
-// every output element has one owner, so the result repeats its bits.
+// dQ += dS K. dK/dV kernel: over the query tiles at or below the diagonal,
+// dV += P^T dO, dK += dS^T Q. No atomics on any output: every output element
+// has one owner, so the result repeats its bits.
 //
 // Two routes, chosen by dtype in the entry points (not a fallback: each
 // dtype has exactly one, and a failure of either is returned):
@@ -66,15 +66,34 @@
 //   on the accumulator fragment; p, rounded to bf16 in registers, is the A
 //   operand of p.v, with V an MN-major B operand (the transpose bit), so
 //   no transpose is stored.
-//   dQ: one CTA per (b, h, 128 query rows), the same roles; Q and dO once,
-//   K/V 64-key tiles through the ring. S = Q K^T and dP = dO V^T from
-//   shared memory; P and dS in float32 on the fragment; dS, rounded to
-//   bf16 in registers, is the A operand of dQ += dS K (K MN-major).
-//   dK/dV: one CTA per (b, h, 64 keys), one consumer warpgroup and one
-//   producer warp; K and V stay resident; Q, dO and the rows' m, l, D
-//   stream by TMA. S^T = K Q^T and dP^T = V dO^T from shared memory; P^T
-//   and dS^T rounded to bf16 in registers are the A operands of
-//   dV += P^T dO and dK += dS^T Q (dO and Q MN-major).
+//   Backward, both kernels: 256 threads, two consumer warpgroups and no
+//   producer warp (384 threads would cap every thread at 168 registers,
+//   and ptxas allots registers to warps in fours). Thread 0 loads the first
+//   tiles of a 4-stage ring by TMA; a stage is refilled by whichever
+//   warpgroup frees it second (a count in shared memory: it decides who
+//   loads, never what is summed), so neither warpgroup waits for the other.
+//   Each warpgroup issues a tile's two score products as two committed
+//   groups and waits only for the one it needs (wgmma.wait_group 1), and
+//   frees the previous tile's stage once its last product has retired.
+//   The causal compare runs only on the diagonal tile (and dQ's ragged
+//   last key tile); every other tile skips the per-element masks. Softmax
+//   weights are exp2 of log2(e)-scaled operands (m log2(e) per row).
+//   dQ: one CTA per (b, h, 128 query rows), the longest causal rows first,
+//   64 rows a warpgroup, two CTAs an SM at NP = 1; Q and dO once, K/V
+//   64-key tiles through the ring. S = Q K^T and dP = dO V^T from shared
+//   memory; P is computed while dP is in flight; dS, rounded to bf16 in
+//   registers, is the A operand of dQ += dS K (K MN-major), left in flight
+//   while the next tile's S and dP are issued.
+//   dK/dV: one CTA per (b, h, 128 keys), the longest causal key ranges
+//   first, 64 keys a warpgroup with K and V resident; each streamed query
+//   tile (q, dO and the rows' m log2(e), 1/l, D, all by TMA) feeds both
+//   warpgroups, which halves the q and dO traffic a key against one
+//   warpgroup a CTA.
+//   S^T = K Q^T and dP^T = V dO^T from shared memory; P^T is computed while
+//   dP^T is in flight, dS^T while dV += P^T dO is; P^T and dS^T rounded to
+//   bf16 in registers are the A operands of dV and dK += dS^T Q (dO and Q
+//   MN-major). Rows past S and keys past Sk need no mask there: their q
+//   and dO are TMA's zeros and 1/l is 0, and no key row past Sk is stored.
 //   The backward's bf16 rounding points: the scores (as the forward), and
 //   P and dS where each is an operand of a product, as the plain loop's
 //   autograd rounds them at its bf16 products; dP, D and the softmax's
@@ -96,10 +115,13 @@
 // What bounds it: operations. Forward 4 S Sk hd flops per (b, h) (halved
 // when causal) against 2 (S + 2 Sk) hd elements moved; at qwen's hd = 64
 // and S = 4,096 that is about 1,000 flops per byte, far above the card's
-// ridge, so the bound is the bf16 tensor-core rate, 989 TFLOP/s dense.
-// The bf16 kernels issue each warpgroup's products and its softmax in
-// turn (the other consumer warpgroup fills the gaps); the float32
-// kernels run on the CUDA cores (67 TFLOP/s peak).
+// ridge, so the bound is the bf16 tensor-core rate, 989 TFLOP/s dense. The
+// backward's bound counts 10 hd flops a kept pair (5 hd-products: S, dP,
+// dV, dQ, dK); the two backward kernels compute 7 (S and dP in each), so
+// their best case is about 71 % of that bound. The forward issues each
+// warpgroup's products and its softmax in turn (the other consumer
+// warpgroup fills the gaps); the backward overlaps them as above. The
+// float32 kernels run on the CUDA cores (67 TFLOP/s peak).
 //
 // Binding: plain C entry points loaded with ctypes; launch on the given
 // stream, allocate nothing, return cudaGetLastError(). The TMA descriptors
@@ -552,8 +574,15 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out, con
 
 using bf16 = __nv_bfloat16;
 constexpr int kPanel = 64 * 128;  // bytes of one 128-byte-swizzled panel: 64 rows x 64 bf16
-constexpr int kStages = 2;        // depth of the ring of streamed tiles
-constexpr int kConsumers = 256;   // threads of the forward's and dQ's two consumer warpgroups
+constexpr int kStages = 2;        // depth of the forward's ring of streamed tiles
+constexpr int kBwdStages = 4;     // the backward's: a consumer frees a stage one tile late
+// The backward's CTA: two warpgroups and no producer warp, so ptxas may give
+// each thread 255 registers (384 threads cap every thread at 168, and ptxas
+// allots registers to warps in fours, so 288 do too).
+constexpr int kBwdThreads = 256;
+constexpr int kConsumers = 256;   // threads of the forward's two consumer warpgroups
+
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -637,8 +666,10 @@ __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.alig
 __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
+// Wait until at most N of this warpgroup's committed wgmma groups are pending.
+template <int N>
 __device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // Registers that an asynchronous wgmma reads or writes stay put (and live)
 // across the wait: the compiler sees them change here.
@@ -689,6 +720,14 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t* a, uint64
       "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+// 2^x, one MUFU instruction (ex2.approx.ftz: a result below 2^-126 flushes
+// to 0; exp2f adds the range handling around it)
+__device__ __forceinline__ float pow2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ float round_bf16(float x) {
@@ -804,7 +843,7 @@ attn_fwd_tc(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ C
         mma_ss(s, desc(Qw + (kk / 4) * kPanel + (kk % 4) * 32),
                desc(st + (kk / 4) * kPanel + (kk % 4) * 32), kk > 0);
       wg_commit();
-      wg_wait();
+      wg_wait<0>();
       keep(s);
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -844,7 +883,7 @@ attn_fwd_tc(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ C
         for (int p = 0; p < NP; ++p)
           mma_rs(pv[p], pk + 4 * kk, desc(st + (NP + p) * kPanel + kk * 2048), 1);
       wg_commit();
-      wg_wait();
+      wg_wait<0>();
 #pragma unroll
       for (int p = 0; p < NP; ++p) keep(pv[p]);
       keep(pk);
@@ -887,14 +926,51 @@ attn_fwd_tc(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ C
   }
 }
 
-// Backward, dQ. grid (ceil(S / 128), H, B); 384 threads as the forward's.
-// Also writes, for the dK/dV kernel, each row's m, 1 / max(l, 1e-30) and
-// D = rowsum(dO * O) into `rows` (B H, 3, S64) float32, S64 = S rounded up
-// to 64 (zeros past S), so that kernel's TMA boxes of 64 rows start on
-// 256-byte boundaries. q and dO arrive by TMA once, K/V 64-key tiles
-// through the ring.
+// S (or S^T) = A B^T over the head dims, both operands' NP panels K-major
+// in shared memory.
 template <int NP>
-__global__ void __launch_bounds__(384, 1)
+__device__ __forceinline__ void mma_hd(float (&d)[32], const uint8_t* a, const uint8_t* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4 * NP; ++kk)
+    mma_ss(d, desc(a + (kk / 4) * kPanel + (kk % 4) * 32),
+           desc(b + (kk / 4) * kPanel + (kk % 4) * 32), kk > 0);
+}
+
+template <int NP>
+constexpr int dq_tc_smem() { return 1024 + (4 + 2 * kBwdStages) * NP * kPanel; }
+template <int NP>
+constexpr int dkv_tc_smem() { return 1024 + 4 * NP * kPanel + kBwdStages * (2 * NP * kPanel + 1024); }
+
+// The backward's rings have no producer warp: thread 0 loads the first
+// kBwdStages tiles, and a stage is refilled by whichever warpgroup frees it
+// second (a running count in shared memory: the second of each round finds
+// it odd), so neither ever waits for the other. `refill` loads the tile
+// kBwdStages after the one the stage held.
+template <typename Refill>
+__device__ __forceinline__ void free_stage(int* freed, int wg, int t, Refill refill) {
+  bar_sync(1 + wg, 128);  // every thread of this warpgroup is done with the stage
+  if (t == 0) {
+    __threadfence_block();
+    if (atomicAdd(freed, 1) & 1) refill();
+  }
+}
+
+// CTAs of the dQ kernel resident on an SM: at NP = 1 two fit (128 registers
+// a thread, 2 x 98 KB of shared memory), and the four warpgroups hide each
+// other's waits (0.71 -> 0.59 ms at 4 x 4,096, 16 heads of 64, on an H100,
+// where ptxas serializes the warpgroup's products within the 128 registers).
+template <int NP>
+constexpr int kDqCtas = NP == 1 ? 2 : 1;
+
+// Backward, dQ. grid (H, B, ceil(S / 128)), the longest causal tiles first;
+// kBwdThreads: warpgroups 0 and 1 take 64 query rows each. Also writes, for
+// the dK/dV kernel, each row's m log2(e), 1 / max(l, 1e-30) and D =
+// rowsum(dO * O) into `rows` (B H, 3, S64) float32, S64 = S rounded up to 64
+// (zeros past S), so that kernel's TMA boxes of 64 rows start on 256-byte
+// boundaries. q and dO arrive by TMA once, K/V 64-key tiles through a ring
+// of kBwdStages.
+template <int NP>
+__global__ void __launch_bounds__(kBwdThreads, kDqCtas<NP>)
 attn_bwd_dq_tc(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
                const __grid_constant__ CUtensorMap v_map,
                const __grid_constant__ CUtensorMap do_map, const bf16* __restrict__ out,
@@ -902,52 +978,45 @@ attn_bwd_dq_tc(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
                const float* __restrict__ l_in, bf16* __restrict__ dq, float* __restrict__ rows,
                int S, int Sk, int H, int hd, int causal, float scale) {
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t q_full, full[kStages], empty[kStages];
+  __shared__ __align__(8) uint64_t q_full, full[kBwdStages];
+  __shared__ int freed[kBwdStages];
   __shared__ float Dsm[2][64];
   uint8_t* Qs = align1024(smem_raw);       // [warpgroup][panel]
   uint8_t* dOs = Qs + 2 * NP * kPanel;     // [warpgroup][panel]
   uint8_t* ring = dOs + 2 * NP * kPanel;   // [stage][K panels, V panels]
   constexpr int kStage = 2 * NP * kPanel;
 
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int q0 = 128 * (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = 128 * (causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z);
   const int kend = causal ? min(Sk, min(q0 + 128, S)) : Sk;
   const int ntiles = (kend + 63) / 64;
+  auto load = [&](int it) {  // key tile it into its stage
+    const int s = it % kBwdStages;
+    mbar_expect_tx(&full[s], kStage);
+    for (int p = 0; p < NP; ++p) {
+      tma_rows(ring + s * kStage + p * kPanel, &k_map, &full[s], 64 * p, h, 64 * it, b);
+      tma_rows(ring + s * kStage + (NP + p) * kPanel, &v_map, &full[s], 64 * p, h, 64 * it, b);
+    }
+  };
   if (threadIdx.x == 0) {
     mbar_init(&q_full, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kBwdStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumers);
+      freed[s] = 0;
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-
-  if (threadIdx.x >= kConsumers) {  // the producer
-    regs_dec<24>();
-    if (threadIdx.x != kConsumers) return;
+  if (threadIdx.x == 0) {
     mbar_expect_tx(&q_full, 4 * NP * kPanel);
     for (int g = 0; g < 2; ++g)
       for (int p = 0; p < NP; ++p) {
         tma_rows(Qs + (g * NP + p) * kPanel, &q_map, &q_full, 64 * p, h, q0 + 64 * g, b);
         tma_rows(dOs + (g * NP + p) * kPanel, &do_map, &q_full, 64 * p, h, q0 + 64 * g, b);
       }
-    int stage = 0;
-    uint32_t phase = 0;
-    for (int it = 0; it < ntiles; ++it) {
-      mbar_wait(&empty[stage], phase ^ 1);
-      mbar_expect_tx(&full[stage], kStage);
-      uint8_t* st = ring + stage * kStage;
-      for (int p = 0; p < NP; ++p) {
-        tma_rows(st + p * kPanel, &k_map, &full[stage], 64 * p, h, 64 * it, b);
-        tma_rows(st + (NP + p) * kPanel, &v_map, &full[stage], 64 * p, h, 64 * it, b);
-      }
-      if (++stage == kStages) stage = 0, phase ^= 1;
-    }
-    return;
+    for (int it = 0; it < min(ntiles, kBwdStages); ++it) load(it);
   }
 
-  regs_inc<240>();
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = threadIdx.x % 32;
   const int r_lo = 16 * (t / 32) + lane / 4;
   const int row0 = q0 + 64 * wg;
@@ -955,13 +1024,19 @@ attn_bwd_dq_tc(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
   {  // D: two threads a row
     const int r = t / 2, part = t % 2, row = row0 + r, s64 = (S + 63) / 64 * 64;
     float acc = 0.f;
-    if (row < S) {
+    if (row < S) {  // 16-byte loads: hd is a multiple of 8, the rows 16-byte aligned
       const int64_t off = (((int64_t)b * S + row) * H + h) * hd;
-      for (int d = 2 * part; d < hd; d += 4) {
-        const float2 g = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dout + off + d));
-        const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(out + off + d));
-        acc += g.x * y.x;
-        acc += g.y * y.y;
+      for (int d = 8 * part; d < hd; d += 16) {
+        const uint4 g4 = *reinterpret_cast<const uint4*>(dout + off + d);
+        const uint4 y4 = *reinterpret_cast<const uint4*>(out + off + d);
+        const uint32_t gw[4] = {g4.x, g4.y, g4.z, g4.w}, yw[4] = {y4.x, y4.y, y4.z, y4.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float2 g = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&gw[c]));
+          const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&yw[c]));
+          acc += g.x * y.x;
+          acc += g.y * y.y;
+        }
       }
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
@@ -969,77 +1044,87 @@ attn_bwd_dq_tc(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
       Dsm[wg][r] = acc;
       if (row < s64) {
         float* plane = rows + ((int64_t)b * H + h) * 3 * s64 + row;
-        plane[0] = row < S ? m_in[stat + row] : 0.f;
+        plane[0] = row < S ? m_in[stat + row] * kLog2e : 0.f;
         plane[s64] = row < S ? 1.f / fmaxf(l_in[stat + row], 1e-30f) : 0.f;
         plane[2 * s64] = acc;
       }
     }
     bar_sync(1 + wg, 128);
   }
-  float mrow[2], inv_l[2], drow[2];
+  float m2[2], inv_l[2], drow[2];  // m2: m log2(e), so p = exp2(x log2(e) - m2) / l
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + r_lo + 8 * i;
     const bool ok = row < S;
-    mrow[i] = ok ? m_in[stat + row] : 0.f;
+    m2[i] = ok ? m_in[stat + row] * kLog2e : 0.f;
     inv_l[i] = ok ? 1.f / fmaxf(l_in[stat + row], 1e-30f) : 0.f;
     drow[i] = Dsm[wg][r_lo + 8 * i];
   }
+  const float scale2 = scale * kLog2e;
+  // the key tiles this warpgroup's rows see: causal, up to its diagonal tile
+  const int it_end = row0 >= S ? 0 : causal ? min(ntiles, row0 / 64 + 1) : ntiles;
+  auto release = [&](int it) {  // this warpgroup is done with tile it
+    free_stage(&freed[it % kBwdStages], wg, t, [&] {
+      if (it + kBwdStages < ntiles) load(it + kBwdStages);
+    });
+  };
   const uint8_t* Qw = Qs + wg * NP * kPanel;
   const uint8_t* dOw = dOs + wg * NP * kPanel;
-  float acc[NP][32];
+  float acc[NP][32], s[32], dp[32];
 #pragma unroll
   for (int p = 0; p < NP; ++p)
 #pragma unroll
     for (int e = 0; e < 32; ++e) acc[p][e] = 0.f;
+  uint32_t ds16[16];
   mbar_wait(&q_full, 0);
-  int stage = 0;
-  uint32_t phase = 0;
-  for (int it = 0; it < ntiles; ++it) {
-    const int t0 = 64 * it, ncols = min(64, kend - t0);
-    const uint8_t* st = ring + stage * kStage;
-    mbar_wait(&full[stage], phase);
-    float s[32], dp[32];
+  for (int it = 0; it < it_end; ++it) {
+    const int t0 = 64 * it;
+    const uint8_t* st = ring + (it % kBwdStages) * kStage;
+    mbar_wait(&full[it % kBwdStages], (it / kBwdStages) & 1);
     wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4 * NP; ++kk)
-      mma_ss(s, desc(Qw + (kk / 4) * kPanel + (kk % 4) * 32),
-             desc(st + (kk / 4) * kPanel + (kk % 4) * 32), kk > 0);
-#pragma unroll
-    for (int kk = 0; kk < 4 * NP; ++kk)
-      mma_ss(dp, desc(dOw + (kk / 4) * kPanel + (kk % 4) * 32),
-             desc(st + (NP + kk / 4) * kPanel + (kk % 4) * 32), kk > 0);
+    mma_hd<NP>(s, Qw, st);
     wg_commit();
-    wg_wait();
+    mma_hd<NP>(dp, dOw, st + NP * kPanel);
+    wg_commit();
+    wg_wait<1>();  // S, and the previous tile's dQ product: its stage is free
     keep(s);
-    keep(dp);
-    uint32_t dk16[16];  // dS in bf16, the A operand of dS K
+    keep(ds16);
+    if (it > 0) release(it - 1);
+    // P, float32, in place of S while dP is in flight; the masks only on
+    // the diagonal tile (causal) or the ragged last one
+    const bool edge = causal ? t0 + 63 > row0 : t0 + 64 > Sk;
 #pragma unroll
-    for (int e = 0; e < 32; e += 2) {
-      float ds[2];
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int i = acc_half(e), col = acc_col(e + c, lane), row = row0 + r_lo + 8 * i;
-        float x = round_bf16(s[e + c]) * scale;
-        if (causal && t0 + col > row) x = kNegInf;
-        if (col >= ncols || row >= S) x = -INFINITY;
-        const float p = expf(x - mrow[i]) * inv_l[i];
-        ds[c] = p * (dp[e + c] - drow[i]);
+    for (int e = 0; e < 32; ++e) {
+      const int i = acc_half(e);
+      float p = pow2(fmaf(round_bf16(s[e]), scale2, -m2[i])) * inv_l[i];
+      if (edge) {
+        const int col = t0 + acc_col(e, lane), row = row0 + r_lo + 8 * i;
+        if (causal ? col > row : col >= Sk) p = 0.f;
       }
-      dk16[e / 2] = pack_bf16(ds[0], ds[1]);
+      s[e] = p;
     }
+    wg_wait<0>();
+    keep(dp);
+#pragma unroll
+    for (int e = 0; e < 32; e += 2)  // dS in bf16, the A operand of dS K
+      ds16[e / 2] = pack_bf16(s[e] * (dp[e] - drow[acc_half(e)]),
+                              s[e + 1] * (dp[e + 1] - drow[acc_half(e)]));
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int p = 0; p < NP; ++p) mma_rs(acc[p], dk16 + 4 * kk, desc(st + p * kPanel + kk * 2048), 1);
+      for (int p = 0; p < NP; ++p)
+        mma_rs(acc[p], ds16 + 4 * kk, desc(st + p * kPanel + kk * 2048), 1);
     wg_commit();
-    wg_wait();
+  }
+  wg_wait<0>();
 #pragma unroll
-    for (int p = 0; p < NP; ++p) keep(acc[p]);
-    keep(dk16);
-    mbar_arrive(&empty[stage]);
-    if (++stage == kStages) stage = 0, phase ^= 1;
+  for (int p = 0; p < NP; ++p) keep(acc[p]);
+  keep(ds16);
+  if (it_end > 0) release(it_end - 1);
+  for (int it = it_end; it < ntiles; ++it) {  // tiles wholly masked for these rows
+    mbar_wait(&full[it % kBwdStages], (it / kBwdStages) & 1);
+    release(it);
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -1058,12 +1143,14 @@ attn_bwd_dq_tc(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
   }
 }
 
-// Backward, dK and dV. grid (ceil(Sk / 64), H, B); 160 threads: warpgroup 0
-// consumes (this CTA's 64 keys, K and V resident), warp 4 produces. The
-// query tiles at or below the diagonal stream through the ring: q, dO and
-// the rows' m, 1/l, D (the dQ kernel's `rows`), all by TMA.
+// Backward, dK and dV. grid (H, B, ceil(Sk / 128)), the longest causal key
+// ranges first; kBwdThreads: warpgroups 0 and 1 take 64 keys each (K and V
+// resident).
+// The query tiles at or below the CTA's diagonal stream through a ring of
+// kBwdStages, each tile feeding both warpgroups: q, dO and the rows' m
+// log2(e), 1/l, D (the dQ kernel's `rows`), all by TMA.
 template <int NP>
-__global__ void __launch_bounds__(160, 1)
+__global__ void __launch_bounds__(kBwdThreads, 1)
 attn_bwd_dkv_tc(const __grid_constant__ CUtensorMap q_map,
                 const __grid_constant__ CUtensorMap k_map,
                 const __grid_constant__ CUtensorMap v_map,
@@ -1071,124 +1158,140 @@ attn_bwd_dkv_tc(const __grid_constant__ CUtensorMap q_map,
                 const __grid_constant__ CUtensorMap rows_map, bf16* __restrict__ dk,
                 bf16* __restrict__ dv, int S, int Sk, int H, int hd, int causal, float scale) {
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t kv_full, full[kStages], empty[kStages];
-  uint8_t* Ks = align1024(smem_raw);     // [panel]
-  uint8_t* Vs = Ks + NP * kPanel;        // [panel]
-  uint8_t* ring = Vs + NP * kPanel;      // [stage][q panels, dO panels, m 1/l D]
+  __shared__ __align__(8) uint64_t kv_full, full[kBwdStages];
+  __shared__ int freed[kBwdStages];
+  uint8_t* Ks = align1024(smem_raw);       // [warpgroup][panel]
+  uint8_t* Vs = Ks + 2 * NP * kPanel;      // [warpgroup][panel]
+  uint8_t* ring = Vs + 2 * NP * kPanel;    // [stage][q panels, dO panels, m log2(e) 1/l D]
   constexpr int kStage = 2 * NP * kPanel + 1024;
 
-  const int b = blockIdx.z, h = blockIdx.y, k0 = 64 * blockIdx.x;
+  const int h = blockIdx.x, b = blockIdx.y, k0 = 128 * blockIdx.z;
   const int qstart = causal ? k0 : 0;
   const int ntiles = (S - qstart + 63) / 64;
+  const int s64 = (S + 63) / 64 * 64, plane = (b * H + h) * 3 * s64;
+  auto load = [&](int it) {  // query tile it into its stage
+    const int s = it % kBwdStages, r0 = qstart + 64 * it;
+    uint8_t* st = ring + s * kStage;
+    mbar_expect_tx(&full[s], 2 * NP * kPanel + 3 * 256);
+    for (int p = 0; p < NP; ++p) {
+      tma_rows(st + p * kPanel, &q_map, &full[s], 64 * p, h, r0, b);
+      tma_rows(st + (NP + p) * kPanel, &do_map, &full[s], 64 * p, h, r0, b);
+    }
+    for (int c = 0; c < 3; ++c)
+      tma_stats(st + 2 * NP * kPanel + 256 * c, &rows_map, &full[s], plane + c * s64 + r0);
+  };
   if (threadIdx.x == 0) {
     mbar_init(&kv_full, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kBwdStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 128);
+      freed[s] = 0;
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-
-  if (threadIdx.x >= 128) {  // the producer
-    if (threadIdx.x != 128) return;
-    mbar_expect_tx(&kv_full, 2 * NP * kPanel);
-    for (int p = 0; p < NP; ++p) {
-      tma_rows(Ks + p * kPanel, &k_map, &kv_full, 64 * p, h, k0, b);
-      tma_rows(Vs + p * kPanel, &v_map, &kv_full, 64 * p, h, k0, b);
-    }
-    const int s64 = (S + 63) / 64 * 64, plane = (b * H + h) * 3 * s64;
-    int stage = 0;
-    uint32_t phase = 0;
-    for (int it = 0; it < ntiles; ++it) {
-      const int r0 = qstart + 64 * it;
-      mbar_wait(&empty[stage], phase ^ 1);
-      mbar_expect_tx(&full[stage], 2 * NP * kPanel + 3 * 256);
-      uint8_t* st = ring + stage * kStage;
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(&kv_full, 4 * NP * kPanel);
+    for (int g = 0; g < 2; ++g)
       for (int p = 0; p < NP; ++p) {
-        tma_rows(st + p * kPanel, &q_map, &full[stage], 64 * p, h, r0, b);
-        tma_rows(st + (NP + p) * kPanel, &do_map, &full[stage], 64 * p, h, r0, b);
+        tma_rows(Ks + (g * NP + p) * kPanel, &k_map, &kv_full, 64 * p, h, k0 + 64 * g, b);
+        tma_rows(Vs + (g * NP + p) * kPanel, &v_map, &kv_full, 64 * p, h, k0 + 64 * g, b);
       }
-      for (int c = 0; c < 3; ++c)
-        tma_stats(st + 2 * NP * kPanel + 256 * c, &rows_map, &full[stage], plane + c * s64 + r0);
-      if (++stage == kStages) stage = 0, phase ^= 1;
-    }
-    return;
+    for (int it = 0; it < min(ntiles, kBwdStages); ++it) load(it);
   }
 
-  const int lane = threadIdx.x % 32;
-  const int r_lo = 16 * (threadIdx.x / 32) + lane / 4;  // keys k0 + r_lo, k0 + r_lo + 8
-  const int ncols = min(64, Sk - k0);
-  float acc_k[NP][32], acc_v[NP][32];
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = threadIdx.x % 32;
+  const int r_lo = 16 * (t / 32) + lane / 4;  // keys kw0 + r_lo, kw0 + r_lo + 8
+  const int kw0 = k0 + 64 * wg;
+  // the query tiles this warpgroup's keys see: causal, from its diagonal tile
+  const int it_begin = kw0 >= Sk ? ntiles : causal ? wg : 0;
+  auto release = [&](int it) {  // this warpgroup is done with tile it
+    free_stage(&freed[it % kBwdStages], wg, t, [&] {
+      if (it + kBwdStages < ntiles) load(it + kBwdStages);
+    });
+  };
+  const float scale2 = scale * kLog2e;
+  const uint8_t* Kw = Ks + wg * NP * kPanel;
+  const uint8_t* Vw = Vs + wg * NP * kPanel;
+  float acc_k[NP][32], acc_v[NP][32], s[32], dp[32];  // S^T, dP^T: [key][query row]
 #pragma unroll
   for (int p = 0; p < NP; ++p)
 #pragma unroll
     for (int e = 0; e < 32; ++e) acc_k[p][e] = acc_v[p][e] = 0.f;
+  uint32_t pk[16], ds16[16];
   mbar_wait(&kv_full, 0);
-  int stage = 0;
-  uint32_t phase = 0;
-  for (int it = 0; it < ntiles; ++it) {
-    const int r0 = qstart + 64 * it, nrows = min(64, S - r0);
-    const uint8_t* st = ring + stage * kStage;
-    const float* ms = reinterpret_cast<const float*>(st + 2 * NP * kPanel);
-    const float* inv_l = ms + 64;
-    const float* Ds = ms + 128;
-    mbar_wait(&full[stage], phase);
-    float s[32], dp[32];  // S^T and dP^T: [key][query row]
+  for (int it = 0; it < it_begin; ++it) {  // tiles wholly masked for these keys
+    mbar_wait(&full[it % kBwdStages], (it / kBwdStages) & 1);
+    release(it);
+  }
+  for (int it = it_begin; it < ntiles; ++it) {
+    const int r0 = qstart + 64 * it;
+    const uint8_t* st = ring + (it % kBwdStages) * kStage;
+    const float* m2 = reinterpret_cast<const float*>(st + 2 * NP * kPanel);  // m log2(e)
+    const float* inv_l = m2 + 64;
+    const float* Ds = m2 + 128;
+    mbar_wait(&full[it % kBwdStages], (it / kBwdStages) & 1);
     wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4 * NP; ++kk)
-      mma_ss(s, desc(Ks + (kk / 4) * kPanel + (kk % 4) * 32),
-             desc(st + (kk / 4) * kPanel + (kk % 4) * 32), kk > 0);
-#pragma unroll
-    for (int kk = 0; kk < 4 * NP; ++kk)
-      mma_ss(dp, desc(Vs + (kk / 4) * kPanel + (kk % 4) * 32),
-             desc(st + (NP + kk / 4) * kPanel + (kk % 4) * 32), kk > 0);
+    mma_hd<NP>(s, Kw, st);
     wg_commit();
-    wg_wait();
+    mma_hd<NP>(dp, Vw, st + NP * kPanel);
+    wg_commit();
+    wg_wait<1>();  // S^T, and the previous tile's dV and dK products: its stage is free
     keep(s);
-    keep(dp);
-    uint32_t pk[16], dk16[16];  // P^T and dS^T in bf16, the A operands of dV and dK
+    keep(pk);
+    keep(ds16);
+    if (it > it_begin) release(it - 1);
+    // P^T, float32, in place of S^T while dP^T is in flight; the causal mask
+    // only on the diagonal tile (rows and keys past S and Sk need none: their
+    // q and dO are zeros and 1/l is 0, and no key's row is stored)
+    const bool diag = causal && r0 == kw0;
 #pragma unroll
     for (int e = 0; e < 32; e += 2) {
-      float pt[2], ds[2];
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        const int kl = r_lo + 8 * acc_half(e), col = acc_col(e + c, lane);
-        float x = round_bf16(s[e + c]) * scale;
-        if (causal && k0 + kl > r0 + col) x = kNegInf;
-        const bool valid = kl < ncols && col < nrows;
-        pt[c] = valid ? expf(x - ms[col]) * inv_l[col] : 0.f;
-        ds[c] = valid ? pt[c] * (dp[e + c] - Ds[col]) : 0.f;
+        const int col = acc_col(e + c, lane);
+        float p = pow2(fmaf(round_bf16(s[e + c]), scale2, -m2[col])) * inv_l[col];
+        if (diag && r_lo + 8 * acc_half(e) > col) p = 0.f;
+        s[e + c] = p;
       }
-      pk[e / 2] = pack_bf16(pt[0], pt[1]);
-      dk16[e / 2] = pack_bf16(ds[0], ds[1]);
+      pk[e / 2] = pack_bf16(s[e], s[e + 1]);  // P^T in bf16, the A operand of dV
     }
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int p = 0; p < NP; ++p) {
+      for (int p = 0; p < NP; ++p)
         mma_rs(acc_v[p], pk + 4 * kk, desc(st + (NP + p) * kPanel + kk * 2048), 1);
-        mma_rs(acc_k[p], dk16 + 4 * kk, desc(st + p * kPanel + kk * 2048), 1);
-      }
     wg_commit();
-    wg_wait();
+    wg_wait<1>();  // dP^T (dV's product stays in flight)
+    keep(dp);
 #pragma unroll
-    for (int p = 0; p < NP; ++p) {
-      keep(acc_k[p]);
-      keep(acc_v[p]);
+    for (int e = 0; e < 32; e += 2) {  // dS^T in bf16, the A operand of dK
+      const int col = acc_col(e, lane);
+      ds16[e / 2] = pack_bf16(s[e] * (dp[e] - Ds[col]), s[e + 1] * (dp[e + 1] - Ds[col + 1]));
     }
-    keep(pk);
-    keep(dk16);
-    mbar_arrive(&empty[stage]);
-    if (++stage == kStages) stage = 0, phase ^= 1;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        mma_rs(acc_k[p], ds16 + 4 * kk, desc(st + p * kPanel + kk * 2048), 1);
+    wg_commit();
   }
+  wg_wait<0>();
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    keep(acc_k[p]);
+    keep(acc_v[p]);
+  }
+  keep(pk);
+  keep(ds16);
+  if (ntiles > it_begin) release(ntiles - 1);
+  const int ncols = min(64, Sk - kw0);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int kl = r_lo + 8 * i;
     if (kl >= ncols) continue;
-    const int64_t off = (((int64_t)b * Sk + k0 + kl) * H + h) * hd;
+    const int64_t off = (((int64_t)b * Sk + kw0 + kl) * H + h) * hd;
 #pragma unroll
     for (int p = 0; p < NP; ++p)
 #pragma unroll
@@ -1280,6 +1383,9 @@ int once_per_device(std::atomic<uint64_t>& ready, int dev, F setup) {
 }
 
 template <int NP>
+constexpr int fwd_tc_smem() { return 1024 + (2 + 2 * kStages) * NP * kPanel; }
+
+template <int NP>
 int launch_fwd_tc(const void* q, const void* k, const void* v, void* out, void* m, void* l, int B,
                   int S, int Sk, int H, int hd, int ck, int causal, float scale, int dev,
                   cudaStream_t st) {
@@ -1287,7 +1393,7 @@ int launch_fwd_tc(const void* q, const void* k, const void* v, void* out, void* 
   if (int err = rows_map(&qm, q, B, S, H, hd)) return err;
   if (int err = rows_map(&km, k, B, Sk, H, hd)) return err;
   if (int err = rows_map(&vm, v, B, Sk, H, hd)) return err;
-  const int bytes = 1024 + (2 + 2 * kStages) * NP * kPanel;
+  const int bytes = fwd_tc_smem<NP>();
   static std::atomic<uint64_t> ready{0};
   if (int err = once_per_device(ready, dev, [&] {
         if (int err = check_ws_regs(attn_fwd_tc<NP>)) return err;
@@ -1311,24 +1417,39 @@ int launch_bwd_tc(const void* q, const void* k, const void* v, const void* out, 
   if (int err = rows_map(&vm, v, B, Sk, H, hd)) return err;
   if (int err = rows_map(&dom, dout, B, S, H, hd)) return err;
   if (int err = stats_map(&rm, dbuf, (int64_t)B * H * 3 * ((S + 63) / 64 * 64))) return err;
-  const int dq_bytes = 1024 + (4 + 2 * kStages) * NP * kPanel;
-  const int dkv_bytes = 1024 + 2 * NP * kPanel + kStages * (2 * NP * kPanel + 1024);
   static std::atomic<uint64_t> ready{0};
   if (int err = once_per_device(ready, dev, [&] {
-        if (int err = check_ws_regs(attn_bwd_dq_tc<NP>)) return err;
-        if (int err = set_smem(attn_bwd_dq_tc<NP>, dq_bytes)) return err;
-        return set_smem(attn_bwd_dkv_tc<NP>, dkv_bytes);
+        if (int err = set_smem(attn_bwd_dq_tc<NP>, dq_tc_smem<NP>())) return err;
+        return set_smem(attn_bwd_dkv_tc<NP>, dkv_tc_smem<NP>());
       }))
     return err;
-  attn_bwd_dq_tc<NP><<<dim3((S + 127) / 128, H, B), 384, dq_bytes, st>>>(
+  attn_bwd_dq_tc<NP><<<dim3(H, B, (S + 127) / 128), kBwdThreads, dq_tc_smem<NP>(), st>>>(
       qm, km, vm, dom, static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
       static_cast<const float*>(m), static_cast<const float*>(l), static_cast<bf16*>(dq),
       static_cast<float*>(dbuf), S, Sk, H, hd, causal, scale);
   if (int err = (int)cudaGetLastError()) return err;
-  attn_bwd_dkv_tc<NP><<<dim3((Sk + 63) / 64, H, B), 160, dkv_bytes, st>>>(
+  attn_bwd_dkv_tc<NP><<<dim3(H, B, (Sk + 127) / 128), kBwdThreads, dkv_tc_smem<NP>(), st>>>(
       qm, km, vm, dom, rm, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, Sk, H, hd,
       causal, scale);
   return (int)cudaGetLastError();
+}
+
+// One bf16 kernel's resources: out[0] registers a thread (at launch, before
+// setmaxnreg), out[1] CTAs resident on an SM, out[2] shared memory bytes a
+// CTA (dynamic and static), out[3] threads a CTA.
+template <typename K>
+int kernel_info(K kernel, int threads, int smem, int* out) {
+  cudaFuncAttributes attr;
+  if (int err = (int)cudaFuncGetAttributes(&attr, kernel)) return err;
+  if (int err = set_smem(kernel, smem)) return err;
+  int ctas = 0;
+  if (int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, threads, smem))
+    return err;
+  out[0] = attr.numRegs;
+  out[1] = ctas;
+  out[2] = smem + (int)attr.sharedSizeBytes;
+  out[3] = threads;
+  return 0;
 }
 
 // Makes the device that holds p current in the calling thread for the
@@ -1392,9 +1513,24 @@ extern "C" int chunked_attention_fwd(int dtype, const void* q, const void* k, co
   }
 }
 
+// The resources of bf16 kernel `which` (kernels/attention.py TC_KERNELS:
+// 0, 1 attn_fwd_tc<1, 2>; 2, 3 attn_bwd_dq_tc<1, 2>; 4, 5 attn_bwd_dkv_tc<1,
+// 2>) on the current device, into out[4] as kernel_info above.
+extern "C" int chunked_attention_kernel_info(int which, int* out) {
+  switch (which) {
+    case 0: return kernel_info(attn_fwd_tc<1>, 384, fwd_tc_smem<1>(), out);
+    case 1: return kernel_info(attn_fwd_tc<2>, 384, fwd_tc_smem<2>(), out);
+    case 2: return kernel_info(attn_bwd_dq_tc<1>, kBwdThreads, dq_tc_smem<1>(), out);
+    case 3: return kernel_info(attn_bwd_dq_tc<2>, kBwdThreads, dq_tc_smem<2>(), out);
+    case 4: return kernel_info(attn_bwd_dkv_tc<1>, kBwdThreads, dkv_tc_smem<1>(), out);
+    case 5: return kernel_info(attn_bwd_dkv_tc<2>, kBwdThreads, dkv_tc_smem<2>(), out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 // dq like q, dk and dv like k; dbuf (B H 3 S64) float32 scratch, S64 = S
-// rounded up to 64: float32 keeps D (B, H, S) in it, bfloat16 the rows' m,
-// 1/l and D (the dQ kernel's `rows`).
+// rounded up to 64: float32 keeps D (B, H, S) in it, bfloat16 the rows'
+// m log2(e), 1/l and D (the dQ kernel's `rows`).
 extern "C" int chunked_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                                      const void* out, const void* dout, const void* m,
                                      const void* l, void* dq, void* dk, void* dv, void* dbuf,

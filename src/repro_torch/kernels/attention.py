@@ -26,15 +26,28 @@ The kernels take one of two routes, by dtype (each dtype has one; a
 failure raises):
 
   bfloat16 : the tensor cores. Every product is a ``wgmma`` and every
-             operand tile arrives by TMA: the forward and dQ run one CTA
-             per (batch row, head, 128 query rows), two consumer
-             warpgroups of 64 rows and a producer warp that streams 64-key
-             K/V tiles through a two-stage ring; dK/dV one CTA per 64 keys
-             with K/V resident and the query tiles streamed. Bound by the
-             flops at 989 TFLOP/s. P and dS are rounded to bf16 where they
-             are operands of a product, as the plain loop's autograd
-             rounds them. TMA needs 16-byte aligned tensors and head_dim a
-             multiple of 8; the wrapper checks both and raises.
+             operand tile arrives by TMA. The forward runs one CTA per
+             (batch row, head, 128 query rows): two consumer warpgroups of
+             64 rows and a producer warp that streams 64-key K/V tiles
+             through a ring. The backward's two kernels have no producer
+             warp (256 threads, so ptxas may give a thread 255 registers):
+             the warpgroup that frees a ring stage second refills it. dQ
+             runs one CTA per 128 query rows (two CTAs an SM at head_dim
+             64), dK/dV one per 128 keys, 64 keys a warpgroup with K/V
+             resident and each streamed query tile (q, dO, the rows' m,
+             1/l and D) feeding both. Each backward warpgroup issues a
+             tile's two score products (S and dP, or S^T and dP^T) as
+             separate groups and waits only for the one it needs, so P is
+             computed while dP is in flight, and in dK/dV dS^T while dV's
+             product is; the causal mask is applied only on the diagonal
+             tile (and dQ's ragged last one). Bound by the flops at 989
+             TFLOP/s; the two backward kernels compute 7 hd-products a
+             kept pair against the bound's 5 (S and dP in both), so their
+             best case is about 71 % of the backward's bound. P and dS are
+             rounded to bf16 where they are operands of a product, as the
+             plain loop's autograd rounds them. TMA needs 16-byte aligned
+             tensors and head_dim a multiple of 8; the wrapper checks both
+             and raises.
   float32  : the CUDA cores (FMA over float32 tiles in shared memory): the
              tensor cores' float32 path is TF32, which would break the
              float32 tolerance the checks hold A1 to, and float32 A1 runs
@@ -42,7 +55,8 @@ failure raises):
 
 ``attention_forward.routes`` and ``attention_backward.routes`` count the
 launches of each route (``"wgmma"``, ``"cuda_cores"``) beside
-``.launches``.
+``.launches``. ``kernel_info()`` reads each bf16 kernel's registers and
+resident CTAs per SM on the current card.
 
 ``kernels/ops.py::chunked_attention`` dispatches: the kernel for CUDA
 tensors (or a raise), the plain version for CPU tensors. The plain version
@@ -174,7 +188,27 @@ def _lib() -> ctypes.CDLL:
     lib.chunked_attention_bwd.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                           _I, _I, _I, _I, _I, _I, _F, _P]
     lib.chunked_attention_bwd.restype = _I
+    lib.chunked_attention_kernel_info.argtypes = [_I, ctypes.POINTER(_I)]
+    lib.chunked_attention_kernel_info.restype = _I
     return lib
+
+
+# the bf16 kernels, in csrc/chunked_attention.cu's chunked_attention_kernel_info order
+TC_KERNELS = ("attn_fwd_tc<1>", "attn_fwd_tc<2>", "attn_bwd_dq_tc<1>", "attn_bwd_dq_tc<2>",
+              "attn_bwd_dkv_tc<1>", "attn_bwd_dkv_tc<2>")
+
+
+def kernel_info() -> dict:
+    """{kernel: {"registers", "ctas_per_sm", "smem_bytes", "threads"}} of
+    each bf16 kernel on the current CUDA device (registers a thread at
+    launch; the forward's warpgroups then move registers with
+    ``setmaxnreg``)."""
+    info = {}
+    for which, name in enumerate(TC_KERNELS):
+        out = (_I * 4)()
+        raise_on(_lib().chunked_attention_kernel_info(which, out), "chunked_attention_kernel_info")
+        info[name] = dict(zip(("registers", "ctas_per_sm", "smem_bytes", "threads"), out))
+    return info
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> None:

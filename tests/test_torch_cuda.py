@@ -1106,18 +1106,24 @@ def test_chunked_attention_kernel_equals_plain(dev, case, dtype):
 # 128-row CTA tile (S = 200, 1500), chunks narrower than the 64-key tile (ck =
 # 8 at S = 3000; ck = 1, odd, from the halving at a serving-like 333; ck = 77,
 # odd and one tile and a ragged one wide), head_dim 80, 112 and 128 (the
-# second instantiation, zeros past hd from TMA) over two chunks of 2048, and
-# whisper's 448 x 1500 cross-attention at its batch and heads
+# second instantiation, zeros past hd from TMA) over two chunks of 2048,
+# whisper's 448 x 1500 cross-attention at its batch and heads, and keys and
+# query rows that end inside the backward's 128-key CTA (S = 4,000 and 192
+# causal: the CTA's second warpgroup without a key; Sk = 1,000 not causal:
+# 40 keys in it; S = 448: a dQ warpgroup without a row)
 A1_BF16_CASES = [
     (2, 200, 200, 4, 4, 64, 2048, True), (1, 1500, 1500, 4, 4, 64, 2048, True),
     (1, 3000, 3000, 2, 2, 64, 2048, True), (2, 333, 333, 2, 2, 64, 32, True),
     (2, 77, 77, 2, 2, 64, 2048, True)] + [
     (1, 4096, 4096, 2, 2, hd, 2048, True) for hd in (80, 112, 128)] + [
-    (8, 448, 1500, 16, 16, 64, 2048, False)]
-# (case, dtype) for the bit-for-bit tests: one causal and one not, each dtype
+    (8, 448, 1500, 16, 16, 64, 2048, False), (1, 4000, 4000, 2, 2, 64, 2048, True),
+    (2, 192, 192, 4, 4, 64, 2048, True), (2, 448, 1000, 4, 4, 64, 2048, False)]
+# (case, dtype) for the bit-for-bit tests: one causal and one not, each dtype,
+# and a causal bf16 case whose keys span several of the backward's 128-key CTAs
 A1_BITS_CASES = [(c, d) for c in ((4, 200, 200, 4, 4, 64, 32, True),
                                   (4, 448, 1500, 4, 4, 64, 2048, False))
-                 for d in (torch.float32, torch.bfloat16)]
+                 for d in (torch.float32, torch.bfloat16)] + [
+    ((2, 1000, 1000, 4, 4, 64, 2048, True), torch.bfloat16)]
 
 
 def _a1_case_id(c):
@@ -1166,6 +1172,30 @@ def test_chunked_attention_row_is_batch_invariant(dev, case, dtype):
         torch.cuda.synchronize()
         for name, a, b in zip(("out", "dq", "dk", "dv"), full, alone):
             assert torch.equal(a[r:r + 1], b), (r, name)
+
+
+def test_chunked_attention_kernel_names_keep_the_benchmark_contract(dev):
+    """Under ``torch.profiler``, one bf16 forward and one backward call (1 x
+    512, 4 heads of 64, causal) launch only kernels whose names hold
+    ``attn_fwd`` or ``attn_bwd``, one forward kernel and exactly one whose
+    name holds ``attn_bwd_dq``: ``fpisa_bench/metrics/a1_roofline.py`` counts
+    the backward calls by that name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import attention
+
+    q, k, v, dout = _a1_inputs((1, 512, 512, 4, 4, 64), torch.bfloat16, dev)
+    out, m, l = attention.attention_forward(q, k, v, True, 512)
+    attention.attention_backward(q, k, v, out, dout, m, l, True)  # built and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out, m, l = attention.attention_forward(q, k, v, True, 512)
+        attention.attention_backward(q, k, v, out, dout, m, l, True)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert names and all("attn_fwd" in n or "attn_bwd" in n for n in names), names
+    assert sum("attn_fwd" in n for n in names) == 1, names
+    assert sum("attn_bwd_dq" in n for n in names) == 1, names
 
 
 def test_chunked_attention_kernel_refuses_what_it_does_not_take(dev):
