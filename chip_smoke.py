@@ -3042,11 +3042,17 @@ def a1_parity_cases():
     ``arctic_serve``'s prefills at arctic-480b's 56 heads of 128 (check
     (a)'s 16 prompts of ``SERVE_PROMPTS[0]``, and a group of two of the
     longest prompts). The last two reach the kernels' head_dim > 64 build
-    (NP = 2)."""
+    (NP = 2). Then the published Zamba2's shared blocks (``zamba2-7b-
+    published``: 32 heads of 224, the "wide" kernels, scores scaled by
+    (224 / 2)^-0.5) at the main path's 8 x 512 and (b)'s 4 x 4,096 in bf16
+    and at 1 x 512 in float32. Each case ends with its scale (None: the
+    kernels' default 1/sqrt(hd))."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.attention import chunk_sizes
 
-    cases = [(name, A1_BATCH, s, s, 16, 64, A1_CHUNK, A1_CHUNK, causal)
+    from repro_torch.models import zamba2 as zamba2_model
+
+    cases = [(name, A1_BATCH, s, s, 16, 64, A1_CHUNK, A1_CHUNK, causal, None)
              for name in ("float32", "bfloat16") for s in A1_SEQS for causal in (True, False)]
     chunk = get_config("qwen1.5-0.5b").attn_q_chunk
     frames = get_config("whisper-medium").num_frames
@@ -3062,7 +3068,13 @@ def a1_parity_cases():
             (GLOBAL_BATCH, SEQ_LEN, SEQ_LEN, zamba_heads, True),
             (SERVE_SLOTS, SERVE_PROMPTS[0], SERVE_PROMPTS[0], arctic_heads, True),
             (2, SERVE_PROMPTS[-1], SERVE_PROMPTS[-1], arctic_heads, True)):
-        cases.append(("bfloat16", b, s, sk, *heads, *chunk_sizes(s, sk, chunk), causal))
+        cases.append(("bfloat16", b, s, sk, *heads, *chunk_sizes(s, sk, chunk), causal, None))
+    published = get_config("zamba2-7b-published")
+    wide = (published.num_heads, published.resolved_head_dim)
+    for name, b, s in (("bfloat16", GLOBAL_BATCH, SEQ_LEN),
+                       ("bfloat16", LONG_TRAIN_BATCH, LONG_TRAIN_SEQ), ("float32", 1, SEQ_LEN)):
+        cases.append((name, b, s, s, *wide, *chunk_sizes(s, s, chunk), True,
+                      zamba2_model.scale(published)))
     return cases
 
 
@@ -3080,19 +3092,19 @@ def longctx_parity(torch, dev, par):
         return float((a.float() - b.float()).abs().max()) / float(b.float().abs().max())
 
     worst, truth = {}, {}
-    for name, b, s, sk, heads, hd, cq, ck, causal in a1_parity_cases():
+    for name, b, s, sk, heads, hd, cq, ck, causal, scale in a1_parity_cases():
         q, k, v, dout = a1_inputs(torch, dev, b, s, sk, heads, hd, getattr(torch, name))
 
         def plain(*t):
             return attention.chunked_attention_ref(*t, causal=causal, cq=cq, ck=ck,
-                                                   remat_step=False)
+                                                   remat_step=False, scale=scale)
 
         got = a1_grads(torch, lambda *t: ops.chunked_attention(
-            *t, causal=causal, cq=cq, ck=ck), q, k, v, dout)
+            *t, causal=causal, cq=cq, ck=ck, scale=scale), q, k, v, dout)
         want = a1_grads(torch, plain, q, k, v, dout)
         torch.cuda.synchronize()
         case = (f"{name}_B{b}_S{s}_Sk{sk}_H{heads}x{hd}_cq{cq}_ck{ck}_"
-                f"{'causal' if causal else 'full'}")
+                f"{'causal' if causal else 'full'}" + ("" if scale is None else f"_scale{scale:.4f}"))
         worst[case] = []
         for i, (a, w) in enumerate(zip(got, want)):
             err = float((a.float() - w.float()).abs().max())

@@ -3,7 +3,9 @@
 
 Every architecture of the reference is listed, in its order, each module a
 copy of the reference's ``CONFIG`` (the published configuration) and
-``SMOKE`` (a reduced config of the same family). ``NOT_PORTED`` names the
+``SMOKE`` (a reduced config of the same family). ``PORT_MODULES`` lists the
+port's own configs (``zamba2-7b-published``), found by name but kept out
+of ``ARCH_NAMES`` and ``list_configs()``. ``NOT_PORTED`` names the
 reference's architectures that the port lacks (none now); asking for one
 raises :class:`repro_torch.NotPortedError`.
 """
@@ -37,13 +39,20 @@ NOT_PORTED: tuple = ()
 
 ARCH_NAMES = list(ARCH_MODULES)
 
+# the port's own configs, beside the reference's list (not in ARCH_NAMES nor
+# list_configs(), which are the reference's): get_config and the CLIs find them
+PORT_MODULES = {
+    "zamba2-7b-published": "zamba2_7b_published",
+}
+
 
 def _module(name: str):
     if name in NOT_PORTED:
         raise NotPortedError(f"architecture {name!r}")
-    if name not in ARCH_MODULES:
-        raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
-    return importlib.import_module(f"repro_torch.configs.{ARCH_MODULES[name]}")
+    module = ARCH_MODULES.get(name) or PORT_MODULES.get(name)
+    if module is None:
+        raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES + list(PORT_MODULES)}")
+    return importlib.import_module(f"repro_torch.configs.{module}")
 
 
 def get_config(name: str) -> ModelConfig:

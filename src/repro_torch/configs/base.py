@@ -9,7 +9,7 @@ from typing import Optional
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | ssm | hybrid | vlm | audio
+    family: str  # dense | moe | ssm | hybrid | vlm | audio (the port adds zamba2)
     num_layers: int
     d_model: int
     num_heads: int
@@ -18,7 +18,7 @@ class ModelConfig:
     vocab_size: int
     head_dim: Optional[int] = None
     qkv_bias: bool = False
-    mlp: str = "swiglu"  # swiglu | gelu
+    mlp: str = "swiglu"  # swiglu | gelu (tanh) | gelu_erf (exact; the port's zamba2)
 
     # --- MoE ---
     num_experts: int = 0
@@ -63,6 +63,16 @@ class ModelConfig:
     seq_parallel: bool = False  # Megatron-style SP: shard seq over 'model' between TP blocks
     flash_remat: bool = True  # remat the attention pair-step (recompute scores in bwd);
     # keep OFF for hdim-TP archs whose scores carry an all-reduce (it would re-run it)
+
+    # --- zamba2 (the published Zamba2 hybrid; the port's own fields, after the
+    # reference's, whose defaults leave every reference config as it is) ---
+    hybrid_layer_ids: tuple = ()  # layers that apply a shared block before their mamba block
+    num_mem_blocks: int = 0  # shared blocks, applied in turn (application j: block j mod n)
+    adapter_rank: int = 0  # rank of each application's gate/up adapter
+
+    def __post_init__(self):
+        # a list from a JSON file becomes a tuple: the config stays hashable
+        object.__setattr__(self, "hybrid_layer_ids", tuple(self.hybrid_layer_ids))
 
     @property
     def resolved_head_dim(self) -> int:

@@ -98,6 +98,12 @@
 //   P and dS where each is an operand of a product, as the plain loop's
 //   autograd rounds them at its bf16 products; dP, D and the softmax's
 //   arithmetic stay float32; dQ, dK, dV are rounded once at the end.
+//   Head dims past 128 (up to 256; Zamba2's 224) take the wide kernels
+//   (attn_*_tc_wide, below): four panels, and both warpgroups of a CTA on
+//   the same 64 rows or keys, each owning half of the output's head dims.
+//
+// The scale of the scores is an argument (the models pass 1/sqrt(hd), the
+// reference's; Zamba2's shared blocks (hd/2)^-0.5).
 //
 // float32, the CUDA-core kernels (attn_fwd, attn_bwd_dq, attn_bwd_dkv):
 // the tensor cores' float32 path is TF32, whose 10-bit mantissa would
@@ -110,7 +116,9 @@
 // shared memory ([k][m] and [k][n]), so one float4 load of each feeds 16
 // FMAs; transposed tiles have a row pitch of 68 floats (16-byte aligned,
 // stores 4-way instead of 32-way bank conflicted). Row reductions (max,
-// sum) run over the 16 lanes of a half-warp with xor shuffles.
+// sum) run over the 16 lanes of a half-warp with xor shuffles. Past 128
+// head dims (NG = 4): the forward is attn_fwd<4>, the backward
+// attn_bwd_*_wide, which load the score products' operands 64 dims at a time.
 //
 // What bounds it: operations. Forward 4 S Sk hd flops per (b, h) (halved
 // when causal) against 2 (S + 2 Sk) hd elements moved; at qwen's hd = 64
@@ -525,6 +533,217 @@ attn_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k, const flo
   }
 }
 
+// Head dims past 128 (float32): the forward is attn_fwd<4> (head dims padded
+// to 256, 217 KB of shared memory a CTA). The backward kernels below hold
+// only 64-dim slices of the score products' operands: S = Q K^T and
+// dP = dO V^T (S^T, dP^T) add up over the slices loaded in turn, and only
+// the product over keys or rows (dS K; P^T dO, dS^T Q) reads a whole
+// 64 x 256 tile. Otherwise each is attn_bwd_dq / attn_bwd_dkv.
+constexpr int kWideHd = 256;
+
+template <int HDP>
+constexpr int dq_wide_smem_floats() { return 4 * kTile * kPitch + kTile * HDP + kTile * kPitch + kTile; }
+template <int HDP>
+constexpr int dkv_wide_smem_floats() {
+  return 4 * kTile * kPitch + 2 * kTile * HDP + kTile * kPitch + 3 * kTile;
+}
+
+// acc (4 x 4 of a 64 x 64 tile) += A B^T over the head dims, one 64-dim slice
+// of each operand at a time: a, b the tiles' first rows (row stride
+// `stride`), na, nb their valid rows.
+__device__ __forceinline__ void mma_sliced(float (&acc)[4][4], float* At, float* Bt,
+                                           const float* __restrict__ a,
+                                           const float* __restrict__ b, int64_t stride, int na,
+                                           int nb, int hd, int m0, int n0) {
+  for (int d0 = 0; d0 < hd; d0 += 64) {
+    const int w = min(64, hd - d0);
+    __syncthreads();
+    load_kmajor<64>(At, a + d0, stride, na, w);
+    load_kmajor<64>(Bt, b + d0, stride, nb, w);
+    __syncthreads();
+    mma_tile<1>(acc, At, kPitch, Bt, kPitch, w, m0, n0);
+  }
+}
+
+// Backward, dQ, hd > 128. grid (ceil(S / 64), H, B); writes D as attn_bwd_dq.
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dq_wide(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ out,
+                 const float* __restrict__ dout, const float* __restrict__ m_in,
+                 const float* __restrict__ l_in, float* __restrict__ dq,
+                 float* __restrict__ d_out, int S, int Sk, int H, int hd, int causal,
+                 float scale) {
+  constexpr int HDP = kWideHd, NG = HDP / 64;
+  extern __shared__ float4 smem4[];
+  float* Qt = reinterpret_cast<float*>(smem4);  // [64][kPitch], a slice
+  float* dOt = Qt + kTile * kPitch;               // [64][kPitch]
+  float* Kt = dOt + kTile * kPitch;               // [64][kPitch]
+  float* Vt = Kt + kTile * kPitch;                // [64][kPitch]
+  float* Ks = Vt + kTile * kPitch;                // [kTile][HDP]
+  float* dSt = Ks + kTile * HDP;                  // [kTile][kPitch], dS as [key][row]
+  float* Ds = dSt + kTile * kPitch;               // [kTile]
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTile;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int m0 = ty * 4, n0 = tx * 4;
+  const int nrows = min(kTile, S - q0);
+  const int64_t stride = (int64_t)H * hd;
+  const int64_t qoff = (((int64_t)b * S + q0) * H + h) * hd;
+  const float* kb = k + ((int64_t)b * Sk * H + h) * hd;
+  const float* vb = v + ((int64_t)b * Sk * H + h) * hd;
+  const int64_t stat0 = ((int64_t)b * H + h) * S + q0;
+
+  {  // D: four threads per row
+    const int r = threadIdx.x / 4, part = threadIdx.x % 4;
+    float acc = 0.f;
+    if (r < nrows)
+      for (int d = part; d < hd; d += 4)
+        acc += dout[qoff + r * stride + d] * out[qoff + r * stride + d];
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    if (part == 0) {
+      Ds[r] = acc;
+      if (r < nrows) d_out[stat0 + r] = acc;
+    }
+  }
+  __syncthreads();
+  float mrow[4], inv_l[4], drow[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const bool ok = m0 + i < nrows;
+    mrow[i] = ok ? m_in[stat0 + m0 + i] : 0.f;
+    inv_l[i] = ok ? 1.f / fmaxf(l_in[stat0 + m0 + i], 1e-30f) : 0.f;
+    drow[i] = Ds[m0 + i];
+  }
+  float acc[4][4 * NG] = {};
+  const int kend = causal ? min(Sk, q0 + nrows) : Sk;
+  for (int t0 = 0; t0 < kend; t0 += kTile) {
+    const int ncols = min(kTile, kend - t0);
+    float s[4][4] = {}, dp[4][4] = {};
+    mma_sliced(s, Qt, Kt, q + qoff, kb + (int64_t)t0 * stride, stride, nrows, ncols, hd, m0, n0);
+    mma_sliced(dp, dOt, Vt, dout + qoff, vb + (int64_t)t0 * stride, stride, nrows, ncols, hd,
+               m0, n0);
+    load_rows<HDP>(Ks, kb + (int64_t)t0 * stride, stride, ncols, hd);
+    finish_scores(s, scale, q0, t0, nrows, ncols, causal, m0, n0);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      float d4[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = expf(s[i][jj] - mrow[i]) * inv_l[i];
+        d4[i] = p * (dp[i][jj] - drow[i]);
+      }
+      *reinterpret_cast<float4*>(dSt + (n0 + jj) * kPitch + m0) =
+          make_float4(d4[0], d4[1], d4[2], d4[3]);
+    }
+    __syncthreads();
+    mma_tile<NG>(acc, dSt, kPitch, Ks, HDP, ncols, m0, n0);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (m0 + i >= nrows) continue;
+    float* row = dq + qoff + (m0 + i) * stride;
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int d = g * 64 + n0 + jj;
+        if (d < hd) row[d] = acc[i][g * 4 + jj] * scale;
+      }
+  }
+}
+
+// Backward, dK and dV, hd > 128. grid (ceil(Sk / 64), H, B).
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dkv_wide(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
+                  const float* __restrict__ m_in, const float* __restrict__ l_in,
+                  const float* __restrict__ d_in, float* __restrict__ dk,
+                  float* __restrict__ dv, int S, int Sk, int H, int hd, int causal,
+                  float scale) {
+  constexpr int HDP = kWideHd, NG = HDP / 64;
+  extern __shared__ float4 smem4[];
+  float* Kt = reinterpret_cast<float*>(smem4);  // [64][kPitch], a slice
+  float* Vt = Kt + kTile * kPitch;                // [64][kPitch]
+  float* Qt = Vt + kTile * kPitch;                // [64][kPitch]
+  float* dOt = Qt + kTile * kPitch;               // [64][kPitch]
+  float* Qs = dOt + kTile * kPitch;               // [kTile][HDP]
+  float* dOs = Qs + kTile * HDP;                  // [kTile][HDP]
+  float* Buf = dOs + kTile * HDP;                 // [kTile][kPitch], P then dS as [row][key]
+  float* ms = Buf + kTile * kPitch;               // [kTile] each
+  float* ils = ms + kTile;
+  float* Ds = ils + kTile;
+
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kTile;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int m0 = ty * 4, n0 = tx * 4;  // m: keys, n: query rows (scores), head dims (dK, dV)
+  const int ncols = min(kTile, Sk - k0);
+  const int64_t stride = (int64_t)H * hd;
+  const int64_t koff = (((int64_t)b * Sk + k0) * H + h) * hd;
+  const int64_t stat = ((int64_t)b * H + h) * S;
+
+  float dk_acc[4][4 * NG] = {}, dv_acc[4][4 * NG] = {};
+  const int qstart = causal ? (k0 / kTile) * kTile : 0;
+  for (int r0 = qstart; r0 < S; r0 += kTile) {
+    const int nrows = min(kTile, S - r0);
+    const int64_t qoff = (((int64_t)b * S + r0) * H + h) * hd;
+    float st[4][4] = {}, dpt[4][4] = {};  // [key][row]
+    mma_sliced(st, Kt, Qt, k + koff, q + qoff, stride, ncols, nrows, hd, m0, n0);
+    mma_sliced(dpt, Vt, dOt, v + koff, dout + qoff, stride, ncols, nrows, hd, m0, n0);
+    load_rows<HDP>(Qs, q + qoff, stride, nrows, hd);
+    load_rows<HDP>(dOs, dout + qoff, stride, nrows, hd);
+    if (threadIdx.x < kTile) {
+      const int r = threadIdx.x;
+      const bool ok = r < nrows;
+      ms[r] = ok ? m_in[stat + r0 + r] : 0.f;
+      ils[r] = ok ? 1.f / fmaxf(l_in[stat + r0 + r], 1e-30f) : 0.f;
+      Ds[r] = ok ? d_in[stat + r0 + r] : 0.f;
+    }
+    __syncthreads();
+    float pt[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int key = k0 + m0 + i, row = r0 + n0 + jj;
+        float x = st[i][jj] * scale;
+        if (causal && key > row) x = kNegInf;
+        const bool valid = m0 + i < ncols && n0 + jj < nrows;
+        const float p = valid ? expf(x - ms[n0 + jj]) * ils[n0 + jj] : 0.f;
+        pt[i][jj] = p;
+        st[i][jj] = p * (dpt[i][jj] - Ds[n0 + jj]);  // dS^T
+      }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+      *reinterpret_cast<float4*>(Buf + (n0 + jj) * kPitch + m0) =
+          make_float4(pt[0][jj], pt[1][jj], pt[2][jj], pt[3][jj]);
+    __syncthreads();
+    mma_tile<NG>(dv_acc, Buf, kPitch, dOs, HDP, nrows, m0, n0);
+    __syncthreads();
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+      *reinterpret_cast<float4*>(Buf + (n0 + jj) * kPitch + m0) =
+          make_float4(st[0][jj], st[1][jj], st[2][jj], st[3][jj]);
+    __syncthreads();
+    mma_tile<NG>(dk_acc, Buf, kPitch, Qs, HDP, nrows, m0, n0);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (m0 + i >= ncols) continue;
+    const int64_t off = koff + (m0 + i) * stride;
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int d = g * 64 + n0 + jj;
+        if (d < hd) {
+          dk[off + d] = dk_acc[i][g * 4 + jj] * scale;
+          dv[off + d] = dv_acc[i][g * 4 + jj];
+        }
+      }
+  }
+}
+
 template <typename K>
 int set_smem(K kernel, int bytes) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -563,6 +782,31 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out, con
       Sk, H, hd, causal, scale);
   if (int err = (int)cudaGetLastError()) return err;
   attn_bwd_dkv<NG><<<dim3((Sk + kTile - 1) / kTile, H, B), kThreads, dkv_bytes, st>>>(
+      qp, kp, vp, dop, mp, lp, dbp, static_cast<float*>(dk), static_cast<float*>(dv), S, Sk, H, hd,
+      causal, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_bwd_wide(const void* q, const void* k, const void* v, const void* out,
+                    const void* dout, const void* m, const void* l, void* dq, void* dk, void* dv,
+                    void* dbuf, int B, int S, int Sk, int H, int hd, int causal, float scale,
+                    cudaStream_t st) {
+  const int dq_bytes = dq_wide_smem_floats<kWideHd>() * 4;
+  const int dkv_bytes = dkv_wide_smem_floats<kWideHd>() * 4;
+  if (int err = set_smem(attn_bwd_dq_wide, dq_bytes)) return err;
+  if (int err = set_smem(attn_bwd_dkv_wide, dkv_bytes)) return err;
+  const float* qp = static_cast<const float*>(q);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  const float* dop = static_cast<const float*>(dout);
+  const float* mp = static_cast<const float*>(m);
+  const float* lp = static_cast<const float*>(l);
+  float* dbp = static_cast<float*>(dbuf);
+  attn_bwd_dq_wide<<<dim3((S + kTile - 1) / kTile, H, B), kThreads, dq_bytes, st>>>(
+      qp, kp, vp, static_cast<const float*>(out), dop, mp, lp, static_cast<float*>(dq), dbp, S,
+      Sk, H, hd, causal, scale);
+  if (int err = (int)cudaGetLastError()) return err;
+  attn_bwd_dkv_wide<<<dim3((Sk + kTile - 1) / kTile, H, B), kThreads, dkv_bytes, st>>>(
       qp, kp, vp, dop, mp, lp, dbp, static_cast<float*>(dk), static_cast<float*>(dv), S, Sk, H, hd,
       causal, scale);
   return (int)cudaGetLastError();
@@ -1307,6 +1551,529 @@ attn_bwd_dkv_tc(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 at head dims past 128 (Zamba2's 224): the "wide" kernels
+// ---------------------------------------------------------------------------
+//
+// Head dims are padded to 256 in shared memory (kWideNP = 4 panels; TMA
+// fills zeros past hd), and the score products stop at the last 16-dim step
+// that holds a head dim (14 of 16 at hd 224). A warpgroup cannot hold a
+// 64 x 224 float32 accumulator twice (the forward's o and the chunk's p.v,
+// or dK and dV: 224 registers a thread), so both warpgroups of a CTA take
+// the same 64 rows (forward, dQ) or keys (dK/dV), each computes the score
+// products whole, and each owns the output's head dims of two panels:
+// warpgroup w panels 2w and 2w + 1 (dims 0-127 and 128-223). The score
+// products are done twice a CTA; the flops of the output products are not.
+// 256 threads and no producer warp, so ptxas may give a thread 255
+// registers; the rings are refilled as the backward's (free_stage).
+constexpr int kWideNP = 4;
+constexpr int kWideFwdStages = 3;  // K and V of a 64-key tile: 64 KB a stage
+constexpr int kWideBwdStages = 2;
+
+constexpr int fwd_tc_wide_smem() { return 1024 + (1 + 2 * kWideFwdStages) * kWideNP * kPanel; }
+constexpr int dq_tc_wide_smem() { return 1024 + (2 + 2 * kWideBwdStages) * kWideNP * kPanel; }
+constexpr int dkv_tc_wide_smem() {
+  return 1024 + 2 * kWideNP * kPanel + kWideBwdStages * (2 * kWideNP * kPanel + 1024);
+}
+
+// S (or S^T) = A B^T over the first `ksteps` 16-dim steps of the head dims,
+// both operands' kWideNP panels K-major in shared memory.
+__device__ __forceinline__ void mma_hd_wide(float (&d)[32], const uint8_t* a, const uint8_t* b,
+                                            int ksteps) {
+#pragma unroll
+  for (int kk = 0; kk < 4 * kWideNP; ++kk)
+    if (kk < ksteps)
+      mma_ss(d, desc(a + (kk / 4) * kPanel + (kk % 4) * 32),
+             desc(b + (kk / 4) * kPanel + (kk % 4) * 32), kk > 0);
+}
+
+// Forward, hd > 128. grid (ceil(S / 64), H, B), the longest causal tiles
+// first; kBwdThreads. q arrives once; K/V 64-key tiles through a ring of
+// kWideFwdStages in the chunks' order (tile it of the CTA: chunk it / tpc,
+// tpc = ceil(ck / 64) tiles a chunk, only the last chunk cut short). The
+// arithmetic a row sees is attn_fwd_tc's.
+__global__ void __launch_bounds__(kBwdThreads, 1)
+attn_fwd_tc_wide(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ out,
+                 float* __restrict__ m_out, float* __restrict__ l_out, int S, int Sk, int H,
+                 int hd, int ck, int causal, float scale) {
+  constexpr int NP = kWideNP, kStage = 2 * NP * kPanel;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t q_full, full[kWideFwdStages];
+  __shared__ int freed[kWideFwdStages];
+  uint8_t* Qs = align1024(smem_raw);  // [panel]
+  uint8_t* ring = Qs + NP * kPanel;   // [stage][K panels, V panels]
+
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int q0 = 64 * (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+  const int last_row = min(q0 + 64, S) - 1;
+  const int nk = causal ? last_row / ck + 1 : Sk / ck;
+  const int tpc = (ck + 63) / 64;
+  const int last_c0 = (nk - 1) * ck;
+  const int last_end = causal ? min(last_c0 + ck, last_row + 1) : last_c0 + ck;
+  const int ntiles = (nk - 1) * tpc + (last_end - last_c0 + 63) / 64;
+  auto load = [&](int it) {  // key tile it into its stage
+    const int s = it % kWideFwdStages, t0 = (it / tpc) * ck + 64 * (it % tpc);
+    mbar_expect_tx(&full[s], kStage);
+    for (int p = 0; p < NP; ++p) {
+      tma_rows(ring + s * kStage + p * kPanel, &k_map, &full[s], 64 * p, h, t0, b);
+      tma_rows(ring + s * kStage + (NP + p) * kPanel, &v_map, &full[s], 64 * p, h, t0, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(&q_full, 1);
+    for (int s = 0; s < kWideFwdStages; ++s) {
+      mbar_init(&full[s], 1);
+      freed[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(&q_full, NP * kPanel);
+    for (int p = 0; p < NP; ++p) tma_rows(Qs + p * kPanel, &q_map, &q_full, 64 * p, h, q0, b);
+    for (int it = 0; it < min(ntiles, kWideFwdStages); ++it) load(it);
+  }
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = threadIdx.x % 32;
+  const int r_lo = 16 * (t / 32) + lane / 4;  // rows r_lo and r_lo + 8
+  const int ksteps = (hd + 15) / 16;
+  float o[2][32], pv[2][32], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[p][e] = 0.f;
+  mbar_wait(&q_full, 0);
+  int it = 0;
+  for (int j = 0; j < nk; ++j) {
+    const int c0 = j * ck, c_end = causal ? min(c0 + ck, last_row + 1) : c0 + ck;
+    float m_run[2] = {m[0], m[1]}, lsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) pv[p][e] = 0.f;
+    for (int t0 = c0; t0 < c_end; t0 += 64, ++it) {
+      const int ncols = min(64, c_end - t0);
+      const uint8_t* st = ring + (it % kWideFwdStages) * kStage;
+      mbar_wait(&full[it % kWideFwdStages], (it / kWideFwdStages) & 1);
+      float s[32];
+      wg_fence();
+      mma_hd_wide(s, Qs, st, ksteps);
+      wg_commit();
+      wg_wait<0>();
+      keep(s);
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int col = acc_col(e, lane), row = q0 + r_lo + 8 * acc_half(e);
+        float x = round_bf16(s[e]) * scale;
+        if (causal && t0 + col > row) x = kNegInf;
+        if (col >= ncols) x = -INFINITY;
+        s[e] = x;
+        mx[acc_half(e)] = fmaxf(mx[acc_half(e)], x);
+      }
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_t = fmaxf(m_run[i], quad_max(mx[i]));
+        alpha[i] = expf(m_run[i] - m_t);
+        lsum[i] *= alpha[i];
+        m_run[i] = m_t;
+      }
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) pv[p][e] *= alpha[acc_half(e)];
+      uint32_t pk[16];  // p in bf16, the A operand of p.v
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int i = acc_half(e);
+        const float p0 = expf(s[e] - m_run[i]), p1 = expf(s[e + 1] - m_run[i]);
+        lsum[i] += p0;
+        lsum[i] += p1;
+        pk[e / 2] = pack_bf16(p0, p1);
+      }
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+          mma_rs(pv[p], pk + 4 * kk, desc(st + (NP + 2 * wg + p) * kPanel + kk * 2048), 1);
+      wg_commit();
+      wg_wait<0>();
+#pragma unroll
+      for (int p = 0; p < 2; ++p) keep(pv[p]);
+      keep(pk);
+      const int done = it;
+      free_stage(&freed[done % kWideFwdStages], wg, t, [&] {
+        if (done + kWideFwdStages < ntiles) load(done + kWideFwdStages);
+      });
+    }
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      corr[i] = expf(m[i] - m_run[i]);
+      l[i] = l[i] * corr[i] + quad_sum(lsum[i]);
+      m[i] = m_run[i];
+    }
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        o[p][e] = o[p][e] * corr[acc_half(e)] + round_bf16(pv[p][e]);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r_lo + 8 * i;
+    if (row >= S) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+    bf16* orow = out + (((int64_t)b * S + row) * H + h) * hd;
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int e = 2 * i; e < 32; e += 4) {
+        const int d = 64 * (2 * wg + p) + acc_col(e, lane);
+        if (d < hd)
+          *reinterpret_cast<__nv_bfloat162*>(orow + d) =
+              __floats2bfloat162_rn(o[p][e] / den, o[p][e + 1] / den);
+      }
+    if (wg == 0 && lane % 4 == 0) {
+      const int64_t idx = ((int64_t)b * H + h) * S + row;
+      m_out[idx] = m[i];
+      l_out[idx] = l[i];
+    }
+  }
+}
+
+// Backward, dQ, hd > 128. grid (H, B, ceil(S / 64)), the longest causal
+// tiles first; kBwdThreads, both warpgroups on the CTA's 64 query rows.
+// Writes `rows` as attn_bwd_dq_tc does (warpgroup 0). q and dO arrive once,
+// K/V 64-key tiles through a ring of kWideBwdStages.
+__global__ void __launch_bounds__(kBwdThreads, 1)
+attn_bwd_dq_tc_wide(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap do_map, const bf16* __restrict__ out,
+                    const bf16* __restrict__ dout, const float* __restrict__ m_in,
+                    const float* __restrict__ l_in, bf16* __restrict__ dq,
+                    float* __restrict__ rows, int S, int Sk, int H, int hd, int causal,
+                    float scale) {
+  constexpr int NP = kWideNP, kStage = 2 * NP * kPanel;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t q_full, full[kWideBwdStages];
+  __shared__ int freed[kWideBwdStages];
+  __shared__ float Dsm[64];
+  uint8_t* Qs = align1024(smem_raw);  // [panel]
+  uint8_t* dOs = Qs + NP * kPanel;    // [panel]
+  uint8_t* ring = dOs + NP * kPanel;  // [stage][K panels, V panels]
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = 64 * (causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z);
+  const int kend = causal ? min(Sk, min(q0 + 64, S)) : Sk;
+  const int ntiles = (kend + 63) / 64;
+  auto load = [&](int it) {  // key tile it into its stage
+    const int s = it % kWideBwdStages;
+    mbar_expect_tx(&full[s], kStage);
+    for (int p = 0; p < NP; ++p) {
+      tma_rows(ring + s * kStage + p * kPanel, &k_map, &full[s], 64 * p, h, 64 * it, b);
+      tma_rows(ring + s * kStage + (NP + p) * kPanel, &v_map, &full[s], 64 * p, h, 64 * it, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(&q_full, 1);
+    for (int s = 0; s < kWideBwdStages; ++s) {
+      mbar_init(&full[s], 1);
+      freed[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(&q_full, 2 * NP * kPanel);
+    for (int p = 0; p < NP; ++p) {
+      tma_rows(Qs + p * kPanel, &q_map, &q_full, 64 * p, h, q0, b);
+      tma_rows(dOs + p * kPanel, &do_map, &q_full, 64 * p, h, q0, b);
+    }
+    for (int it = 0; it < min(ntiles, kWideBwdStages); ++it) load(it);
+  }
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = threadIdx.x % 32;
+  const int r_lo = 16 * (t / 32) + lane / 4;
+  const int64_t stat = ((int64_t)b * H + h) * S;
+  if (wg == 0) {  // D: two threads a row
+    const int r = t / 2, part = t % 2, row = q0 + r, s64 = (S + 63) / 64 * 64;
+    float acc = 0.f;
+    if (row < S) {  // 16-byte loads: hd is a multiple of 8, the rows 16-byte aligned
+      const int64_t off = (((int64_t)b * S + row) * H + h) * hd;
+      for (int d = 8 * part; d < hd; d += 16) {
+        const uint4 g4 = *reinterpret_cast<const uint4*>(dout + off + d);
+        const uint4 y4 = *reinterpret_cast<const uint4*>(out + off + d);
+        const uint32_t gw[4] = {g4.x, g4.y, g4.z, g4.w}, yw[4] = {y4.x, y4.y, y4.z, y4.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float2 g = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&gw[c]));
+          const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&yw[c]));
+          acc += g.x * y.x;
+          acc += g.y * y.y;
+        }
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (part == 0) {
+      Dsm[r] = acc;
+      if (row < s64) {
+        float* plane = rows + ((int64_t)b * H + h) * 3 * s64 + row;
+        plane[0] = row < S ? m_in[stat + row] * kLog2e : 0.f;
+        plane[s64] = row < S ? 1.f / fmaxf(l_in[stat + row], 1e-30f) : 0.f;
+        plane[2 * s64] = acc;
+      }
+    }
+  }
+  __syncthreads();
+  float m2[2], inv_l[2], drow[2];  // m2: m log2(e), so p = exp2(x log2(e) - m2) / l
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r_lo + 8 * i;
+    const bool ok = row < S;
+    m2[i] = ok ? m_in[stat + row] * kLog2e : 0.f;
+    inv_l[i] = ok ? 1.f / fmaxf(l_in[stat + row], 1e-30f) : 0.f;
+    drow[i] = Dsm[r_lo + 8 * i];
+  }
+  const float scale2 = scale * kLog2e;
+  const int ksteps = (hd + 15) / 16;
+  const int it_end = q0 >= S ? 0 : ntiles;
+  auto release = [&](int it) {  // this warpgroup is done with tile it
+    free_stage(&freed[it % kWideBwdStages], wg, t, [&] {
+      if (it + kWideBwdStages < ntiles) load(it + kWideBwdStages);
+    });
+  };
+  float acc[2][32], s[32], dp[32];
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[p][e] = 0.f;
+  uint32_t ds16[16];
+  mbar_wait(&q_full, 0);
+  for (int it = 0; it < it_end; ++it) {
+    const int t0 = 64 * it;
+    const uint8_t* st = ring + (it % kWideBwdStages) * kStage;
+    mbar_wait(&full[it % kWideBwdStages], (it / kWideBwdStages) & 1);
+    wg_fence();
+    mma_hd_wide(s, Qs, st, ksteps);
+    wg_commit();
+    mma_hd_wide(dp, dOs, st + NP * kPanel, ksteps);
+    wg_commit();
+    wg_wait<1>();  // S, and the previous tile's dQ product: its stage is free
+    keep(s);
+    keep(ds16);
+    if (it > 0) release(it - 1);
+    const bool edge = causal ? t0 + 63 > q0 : t0 + 64 > Sk;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int i = acc_half(e);
+      float p = pow2(fmaf(round_bf16(s[e]), scale2, -m2[i])) * inv_l[i];
+      if (edge) {
+        const int col = t0 + acc_col(e, lane), row = q0 + r_lo + 8 * i;
+        if (causal ? col > row : col >= Sk) p = 0.f;
+      }
+      s[e] = p;
+    }
+    wg_wait<0>();
+    keep(dp);
+#pragma unroll
+    for (int e = 0; e < 32; e += 2)  // dS in bf16, the A operand of dS K
+      ds16[e / 2] = pack_bf16(s[e] * (dp[e] - drow[acc_half(e)]),
+                              s[e + 1] * (dp[e + 1] - drow[acc_half(e)]));
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+        mma_rs(acc[p], ds16 + 4 * kk, desc(st + (2 * wg + p) * kPanel + kk * 2048), 1);
+    wg_commit();
+  }
+  wg_wait<0>();
+#pragma unroll
+  for (int p = 0; p < 2; ++p) keep(acc[p]);
+  keep(ds16);
+  if (it_end > 0) release(it_end - 1);
+  for (int it = it_end; it < ntiles; ++it) {  // rows past S: the tiles unread
+    mbar_wait(&full[it % kWideBwdStages], (it / kWideBwdStages) & 1);
+    release(it);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r_lo + 8 * i;
+    if (row >= S) continue;
+    bf16* drow_out = dq + (((int64_t)b * S + row) * H + h) * hd;
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int e = 2 * i; e < 32; e += 4) {
+        const int d = 64 * (2 * wg + p) + acc_col(e, lane);
+        if (d < hd)
+          *reinterpret_cast<__nv_bfloat162*>(drow_out + d) =
+              __floats2bfloat162_rn(acc[p][e] * scale, acc[p][e + 1] * scale);
+      }
+  }
+}
+
+// Backward, dK and dV, hd > 128. grid (H, B, ceil(Sk / 64)), the longest
+// causal key ranges first; kBwdThreads, both warpgroups on the CTA's 64 keys
+// (K and V resident). The query tiles at or below the CTA's diagonal stream
+// through a ring of kWideBwdStages as in attn_bwd_dkv_tc.
+__global__ void __launch_bounds__(kBwdThreads, 1)
+attn_bwd_dkv_tc_wide(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap do_map,
+                     const __grid_constant__ CUtensorMap rows_map, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int S, int Sk, int H, int hd, int causal,
+                     float scale) {
+  constexpr int NP = kWideNP, kStage = 2 * NP * kPanel + 1024;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t kv_full, full[kWideBwdStages];
+  __shared__ int freed[kWideBwdStages];
+  uint8_t* Ks = align1024(smem_raw);  // [panel]
+  uint8_t* Vs = Ks + NP * kPanel;     // [panel]
+  uint8_t* ring = Vs + NP * kPanel;   // [stage][q panels, dO panels, m log2(e) 1/l D]
+
+  const int h = blockIdx.x, b = blockIdx.y, k0 = 64 * blockIdx.z;
+  const int qstart = causal ? k0 : 0;
+  const int ntiles = (S - qstart + 63) / 64;
+  const int s64 = (S + 63) / 64 * 64, plane = (b * H + h) * 3 * s64;
+  auto load = [&](int it) {  // query tile it into its stage
+    const int s = it % kWideBwdStages, r0 = qstart + 64 * it;
+    uint8_t* st = ring + s * kStage;
+    mbar_expect_tx(&full[s], 2 * NP * kPanel + 3 * 256);
+    for (int p = 0; p < NP; ++p) {
+      tma_rows(st + p * kPanel, &q_map, &full[s], 64 * p, h, r0, b);
+      tma_rows(st + (NP + p) * kPanel, &do_map, &full[s], 64 * p, h, r0, b);
+    }
+    for (int c = 0; c < 3; ++c)
+      tma_stats(st + 2 * NP * kPanel + 256 * c, &rows_map, &full[s], plane + c * s64 + r0);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(&kv_full, 1);
+    for (int s = 0; s < kWideBwdStages; ++s) {
+      mbar_init(&full[s], 1);
+      freed[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(&kv_full, 2 * NP * kPanel);
+    for (int p = 0; p < NP; ++p) {
+      tma_rows(Ks + p * kPanel, &k_map, &kv_full, 64 * p, h, k0, b);
+      tma_rows(Vs + p * kPanel, &v_map, &kv_full, 64 * p, h, k0, b);
+    }
+    for (int it = 0; it < min(ntiles, kWideBwdStages); ++it) load(it);
+  }
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = threadIdx.x % 32;
+  const int r_lo = 16 * (t / 32) + lane / 4;  // keys k0 + r_lo, k0 + r_lo + 8
+  const int it_begin = k0 >= Sk ? ntiles : 0;
+  auto release = [&](int it) {  // this warpgroup is done with tile it
+    free_stage(&freed[it % kWideBwdStages], wg, t, [&] {
+      if (it + kWideBwdStages < ntiles) load(it + kWideBwdStages);
+    });
+  };
+  const float scale2 = scale * kLog2e;
+  const int ksteps = (hd + 15) / 16;
+  float acc_k[2][32], acc_v[2][32], s[32], dp[32];  // S^T, dP^T: [key][query row]
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc_k[p][e] = acc_v[p][e] = 0.f;
+  uint32_t pk[16], ds16[16];
+  mbar_wait(&kv_full, 0);
+  for (int it = 0; it < it_begin; ++it) {  // keys past Sk: the tiles unread
+    mbar_wait(&full[it % kWideBwdStages], (it / kWideBwdStages) & 1);
+    release(it);
+  }
+  for (int it = it_begin; it < ntiles; ++it) {
+    const int r0 = qstart + 64 * it;
+    const uint8_t* st = ring + (it % kWideBwdStages) * kStage;
+    const float* m2 = reinterpret_cast<const float*>(st + 2 * NP * kPanel);  // m log2(e)
+    const float* inv_l = m2 + 64;
+    const float* Ds = m2 + 128;
+    mbar_wait(&full[it % kWideBwdStages], (it / kWideBwdStages) & 1);
+    wg_fence();
+    mma_hd_wide(s, Ks, st, ksteps);
+    wg_commit();
+    mma_hd_wide(dp, Vs, st + NP * kPanel, ksteps);
+    wg_commit();
+    wg_wait<1>();  // S^T, and the previous tile's dV and dK products: its stage is free
+    keep(s);
+    keep(pk);
+    keep(ds16);
+    if (it > it_begin) release(it - 1);
+    const bool diag = causal && r0 == k0;
+#pragma unroll
+    for (int e = 0; e < 32; e += 2) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = acc_col(e + c, lane);
+        float p = pow2(fmaf(round_bf16(s[e + c]), scale2, -m2[col])) * inv_l[col];
+        if (diag && r_lo + 8 * acc_half(e) > col) p = 0.f;
+        s[e + c] = p;
+      }
+      pk[e / 2] = pack_bf16(s[e], s[e + 1]);  // P^T in bf16, the A operand of dV
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+        mma_rs(acc_v[p], pk + 4 * kk, desc(st + (NP + 2 * wg + p) * kPanel + kk * 2048), 1);
+    wg_commit();
+    wg_wait<1>();  // dP^T (dV's product stays in flight)
+    keep(dp);
+#pragma unroll
+    for (int e = 0; e < 32; e += 2) {  // dS^T in bf16, the A operand of dK
+      const int col = acc_col(e, lane);
+      ds16[e / 2] = pack_bf16(s[e] * (dp[e] - Ds[col]), s[e + 1] * (dp[e + 1] - Ds[col + 1]));
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+        mma_rs(acc_k[p], ds16 + 4 * kk, desc(st + (2 * wg + p) * kPanel + kk * 2048), 1);
+    wg_commit();
+  }
+  wg_wait<0>();
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    keep(acc_k[p]);
+    keep(acc_v[p]);
+  }
+  keep(pk);
+  keep(ds16);
+  if (ntiles > it_begin) release(ntiles - 1);
+  const int ncols = min(64, Sk - k0);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kl = r_lo + 8 * i;
+    if (kl >= ncols) continue;
+    const int64_t off = (((int64_t)b * Sk + k0 + kl) * H + h) * hd;
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int e = 2 * i; e < 32; e += 4) {
+        const int d = 64 * (2 * wg + p) + acc_col(e, lane);
+        if (d < hd) {
+          *reinterpret_cast<__nv_bfloat162*>(dk + off + d) =
+              __floats2bfloat162_rn(acc_k[p][e] * scale, acc_k[p][e + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(dv + off + d) =
+              __floats2bfloat162_rn(acc_v[p][e], acc_v[p][e + 1]);
+        }
+      }
+  }
+}
+
 // The driver's cuTensorMapEncodeTiled, fetched through the runtime, so the
 // library needs no link against libcuda.
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -1434,9 +2201,54 @@ int launch_bwd_tc(const void* q, const void* k, const void* v, const void* out, 
   return (int)cudaGetLastError();
 }
 
+int launch_fwd_tc_wide(const void* q, const void* k, const void* v, void* out, void* m, void* l,
+                       int B, int S, int Sk, int H, int hd, int ck, int causal, float scale,
+                       int dev, cudaStream_t st) {
+  CUtensorMap qm, km, vm;
+  if (int err = rows_map(&qm, q, B, S, H, hd)) return err;
+  if (int err = rows_map(&km, k, B, Sk, H, hd)) return err;
+  if (int err = rows_map(&vm, v, B, Sk, H, hd)) return err;
+  static std::atomic<uint64_t> ready{0};
+  if (int err = once_per_device(ready, dev,
+                                [&] { return set_smem(attn_fwd_tc_wide, fwd_tc_wide_smem()); }))
+    return err;
+  attn_fwd_tc_wide<<<dim3((S + 63) / 64, H, B), kBwdThreads, fwd_tc_wide_smem(), st>>>(
+      qm, km, vm, static_cast<bf16*>(out), static_cast<float*>(m), static_cast<float*>(l), S, Sk,
+      H, hd, ck, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_bwd_tc_wide(const void* q, const void* k, const void* v, const void* out,
+                       const void* dout, const void* m, const void* l, void* dq, void* dk,
+                       void* dv, void* dbuf, int B, int S, int Sk, int H, int hd, int causal,
+                       float scale, int dev, cudaStream_t st) {
+  CUtensorMap qm, km, vm, dom, rm;
+  if (int err = rows_map(&qm, q, B, S, H, hd)) return err;
+  if (int err = rows_map(&km, k, B, Sk, H, hd)) return err;
+  if (int err = rows_map(&vm, v, B, Sk, H, hd)) return err;
+  if (int err = rows_map(&dom, dout, B, S, H, hd)) return err;
+  if (int err = stats_map(&rm, dbuf, (int64_t)B * H * 3 * ((S + 63) / 64 * 64))) return err;
+  static std::atomic<uint64_t> ready{0};
+  if (int err = once_per_device(ready, dev, [&] {
+        if (int err = set_smem(attn_bwd_dq_tc_wide, dq_tc_wide_smem())) return err;
+        return set_smem(attn_bwd_dkv_tc_wide, dkv_tc_wide_smem());
+      }))
+    return err;
+  attn_bwd_dq_tc_wide<<<dim3(H, B, (S + 63) / 64), kBwdThreads, dq_tc_wide_smem(), st>>>(
+      qm, km, vm, dom, static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
+      static_cast<const float*>(m), static_cast<const float*>(l), static_cast<bf16*>(dq),
+      static_cast<float*>(dbuf), S, Sk, H, hd, causal, scale);
+  if (int err = (int)cudaGetLastError()) return err;
+  attn_bwd_dkv_tc_wide<<<dim3(H, B, (Sk + 63) / 64), kBwdThreads, dkv_tc_wide_smem(), st>>>(
+      qm, km, vm, dom, rm, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, Sk, H, hd, causal,
+      scale);
+  return (int)cudaGetLastError();
+}
+
 // One bf16 kernel's resources: out[0] registers a thread (at launch, before
 // setmaxnreg), out[1] CTAs resident on an SM, out[2] shared memory bytes a
-// CTA (dynamic and static), out[3] threads a CTA.
+// CTA (dynamic and static), out[3] threads a CTA, out[4] local memory bytes
+// a thread (register spills).
 template <typename K>
 int kernel_info(K kernel, int threads, int smem, int* out) {
   cudaFuncAttributes attr;
@@ -1449,6 +2261,7 @@ int kernel_info(K kernel, int threads, int smem, int* out) {
   out[1] = ctas;
   out[2] = smem + (int)attr.sharedSizeBytes;
   out[3] = threads;
+  out[4] = (int)attr.localSizeBytes;
   return 0;
 }
 
@@ -1479,7 +2292,8 @@ bool tma_ok(int hd, std::initializer_list<const void*> ptrs) {
 }
 
 bool bad_shape(int B, int S, int Sk, int H, int hd, int causal) {
-  return B <= 0 || S <= 0 || Sk <= 0 || H <= 0 || hd <= 0 || hd > 128 || (causal && S != Sk);
+  return B <= 0 || S <= 0 || Sk <= 0 || H <= 0 || hd <= 0 || hd > kWideHd ||
+         (causal && S != Sk);
 }
 
 }  // namespace
@@ -1494,15 +2308,19 @@ extern "C" int chunked_attention_fwd(int dtype, const void* q, const void* k, co
   if (bad_shape(B, S, Sk, H, hd, causal) || ck <= 0 || Sk % ck != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool wide = hd > 64;
+  const bool wide = hd > 64, wider = hd > 128;
   switch (dtype) {
     case 0:
+      if (wider) return launch_fwd<4>(q, k, v, out, m, l, B, S, Sk, H, hd, ck, causal, scale, st);
       return wide ? launch_fwd<2>(q, k, v, out, m, l, B, S, Sk, H, hd, ck, causal, scale, st)
                   : launch_fwd<1>(q, k, v, out, m, l, B, S, Sk, H, hd, ck, causal, scale, st);
     case 1: {
       if (!tma_ok(hd, {q, k, v})) return (int)cudaErrorInvalidValue;
       DeviceOf on(q);
       if (on.err) return on.err;
+      if (wider)
+        return launch_fwd_tc_wide(q, k, v, out, m, l, B, S, Sk, H, hd, ck, causal, scale, on.dev,
+                                  st);
       return wide ? launch_fwd_tc<2>(q, k, v, out, m, l, B, S, Sk, H, hd, ck, causal, scale,
                                      on.dev, st)
                   : launch_fwd_tc<1>(q, k, v, out, m, l, B, S, Sk, H, hd, ck, causal, scale,
@@ -1515,7 +2333,8 @@ extern "C" int chunked_attention_fwd(int dtype, const void* q, const void* k, co
 
 // The resources of bf16 kernel `which` (kernels/attention.py TC_KERNELS:
 // 0, 1 attn_fwd_tc<1, 2>; 2, 3 attn_bwd_dq_tc<1, 2>; 4, 5 attn_bwd_dkv_tc<1,
-// 2>) on the current device, into out[4] as kernel_info above.
+// 2>; 6, 7, 8 attn_fwd_tc_wide, attn_bwd_dq_tc_wide, attn_bwd_dkv_tc_wide) on
+// the current device, into out[5] as kernel_info above.
 extern "C" int chunked_attention_kernel_info(int which, int* out) {
   switch (which) {
     case 0: return kernel_info(attn_fwd_tc<1>, 384, fwd_tc_smem<1>(), out);
@@ -1524,6 +2343,9 @@ extern "C" int chunked_attention_kernel_info(int which, int* out) {
     case 3: return kernel_info(attn_bwd_dq_tc<2>, kBwdThreads, dq_tc_smem<2>(), out);
     case 4: return kernel_info(attn_bwd_dkv_tc<1>, kBwdThreads, dkv_tc_smem<1>(), out);
     case 5: return kernel_info(attn_bwd_dkv_tc<2>, kBwdThreads, dkv_tc_smem<2>(), out);
+    case 6: return kernel_info(attn_fwd_tc_wide, kBwdThreads, fwd_tc_wide_smem(), out);
+    case 7: return kernel_info(attn_bwd_dq_tc_wide, kBwdThreads, dq_tc_wide_smem(), out);
+    case 8: return kernel_info(attn_bwd_dkv_tc_wide, kBwdThreads, dkv_tc_wide_smem(), out);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1538,9 +2360,12 @@ extern "C" int chunked_attention_bwd(int dtype, const void* q, const void* k, co
                                      float scale, void* stream) {
   if (bad_shape(B, S, Sk, H, hd, causal)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool wide = hd > 64;
+  const bool wide = hd > 64, wider = hd > 128;
   switch (dtype) {
     case 0:
+      if (wider)
+        return launch_bwd_wide(q, k, v, out, dout, m, l, dq, dk, dv, dbuf, B, S, Sk, H, hd,
+                               causal, scale, st);
       return wide ? launch_bwd<2>(q, k, v, out, dout, m, l, dq, dk, dv, dbuf, B, S, Sk, H, hd,
                                   causal, scale, st)
                   : launch_bwd<1>(q, k, v, out, dout, m, l, dq, dk, dv, dbuf, B, S, Sk, H, hd,
@@ -1549,6 +2374,9 @@ extern "C" int chunked_attention_bwd(int dtype, const void* q, const void* k, co
       if (!tma_ok(hd, {q, k, v, out, dout, m, l, dbuf})) return (int)cudaErrorInvalidValue;
       DeviceOf on(q);
       if (on.err) return on.err;
+      if (wider)
+        return launch_bwd_tc_wide(q, k, v, out, dout, m, l, dq, dk, dv, dbuf, B, S, Sk, H, hd,
+                                  causal, scale, on.dev, st);
       return wide ? launch_bwd_tc<2>(q, k, v, out, dout, m, l, dq, dk, dv, dbuf, B, S, Sk, H, hd,
                                      causal, scale, on.dev, st)
                   : launch_bwd_tc<1>(q, k, v, out, dout, m, l, dq, dk, dv, dbuf, B, S, Sk, H, hd,

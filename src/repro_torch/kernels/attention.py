@@ -47,16 +47,24 @@ failure raises):
              rounded to bf16 where they are operands of a product, as the
              plain loop's autograd rounds them. TMA needs 16-byte aligned
              tensors and head_dim a multiple of 8; the wrapper checks both
-             and raises.
+             and raises. Head dims past 128 (Zamba2's 224) take the
+             "wide" kernels (``attn_*_tc_wide``): the head dims padded to
+             256, and both warpgroups of a CTA on the same 64 query rows
+             (forward, dQ) or keys (dK/dV), each computing the score
+             products whole and owning the output's head dims 0-127 or
+             128-223 (a warpgroup cannot hold two 64 x 224 float32
+             accumulators, o and the chunk's p.v, or dK and dV); no
+             producer warp in any of the three.
   float32  : the CUDA cores (FMA over float32 tiles in shared memory): the
              tensor cores' float32 path is TF32, which would break the
              float32 tolerance the checks hold A1 to, and float32 A1 runs
-             only in checks.
+             only in checks. Past 128 head dims the backward sums the
+             score products over 64-dim slices (``attn_bwd_*_wide``).
 
 ``attention_forward.routes`` and ``attention_backward.routes`` count the
 launches of each route (``"wgmma"``, ``"cuda_cores"``) beside
-``.launches``. ``kernel_info()`` reads each bf16 kernel's registers and
-resident CTAs per SM on the current card.
+``.launches``. ``kernel_info()`` reads each bf16 kernel's registers,
+resident CTAs per SM and spilled bytes on the current card.
 
 ``kernels/ops.py::chunked_attention`` dispatches: the kernel for CUDA
 tensors (or a raise), the plain version for CPU tensors. The plain version
@@ -66,7 +74,9 @@ and ``chip_smoke.py`` do to hold the kernel to it.
 Shapes: q (B, S, H, hd); k, v (B, Sk, K, hd) with H a multiple of K (GQA:
 query head h reads kv head h // (H / K)); causal needs S == Sk. The plain
 version takes grouped K/V; the kernel takes K == H (``ops`` repeats a
-grouped call's K/V first), float32 and bfloat16, hd <= 128.
+grouped call's K/V first), float32 and bfloat16, hd <= 256. ``scale``
+multiplies the scores (None: 1/sqrt(hd), the reference's; Zamba2's
+attention takes (hd / 2)^-0.5).
 """
 from __future__ import annotations
 
@@ -83,7 +93,7 @@ from repro_torch.kernels.fpisa_fused import raise_on
 NEG_INF = -1e30
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/chunked_attention.cu's dtype
 ROUTES = {torch.float32: "cuda_cores", torch.bfloat16: "wgmma"}
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 TMA_ALIGN = 16  # bytes: TMA's base address and row stride
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -100,9 +110,11 @@ def chunk_sizes(s: int, sk: int, q_chunk: int) -> tuple[int, int]:
     return cq, ck
 
 
-def _scale(hd: int) -> float:
-    """1/sqrt(hd) as float32, what a float32 tensor times the Python float is."""
-    return float(torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32))
+def _scale(hd: int, scale: float | None = None) -> float:
+    """The scores' scale as float32 (what a float32 tensor times the Python
+    float is): ``scale``, or 1/sqrt(hd) when it is None."""
+    return float(torch.tensor(1.0 / math.sqrt(hd) if scale is None else scale,
+                              dtype=torch.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -127,14 +139,16 @@ def _pair_step(o, m, l, qi, kj, vj, keep, scale: float):
 
 
 def chunked_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
-                          cq: int, ck: int, remat_step: bool = True) -> torch.Tensor:
+                          cq: int, ck: int, remat_step: bool = True,
+                          scale: float | None = None) -> torch.Tensor:
     """The plain version (see the module docstring). ``remat_step`` wraps
     each batched step in ``torch.utils.checkpoint``, as the reference wraps
-    its pair step in ``jax.checkpoint``."""
+    its pair step in ``jax.checkpoint``. ``scale`` multiplies the scores
+    (None: 1/sqrt(head_dim))."""
     b, s, h, hd = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     g = h // kvh
-    scale = _scale(hd)
+    scale = _scale(hd, scale)
     nq, nk = s // cq, sk // ck
     if nq == 1 and nk == 1:
         qf = q.reshape(b, s, kvh, g, hd)
@@ -195,26 +209,29 @@ def _lib() -> ctypes.CDLL:
 
 # the bf16 kernels, in csrc/chunked_attention.cu's chunked_attention_kernel_info order
 TC_KERNELS = ("attn_fwd_tc<1>", "attn_fwd_tc<2>", "attn_bwd_dq_tc<1>", "attn_bwd_dq_tc<2>",
-              "attn_bwd_dkv_tc<1>", "attn_bwd_dkv_tc<2>")
+              "attn_bwd_dkv_tc<1>", "attn_bwd_dkv_tc<2>", "attn_fwd_tc_wide",
+              "attn_bwd_dq_tc_wide", "attn_bwd_dkv_tc_wide")
 
 
 def kernel_info() -> dict:
-    """{kernel: {"registers", "ctas_per_sm", "smem_bytes", "threads"}} of
-    each bf16 kernel on the current CUDA device (registers a thread at
-    launch; the forward's warpgroups then move registers with
-    ``setmaxnreg``)."""
+    """{kernel: {"registers", "ctas_per_sm", "smem_bytes", "threads",
+    "local_bytes"}} of each bf16 kernel on the current CUDA device
+    (registers a thread at launch, the forward's warpgroups then moving
+    registers with ``setmaxnreg``; ``local_bytes``, a thread's local memory,
+    is what ptxas spilled)."""
     info = {}
     for which, name in enumerate(TC_KERNELS):
-        out = (_I * 4)()
+        out = (_I * 5)()
         raise_on(_lib().chunked_attention_kernel_info(which, out), "chunked_attention_kernel_info")
-        info[name] = dict(zip(("registers", "ctas_per_sm", "smem_bytes", "threads"), out))
+        info[name] = dict(zip(("registers", "ctas_per_sm", "smem_bytes", "threads",
+                               "local_bytes"), out))
     return info
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> None:
     """What the kernels take: CUDA tensors of one dtype (float32 or
     bfloat16) on one device, q (B, S, H, hd), k and v (B, Sk, H, hd),
-    hd <= 128 (bfloat16: a multiple of 8, TMA's 16-byte rows), S == Sk when
+    hd <= 256 (bfloat16: a multiple of 8, TMA's 16-byte rows), S == Sk when
     causal."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
@@ -249,8 +266,9 @@ def check_aligned(*tensors: torch.Tensor) -> None:
 
 
 def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-                      ck: int):
-    """Launch the forward kernel: -> (out like q, m, l (B, H, S) float32)."""
+                      ck: int, scale: float | None = None):
+    """Launch the forward kernel: -> (out like q, m, l (B, H, S) float32).
+    ``scale`` multiplies the scores (None: 1/sqrt(head_dim))."""
     check_inputs(q, k, v, causal)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     b, s, h, hd = q.shape
@@ -264,14 +282,14 @@ def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal:
     stream = torch.cuda.current_stream(q.device).cuda_stream
     raise_on(_lib().chunked_attention_fwd(
         DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        m.data_ptr(), l.data_ptr(), b, s, sk, h, hd, ck, int(causal), _scale(hd), stream),
+        m.data_ptr(), l.data_ptr(), b, s, sk, h, hd, ck, int(causal), _scale(hd, scale), stream),
         "chunked_attention_fwd")
     attention_forward.launches += 1
     attention_forward.routes[ROUTES[q.dtype]] += 1
     return out, m, l
 
 
-def attention_backward(q, k, v, out, dout, m, l, causal: bool):
+def attention_backward(q, k, v, out, dout, m, l, causal: bool, scale: float | None = None):
     """Launch the backward kernels (dQ, then dK/dV): -> (dq, dk, dv)."""
     check_inputs(q, k, v, causal)
     q, k, v, out, dout = (t.contiguous() for t in (q, k, v, out, dout))
@@ -289,7 +307,8 @@ def attention_backward(q, k, v, out, dout, m, l, causal: bool):
     raise_on(_lib().chunked_attention_bwd(
         DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), m.data_ptr(), l.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), dbuf.data_ptr(), b, s, sk, h, hd, int(causal), _scale(hd), stream),
+        dv.data_ptr(), dbuf.data_ptr(), b, s, sk, h, hd, int(causal), _scale(hd, scale),
+        stream),
         "chunked_attention_bwd")
     attention_backward.launches += 1
     attention_backward.routes[ROUTES[q.dtype]] += 1
@@ -303,18 +322,19 @@ attention_backward.routes = dict.fromkeys(ROUTES.values(), 0)
 
 
 class ChunkedAttention(torch.autograd.Function):
-    """A1 forward and its recomputing backward: apply(q, k, v, causal, ck)."""
+    """A1 forward and its recomputing backward: apply(q, k, v, causal, ck,
+    scale=None)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, ck: int):
+    def forward(ctx, q, k, v, causal: bool, ck: int, scale: float | None = None):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out, m, l = attention_forward(q, k, v, causal, ck)
+        out, m, l = attention_forward(q, k, v, causal, ck, scale)
         ctx.save_for_backward(q, k, v, out, m, l)
-        ctx.causal = causal
+        ctx.causal, ctx.scale = causal, scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, m, l = ctx.saved_tensors
-        dq, dk, dv = attention_backward(q, k, v, out, dout, m, l, ctx.causal)
-        return dq, dk, dv, None, None
+        dq, dk, dv = attention_backward(q, k, v, out, dout, m, l, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None, None

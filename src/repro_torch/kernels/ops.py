@@ -166,9 +166,11 @@ def accum_leaf(x: torch.Tensor, variant: str = "fpisa_a", fmt_name: str = "fp32"
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
-                      cq: int, ck: int, remat_step: bool = True) -> torch.Tensor:
+                      cq: int, ck: int, remat_step: bool = True,
+                      scale: float | None = None) -> torch.Tensor:
     """A1: the reference's chunked attention at chunk sizes (cq, ck), q (B,
-    S, H, hd), k, v (B, Sk, K, hd) -> (B, S, H, hd) in q's dtype. On the
+    S, H, hd), k, v (B, Sk, K, hd) -> (B, S, H, hd) in q's dtype, the scores
+    times ``scale`` (None: 1/sqrt(hd), the reference's). On the
     card the kernel's backward recomputes the score tiles whatever
     ``remat_step`` says (it never saves them); on the CPU ``remat_step``
     checkpoints each step of the plain loop. The kernel takes no cq: a
@@ -178,8 +180,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, caus
         g = q.shape[2] // k.shape[2]
         if g > 1:
             k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
-        return ChunkedAttention.apply(q, k, v, causal, ck)
-    return chunked_attention_ref(q, k, v, causal=causal, cq=cq, ck=ck, remat_step=remat_step)
+        return ChunkedAttention.apply(q, k, v, causal, ck, scale)
+    return chunked_attention_ref(q, k, v, causal=causal, cq=cq, ck=ck, remat_step=remat_step,
+                                 scale=scale)
 
 
 encode_align.launches = 0

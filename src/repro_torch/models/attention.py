@@ -127,9 +127,11 @@ def _repeat_kv(k: torch.Tensor, v: torch.Tensor, cfg):
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
-                      q_chunk: int, num_kv_heads: int, remat_step: bool = True) -> torch.Tensor:
+                      q_chunk: int, num_kv_heads: int, remat_step: bool = True,
+                      scale: float | None = None) -> torch.Tensor:
     """q: (B, S, H, hd); k, v: (B, Sk, K, hd) with K = ``num_kv_heads``
-    -> (B, S, H, hd) in q's dtype. ``causal`` needs S == Sk.
+    -> (B, S, H, hd) in q's dtype. ``causal`` needs S == Sk. ``scale``
+    multiplies the scores (None: 1/sqrt(hd), the reference's).
 
     DTensors (a step on a mesh): the heads and the batch rows attend
     independently, so every rank attends with its own rows and heads, on
@@ -145,9 +147,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, caus
         mesh = q.device_mesh
         pl = [p if getattr(p, "dim", None) in (0, 2) else Replicate() for p in q.placements]
         q, k, v = (t.redistribute(mesh, pl).to_local() for t in (q, k, v))
-        out = ops.chunked_attention(q, k, v, causal=causal, cq=cq, ck=ck, remat_step=remat_step)
+        out = ops.chunked_attention(q, k, v, causal=causal, cq=cq, ck=ck, remat_step=remat_step,
+                                    scale=scale)
         return DTensor.from_local(out, mesh, pl, run_check=False)
-    return ops.chunked_attention(q, k, v, causal=causal, cq=cq, ck=ck, remat_step=remat_step)
+    return ops.chunked_attention(q, k, v, causal=causal, cq=cq, ck=ck, remat_step=remat_step,
+                                 scale=scale)
 
 
 def _attend(q, k, v, cfg, causal: bool) -> torch.Tensor:

@@ -20,6 +20,9 @@ import torch
 from repro_torch.models.layers import dtype_of, param, rms_norm, silu, unread_product
 
 
+ZAMBA2_DT_MIN = 1e-3  # Zamba2-7B's time_step_min: the floor of its softplus(dt)
+
+
 def init_mamba2(gen: torch.Generator, cfg, lead=()) -> dict:
     """in_proj emits [z (di), x (di), B (g*n), C (g*n), dt (h)]. Float32
     leaves ``a_log``, ``d_skip``, ``dt_bias`` in a model of any dtype;
@@ -169,6 +172,8 @@ def apply_mamba2(p: dict, x: torch.Tensor, cfg, ssm_state=None, conv_state=None,
     a = -torch.exp(p["a_log"])
     dt_in = dt_raw.to(torch.float32) + p["dt_bias"]
     dt = torch.logaddexp(dt_in, torch.zeros_like(dt_in))           # jax.nn.softplus
+    if cfg.family == "zamba2":  # the published Zamba2's time_step_min
+        dt = torch.clamp(dt, min=ZAMBA2_DT_MIN)
 
     if not decode:
         xbc = _causal_conv_train(xbc_in, p["conv_w"], p["conv_b"])
@@ -201,8 +206,21 @@ def apply_mamba2(p: dict, x: torch.Tensor, cfg, ssm_state=None, conv_state=None,
         y = yh.reshape(bsz, 1, di).to(x.dtype)
 
     # gated RMSNorm, then the output projection
-    y = rms_norm(y * silu(z), p["norm_w"], cfg.norm_eps)
+    y = gated_norm(y, z, p["norm_w"], cfg)
     return unread_product(y, p["out_proj"]), final_state, new_conv
+
+
+def gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor, cfg) -> torch.Tensor:
+    """RMSNorm of ``y * silu(z)`` over the whole inner width, as the
+    reference's mamba2; the zamba2 family normalises each B/C group's
+    ``d_inner / ssm_groups`` channels on its own, as the published Zamba2
+    (``Zamba2RMSNormGated``, ``group_size = d_inner / n_groups``)."""
+    g = y * silu(z)
+    groups = cfg.ssm_groups if cfg.family == "zamba2" else 1
+    if groups == 1:
+        return rms_norm(g, w, cfg.norm_eps)
+    return rms_norm(g.unflatten(-1, (groups, -1)), w.unflatten(-1, (groups, -1)),
+                    cfg.norm_eps).flatten(-2)
 
 
 def init_ssm_state(batch: int, cfg, device=None):

@@ -16,7 +16,11 @@ arctic's parallel ``dense_mlp``), and the loss adds ``0.01 *`` the summed
 load-balance loss. ssm: mamba2 blocks (``models/mamba2.py``). hybrid
 (zamba2): ``hybrid_attn_every`` mamba blocks, then ONE ``shared`` dense
 block (the same weights at every application, one KV cache each), then the
-tail mamba blocks. vlm: ``vlm_proj`` projects ``patch_embeds`` (B, P, d)
+tail mamba blocks. zamba2 (the port's own: the published Zamba2 hybrid,
+``models/zamba2.py``): every layer's mamba block, shared blocks over the
+embedding's concatenation before the layers ``hybrid_layer_ids``, each
+application with its own adapter; it trains, and its serving methods
+raise. vlm: ``vlm_proj`` projects ``patch_embeds`` (B, P, d)
 into a prefix of the sequence, and the loss is taken on the tokens after
 it; a batch without ``patch_embeds`` has no prefix (the reference's
 function with P = 0), which is how the engines serve text prompts.
@@ -70,7 +74,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch import NotPortedError
 from repro_torch.models import attention as attn
-from repro_torch.models import mamba2, moe
+from repro_torch.models import mamba2, moe, zamba2
 from repro_torch.models.layers import (
     apply_mlp,
     dtype_of,
@@ -157,6 +161,8 @@ def init_lm(cfg, gen: torch.Generator) -> dict:
             lambda x: x[:grouped].reshape(ng, cfg.hybrid_attn_every, *x.shape[1:]).clone(), stacked)
         params["tail_layers"] = _tree_map(lambda x: x[grouped:].clone(), stacked)
         params["shared"] = _init_dense_layer(gen, cfg.with_(family="dense"))
+    elif cfg.family == zamba2.FAMILY:
+        params.update(zamba2.init_zamba2(cfg, gen))
     else:
         raise NotPortedError(f"the {cfg.family!r} model family")
     params["final_norm"] = init_rms_norm(cfg.d_model, dt, gen.device)
@@ -377,7 +383,17 @@ class TreeLM(nn.Module):
 class TransformerLM(TreeLM):
     """Decoder LM of any decoder-only family; ``loss(batch)`` is the
     training objective, ``batch`` a dict of ``tokens`` (B, S) and, for vlm,
-    ``patch_embeds`` (B, P, d)."""
+    ``patch_embeds`` (B, P, d). The port's zamba2 family
+    (``models/zamba2.py``) trains only: its serving methods raise."""
+
+    def __init__(self, cfg, params: dict):
+        if cfg.family == zamba2.FAMILY:
+            zamba2.check_config(cfg)
+        super().__init__(cfg, params)
+
+    def _check_serves(self) -> None:
+        if self.cfg.family == zamba2.FAMILY:
+            raise zamba2.unsupported("serving path (init_cache, prefill, decode)")
 
     # --- training ------------------------------------------------------------
 
@@ -413,6 +429,8 @@ class TransformerLM(TreeLM):
         elif cfg.family == "ssm":
             for lp in unstack(self.layers):
                 x = self._remat(lambda y, lp=lp: _mamba_block(lp, y, cfg), x)
+        elif cfg.family == zamba2.FAMILY:
+            x = zamba2.run_layers(self, x, positions)
         else:  # hybrid
             def group(y, glp):
                 for lp in unstack(glp):
@@ -461,6 +479,7 @@ class TransformerLM(TreeLM):
         ``rows=batch``. K/V (attention families, and one per shared-block
         application of the hybrid) in the activation dtype; SSM states
         float32, conv states in the activation dtype."""
+        self._check_serves()
         cfg, dev = self.cfg, self.device
         rows = decode_rows(batch) if rows is None else rows
         dt = dtype_of(cfg.activation_dtype)
@@ -506,6 +525,7 @@ class TransformerLM(TreeLM):
         B) filled at [0, P + S) and ``pos`` P + S). Every product runs one
         sequence at a time (module doc); the final norm and head see the
         last position only."""
+        self._check_serves()
         cfg = self.cfg
         b = tokens.shape[0]
         xs = [self._input_embeds(tokens[j:j + 1],
@@ -542,6 +562,7 @@ class TransformerLM(TreeLM):
         """tokens (B, 1) int, B at most the cache's rows -> (logits (B, 1,
         V), the cache with every row's k/v (or SSM and conv states) written
         in place at ``pos`` and ``pos + 1``)."""
+        self._check_serves()
         cfg = self.cfg
         some = cache.kv.k if cache.kv is not None else cache.ssm
         b, rows = tokens.shape[0], some.shape[1]

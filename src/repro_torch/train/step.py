@@ -97,6 +97,7 @@ import torch.distributed as dist
 from repro_torch import trace as _trace
 from repro_torch.core.agg import AggConfig, Aggregator, world_size
 from repro_torch.core.allreduce import _all_gather_rows
+from repro_torch.models import zamba2
 from repro_torch.optim import optimizers
 
 
@@ -133,6 +134,8 @@ def make_train_step(model, agg: AggConfig, opt_cfg: optimizers.OptConfig,
     if mesh is not None:
         if group is not None:
             raise ValueError("pass a mesh or a group, not both")
+        if model.cfg.family == zamba2.FAMILY:
+            raise zamba2.unsupported("step on a DeviceMesh")
         return _mesh_step(model, mesh, agg, opt_cfg, global_batch, accum_steps,
                           logical_workers)
     world = world_size(group)

@@ -146,3 +146,25 @@ def test_models_over_several_chunks_equal_reference(arch, seq, overrides):
     jm, jp, pm = pair(arch, **overrides)
     assert pm.cfg.attn_q_chunk == 32
     check_forward_and_grads(jm, jp, pm, make_batch(pm.cfg, 2, seq, seed=3))
+
+
+@pytest.mark.parametrize("s,cq", [(64, 64), (128, 32)], ids=["one_block", "chunks"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_plain_version_scale_none_keeps_its_bits(s, cq, dtype):
+    """``scale=None`` is the 1/sqrt(head_dim) every existing caller had:
+    output and q/k/v gradients bit for bit against that scale passed by
+    hand (as a Python float and as its float32), in both branches of the
+    plain version; Zamba2's (head_dim / 2)^-0.5 gives another output."""
+    gen = torch.Generator().manual_seed(4)
+    q, k, v, dout = (torch.randn((2, s, H, 32), generator=gen).to(dtype) for _ in range(4))
+
+    def run(**kw):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = kattn.chunked_attention_ref(*leaves, causal=True, cq=cq, ck=cq, **kw)
+        return [out.detach()] + list(torch.autograd.grad(out, leaves, dout))
+
+    default = run()
+    for given in (32 ** -0.5, float(torch.tensor(32 ** -0.5, dtype=torch.float32))):
+        for a, b in zip(default, run(scale=given)):
+            assert torch.equal(a, b)
+    assert not torch.equal(default[0], run(scale=16 ** -0.5)[0])

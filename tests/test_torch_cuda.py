@@ -286,6 +286,26 @@ def test_cuda_backend_equals_torch_backend_for_each_leaf_dtype(dev, leaf, fmt):
         assert torch.equal(got.view(view), want.view(view))
 
 
+def test_k1k2_on_a_leaf_whose_wire_plane_passes_2_31_bytes(dev):
+    """A bf16 leaf of 560,000,000 elements (2,187,500 rows of 256): its int32
+    wire plane holds 2.24 GB, past 2^31 bytes, as the stacked ``in_proj`` of
+    the zamba2 cell's 24 layers does (1,264.8 M elements). K1's exponent and
+    wire modes and K2 on the cuda backend equal the torch backend bit for
+    bit, the elements past the 2^31-byte mark among them."""
+    n = 560_000_000
+    assert 4 * n > 2**31
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.empty(n, dtype=torch.bfloat16, device=dev).normal_(0.0, 0.02, generator=gen)
+    x[-257:] = torch.linspace(-3.0, 3.0, 257, device=dev).to(torch.bfloat16)
+    before = _k1k2_launches()
+    got = Aggregator(AggConfig(backend="cuda")).allreduce(x)
+    assert _k1k2_launches(before) == (0, 1, 1, 1)
+    want = Aggregator(AggConfig(backend="torch")).allreduce(x)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert torch.equal(got[-257:].view(torch.int16), want[-257:].view(torch.int16))
+
+
 # ---------------------------------------------------------------------------
 # K3-K6
 # ---------------------------------------------------------------------------
@@ -1174,6 +1194,58 @@ def test_chunked_attention_row_is_batch_invariant(dev, case, dtype):
             assert torch.equal(a[r:r + 1], b), (r, name)
 
 
+# Zamba2's shared-block attention: 32 heads of 224 (past 128: the "wide"
+# kernels), causal, the scores scaled by (224 / 2)^-0.5 rather than
+# 224^-0.5; at 1 x 512 (one chunk of 512) and at the benchmark's 4 x 4,096
+# (chunks of 2,048)
+ZAMBA2_SCALE = (224 / 2) ** -0.5
+A1_WIDE_CASES = [(1, 512, 512, 32, 32, 224, 2048, True), (4, 4096, 4096, 32, 32, 224, 2048, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", A1_WIDE_CASES, ids=_a1_case_id)
+def test_chunked_attention_wide_kernel_equals_plain(dev, case, dtype):
+    """A1 at head_dim 224 with Zamba2's scale: output and q/k/v gradients
+    against the plain loop at the same scale, within ``A1_TOL``; one forward
+    and one backward launch, and the scale reaches the kernel (the default
+    scale's output differs)."""
+    from repro_torch.kernels import attention
+
+    causal, q_chunk = case[7], case[6]
+    q, k, v, dout = _a1_inputs(case, dtype, dev)
+    cq, ck = attention.chunk_sizes(q.shape[1], k.shape[1], q_chunk)
+    before = (attention.attention_forward.launches, attention.attention_backward.launches)
+    got = _a1_run(lambda *t: ops.chunked_attention(*t, causal=causal, cq=cq, ck=ck,
+                                                   scale=ZAMBA2_SCALE), q, k, v, dout)
+    assert (attention.attention_forward.launches, attention.attention_backward.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = _a1_run(lambda *t: attention.chunked_attention_ref(
+        *t, causal=causal, cq=cq, ck=ck, remat_step=False, scale=ZAMBA2_SCALE), q, k, v, dout)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        tol = A1_TOL[dtype][min(i, 1)] * float(b.abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol, (["out", "dq", "dk", "dv"][i], err, tol)
+    plain_scale = ops.chunked_attention(q, k, v, causal=causal, cq=cq, ck=ck)
+    assert not torch.equal(plain_scale, got[0])
+
+
+def test_chunked_attention_wide_kernels_do_not_spill(dev):
+    """``kernel_info()``: the hd-224 kernels (256 threads, one CTA an SM)
+    spill nothing to local memory, and neither do the backward's hd <= 128
+    kernels."""
+    from repro_torch.kernels import attention
+
+    info = attention.kernel_info()
+    for name in ("attn_fwd_tc_wide", "attn_bwd_dq_tc_wide", "attn_bwd_dkv_tc_wide"):
+        assert info[name]["threads"] == 256 and info[name]["ctas_per_sm"] == 1, (name, info[name])
+        assert info[name]["local_bytes"] == 0, (name, info[name])
+    for name in ("attn_bwd_dq_tc<1>", "attn_bwd_dkv_tc<1>", "attn_bwd_dq_tc<2>",
+                 "attn_bwd_dkv_tc<2>"):
+        assert info[name]["local_bytes"] == 0, (name, info[name])
+
+
 def test_chunked_attention_kernel_names_keep_the_benchmark_contract(dev):
     """Under ``torch.profiler``, one bf16 forward and one backward call (1 x
     512, 4 heads of 64, causal) launch only kernels whose names hold
@@ -1204,8 +1276,8 @@ def test_chunked_attention_kernel_refuses_what_it_does_not_take(dev):
     q = torch.zeros((1, 64, 2, 64), device=dev)
     with pytest.raises(ValueError, match="dtype"):
         attention.attention_forward(q.half(), q.half(), q.half(), True, 32)
-    with pytest.raises(ValueError, match="head_dim"):
-        z = torch.zeros((1, 64, 2, 192), device=dev)
+    with pytest.raises(ValueError, match="head_dim"):  # past MAX_HEAD_DIM, 256
+        z = torch.zeros((1, 64, 2, 264), device=dev)
         attention.attention_forward(z, z, z, True, 32)
     with pytest.raises(ValueError, match="S == Sk"):
         attention.attention_forward(q, q[:, :32], q[:, :32], True, 32)

@@ -54,13 +54,30 @@ FAMILY_ARCH = {"dense": "internlm2-20b", "moe": "arctic-480b", "ssm": "mamba2-78
                "hybrid": "zamba2-7b", "vlm": "llava-next-34b"}
 
 
+# the port's own ModelConfig fields (the zamba2 family's), after the reference's
+PORT_FIELDS = [("hybrid_layer_ids", ()), ("num_mem_blocks", 0), ("adapter_rank", 0)]
+PORT_ARCHS = ["zamba2-7b-published"]
+
+
+def _reference_fields(cfg) -> dict:
+    """A port config's fields that the reference's ModelConfig has; the
+    port's own fields must hold their defaults."""
+    d = dataclasses.asdict(cfg)
+    assert [(k, d.pop(k)) for k, _ in PORT_FIELDS] == PORT_FIELDS, cfg.name
+    return d
+
+
 def test_configs_copy_the_reference():
+    """Every reference config, field for field (the port's own fields at
+    their defaults); the reference's fields first, in its order and with its
+    defaults, then the port's; the port's own configs found by name but
+    listed apart from the reference's."""
     assert configs.ARCH_NAMES == ARCHS
     assert configs.NOT_PORTED == ()
     for arch in ARCHS:
         for mine, ref in ((configs.get_config(arch), jax_configs.get_config(arch)),
                           (configs.get_smoke_config(arch), jax_configs.get_smoke_config(arch))):
-            assert dataclasses.asdict(mine) == dataclasses.asdict(ref), arch
+            assert _reference_fields(mine) == dataclasses.asdict(ref), arch
     assert configs.get_config("whisper-medium").is_encoder_decoder
     with pytest.raises(KeyError):
         configs.get_config("no-such-arch")
@@ -68,14 +85,19 @@ def test_configs_copy_the_reference():
 
     mine = [(f.name, f.default) for f in dataclasses.fields(torch_base.ModelConfig)]
     ref = [(f.name, f.default) for f in dataclasses.fields(jax_base.ModelConfig)]
-    assert mine == ref
+    assert mine == ref + PORT_FIELDS
+    assert list(configs.PORT_MODULES) == PORT_ARCHS
+    for arch in PORT_ARCHS:
+        assert arch not in configs.ARCH_NAMES and arch not in configs.list_configs()
+        assert configs.get_config(arch).name == arch
+        assert configs.get_smoke_config(arch).family == configs.get_config(arch).family
 
 
 def test_list_configs_and_the_shape_names_match_the_reference():
     mine, ref = configs.list_configs(), jax_configs.list_configs()
     assert list(mine) == list(ref) == ARCHS
     for arch in ARCHS:
-        assert dataclasses.asdict(mine[arch]) == dataclasses.asdict(ref[arch]), arch
+        assert _reference_fields(mine[arch]) == dataclasses.asdict(ref[arch]), arch
     assert (configs.SHAPES, configs.ShapeConfig, configs.shape_applicable) == (
         torch_base.SHAPES, torch_base.ShapeConfig, torch_base.shape_applicable)
     assert {k: dataclasses.asdict(v) for k, v in configs.SHAPES.items()} == \
