@@ -278,6 +278,17 @@ path's breakdown, a ``[longctx] (e)`` line puts its forward+backward, now
 through A1, beside the 147-186 ms that the whole (S, S) float32 softmax
 took before it (PERF.md §5).
 
+Then S1, the port's CUDA kernels for the reference's plain-jnp Mamba2 SSD
+scan (``s1_line``, ``[s1]`` lines): S1 through ``models.mamba2.ssd_chunked``
+and autograd against the plain version in float64 (``ssd_float64_ref``) at
+zamba2-7b's 4 x 4,096 and mamba2-780m's 8 x 512 in bf16, dt in [1e-3, 0.1]:
+y, the final state and dx, ddt, dA, dB, dC, dD within ``S1_TOL`` of their
+largest |entry|, one forward and one backward launch a call; then its
+forward and backward at the cell's shape against the bound, the plain
+version and ``kernel_info()``. The training paths check S1's launches
+(``check_s1_launches``: in a Mamba2 model the forward twice and the
+backward once per layer per step under remat, none elsewhere).
+
 Then the switch dataplane (``switchsim_path``, ``[switchsim]`` lines; the
 dataplane runs as torch ops on the card, as the reference runs it as jitted
 ``jnp``): (a) the card's ``BatchedDataplane`` equals the port's numpy
@@ -371,8 +382,11 @@ OPS_PER_ELEM = {"fused_encode_align": 16, "fused_decode": 34, "fpisa_extract": 1
                 "fpisa_align": 5, "fpisa_decode": 34, "block_max": 3, "encode_wire": 20,
                 "decode_leaf": 39}
 KERNELS = ("fused_encode_align", "fused_decode", "fpisa_extract", "fpisa_align",
-           "fpisa_decode", "fpisa_accum", "chunked_attention_fwd", "chunked_attention_bwd")
-A1 = ("chunked_attention_fwd", "chunked_attention_bwd")  # the port's kernel for a jnp function
+           "fpisa_decode", "fpisa_accum", "chunked_attention_fwd", "chunked_attention_bwd",
+           "ssd_forward", "ssd_backward")
+# the port's kernels for jnp functions: A1 (the chunked attention), S1 (Mamba2's SSD)
+A1 = ("chunked_attention_fwd", "chunked_attention_bwd")
+S1 = ("ssd_forward", "ssd_backward")
 
 SWEEP = [(1, 256), (8, 128), (256, 256), (300, 512), (513, 128), (64, 512)]
 EMBED_ROWS = 607744           # the embedding gradient: 151936 x 1024 / 256
@@ -386,7 +400,8 @@ FIG9_STEPS, FIG9_WARMUP = 30, 5
 KERNEL_WRAPPER = {"fused_encode_align": "encode_align", "fused_decode": "decode_fused",
                   "fpisa_extract": "extract", "fpisa_align": "align", "fpisa_decode": "decode",
                   "fpisa_accum": "accum", "chunked_attention_fwd": "attention_forward",
-                  "chunked_attention_bwd": "attention_backward"}
+                  "chunked_attention_bwd": "attention_backward", "ssd_forward": "ssd_forward",
+                  "ssd_backward": "ssd_backward"}
 # K1's modes, each its own wrapper in kernels/ops.py with its own count: the
 # local mode (the TPU kernel's function) and the aggregation's exponent and
 # wire modes. K2 counts its launches by mode in ``ops.decode_fused.modes``:
@@ -699,7 +714,10 @@ def a1_sass_check(sass):
         name = body.split("\n", 1)[0].strip()
         if "_tc" in name:
             ops_ = SASS_OPCODE.findall(body)
-            counts[re.sub(r"^.*?(attn_\w+_tc)ILi(\d)E.*$", r"\1<\2>", name)] = {
+            wide = re.search(r"(attn_\w+?_tc_wide)E", name)  # not a template: no <N>
+            key = wide.group(1) if wide else re.sub(r"^.*?(attn_\w+_tc)ILi(\d)E.*$", r"\1<\2>",
+                                                    name)
+            counts[key] = {
                 "HGMMA": sum(op.startswith("HGMMA") for op in ops_),
                 "UTMALDG": sum(op.startswith("UTMALDG") for op in ops_)}
     log(f"[build] chunked_attention bf16 kernels' SASS (HGMMA = wgmma, UTMALDG = TMA load): "
@@ -1933,11 +1951,13 @@ def fig9_path(torch, dev):
 
 def wrapper(name):
     """The launch function that counts kernel ``name``'s launches: A1's in
-    ``kernels/attention.py``, K1-K6's in ``kernels/ops.py`` (K1's local
-    mode; ``k1_mode_wrappers`` has all three)."""
-    from repro_torch.kernels import attention, ops
+    ``kernels/attention.py``, S1's in ``kernels/ssd.py``, K1-K6's in
+    ``kernels/ops.py`` (K1's local mode; ``k1_mode_wrappers`` has all
+    three)."""
+    from repro_torch.kernels import attention, ops, ssd
 
-    return getattr(attention if name in A1 else ops, KERNEL_WRAPPER[name])
+    return getattr(attention if name in A1 else ssd if name in S1 else ops,
+                   KERNEL_WRAPPER[name])
 
 
 def k1_mode_wrappers():
@@ -2013,6 +2033,24 @@ def check_seq_launches(counts, n, what):
 def a1_subset(counts):
     """A1's counts and its per-route counts out of ``read_launches()``'s."""
     return {k: v for k, v in counts.items() if k.split("@")[0] in A1}
+
+
+def s1_subset(counts):
+    """S1's counts out of ``read_launches()``'s."""
+    return {k: counts[k] for k in S1}
+
+
+def check_s1_launches(counts, cfg, steps, what):
+    """S1's launches over ``steps`` training steps of ``cfg``: in a model
+    of Mamba2 blocks (families "ssm", "hybrid", "zamba2": every layer is one) the
+    forward once per layer per step and once more in the layer's recompute
+    (remat other than "none"), the backward once per layer per step; in any
+    other model none."""
+    layers = cfg.num_layers if cfg.family in ("ssm", "hybrid", "zamba2") else 0
+    want = {"ssd_forward": (1 + (cfg.remat != "none")) * layers * steps,
+            "ssd_backward": layers * steps}
+    if s1_subset(counts) != want:
+        raise AssertionError(f"{what}: S1 launched {s1_subset(counts)}, expected {want}")
 
 
 def check_paged_equals_dense(torch, dev, model, tag="[serve] check (a)"):
@@ -2315,13 +2353,14 @@ def family_train(torch, dev, cfg, strategy, seq_len=SEQ_LEN, tag="[models]"):
                              leaf=sum(p.dtype != torch.float32 for p in params) * STEPS)
     else:
         check_seq_launches(launches, leaves * STEPS, f"{cfg.name} {strategy}")
+    check_s1_launches(launches, cfg, STEPS, f"{cfg.name} {strategy}")
     if not all(torch.isfinite(p).all() for p in model.parameters()):
         raise AssertionError(f"{cfg.name}: non-finite parameter after training")
     log(f"{tag} {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}): {STEPS} steps "
         f"of {GLOBAL_BATCH} x {seq_len} with {strategy}, remat {cfg.remat}, in {wall:.2f} s "
         f"(init included), "
         f"losses {losses}; {leaves} gradient leaves ({sum(p.numel() for p in model.parameters()):,}"
-        f" parameters), launches {json.dumps({k: launches[k] for k in want})} (K1: two modes "
+        f" parameters), launches {json.dumps({k: launches[k] for k in want + S1})} (K1: two modes "
         f"a leaf) for {leaves} leaves a step; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {CARD}")
     return launches, model, opt_state, wall
 
@@ -2973,7 +3012,8 @@ def sharding_path(torch, dev):
             f"{rec['roofline']['collective_s']:.3f} ({rec['roofline']['bottleneck']}), "
             f"traced in {rec['trace_s']} s")
     log(f"[sharding] the group took {time.perf_counter() - t0:.1f} s; {CARD}")
-    return {"sharded": {**k1k2_subset(launches), **a1_subset(launches)}}
+    return {"sharded": {**k1k2_subset(launches), **a1_subset(launches),
+                        **s1_subset(launches)}}
 
 
 # ---------------------------------------------------------------------------
@@ -3482,6 +3522,132 @@ def longctx_encoder(torch, dev):
         f"plain attention {err:.3g} of the largest |state| (tolerance {ENCODER_RTOL}); the bf16 "
         f"encoder is {drift:.3g} of it from the float32 copy; {CARD}")
     return launches, {"encoder_ms": enc_ms, "fp32_a1_vs_plain": err, "bf16_vs_fp32": drift}
+
+
+# S1 at the cell zamba2_train_4k's shape: zamba2-7b's Mamba2 SSD over 4 x
+# 4,096 tokens (B, S, H, P, G, N, chunk); and mamba2-780m's at [models]
+# (a)'s 8 x 512 (N 128, one group)
+S1_SHAPE = (4, 4096, 112, 64, 2, 64, 256)
+S1_PARITY = {"zamba2-7b": S1_SHAPE, "mamba2-780m": (8, 512, 48, 64, 1, 128, 256)}
+# S1 against the float64 plain version, of the largest |entry|: the final
+# state, ddt, dA, dD (float32) 1e-5; y, dx, dB, dC (bf16) one rounding
+S1_TOL = {"y": 2.0 ** -8, "final": 1e-5, "dx": 2.0 ** -8, "ddt": 1e-5, "dA": 1e-5,
+          "dB": 2.0 ** -8, "dC": 2.0 ** -8, "dD": 1e-5}
+
+
+def s1_inputs(torch, dev, shape, seed=0):
+    """bf16 x, B and C as views of one (B, S, H P + 2 G N) row, as the
+    block's projection split hands them; dt log-uniform over Mamba2's
+    initial range [1e-3, 0.1] (the state a chunk carries, and the tiles far
+    from the diagonal, weigh in the result); A the model's -[1 .. 16]; D,
+    dy and the final state's gradient normal."""
+    b, s, h, p, g, n, _ = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    wide = torch.randn(b, s, h * p + 2 * g * n, device=dev, generator=gen).to(torch.bfloat16)
+    x = wide[..., :h * p].unflatten(-1, (h, p))
+    bm = wide[..., h * p:h * p + g * n].unflatten(-1, (g, n))
+    cm = wide[..., h * p + g * n:].unflatten(-1, (g, n))
+    u = torch.rand(b, s, h, device=dev, generator=gen)
+    dt = torch.exp(math.log(1e-3) + u * (math.log(0.1) - math.log(1e-3)))
+    a = -torch.linspace(1.0, 16.0, h, device=dev)
+    d = torch.randn(h, device=dev, generator=gen)
+    dy = torch.randn(b, s, h, p, device=dev, generator=gen).to(torch.bfloat16)
+    dfin = torch.randn(b, h, p, n, device=dev, generator=gen)
+    return (x, dt, a, bm, cm, d), dy, dfin
+
+
+def s1_parity(torch, dev, par):
+    """S1 through ``models.mamba2.ssd_chunked`` and autograd against the
+    plain version in float64 on the same inputs (``ssd_float64_ref``) at
+    ``S1_PARITY``'s shapes: y, the final state and the gradients of sum(y
+    dy) + sum(final dfinal) within ``S1_TOL``; the launches of each call,
+    counted from zero, one forward and one backward. Records the largest
+    |difference| in ``par``. Returns {model: {output: difference over the
+    largest |entry|}}."""
+    from repro_torch.kernels import ssd
+    from repro_torch.models import mamba2
+
+    worst = {}
+    for model, shape in S1_PARITY.items():
+        args, dy, dfin = s1_inputs(torch, dev, shape, seed=1)
+        chunk = shape[-1]
+        want = ssd.ssd_float64_ref(*args, chunk, dy, dfin)
+        want = (want[0], want[1], *want[2])
+        leaves = [t.detach().requires_grad_() for t in args]
+        zero_launches()
+        y, fin = mamba2.ssd_chunked(*leaves, chunk)
+        grads = torch.autograd.grad((y.float() * dy.float()).sum() + (fin * dfin).sum(), leaves)
+        torch.cuda.synchronize()
+        launches = s1_subset(read_launches())
+        if launches != {"ssd_forward": 1, "ssd_backward": 1}:
+            raise AssertionError(f"[s1] {model}: S1 launched {launches}, expected one of each")
+        worst[model] = {}
+        for i, (name, got, w) in enumerate(zip(S1_TOL, (y, fin, *grads), want)):
+            err = float((got.detach().double() - w).abs().max())
+            top = float(w.abs().max())
+            kernel = S1[min(i // 2, 1)]
+            par.err[kernel] = max(par.err[kernel], err)
+            par.cases[kernel] += 1
+            worst[model][name] = err / top
+            if not err <= S1_TOL[name] * top:
+                raise AssertionError(f"[s1] {model} {shape} {name}: S1 vs the float64 plain "
+                                     f"version {err:.3g} > {S1_TOL[name]} x {top:.3g}")
+        del args, dy, dfin, want, leaves, y, fin, grads
+        torch.cuda.empty_cache()
+    log(f"[s1] S1 vs the plain version in float64 (B, S, H, P, G, N, chunk {S1_PARITY}; bf16, "
+        f"dt in [1e-3, 0.1]), difference over the largest |entry| (limits {S1_TOL}): "
+        f"{json.dumps(worst)}; one forward and one backward launch a call; {CARD}")
+    return worst
+
+
+def s1_line(torch, dev, par):
+    """The ``[s1]`` lines: ``s1_parity``; then S1's forward and backward
+    (CUDA events, median of 25) at S1_SHAPE in bf16 beside their bound (the
+    benchmark's ``metrics/ssd_roofline.zamba2.py`` formula at the cell's
+    configuration), the plain version's (float32 einsums on the same bf16
+    inputs, median of 3; its backward is autograd's, its forward's time
+    taken out), and each kernel's registers and CTAs an SM
+    (``kernel_info()``). No PyTorch call computes the SSD, so there is no
+    library time. Returns the kernels line's numbers, {"ssd_forward": ...,
+    "ssd_backward": ...}."""
+    from fpisa_bench import counts, counts_zamba2, spec
+    from repro_torch.kernels import ssd
+
+    s1_parity(torch, dev, par)
+    b, s, h, p, g, n, chunk = S1_SHAPE
+    (x, dt, a, bm, cm, d), dy, _ = s1_inputs(torch, dev, S1_SHAPE)
+    args = (x, dt, a, bm, cm, d)
+    y, fin, states = ssd.ssd_forward(*args, chunk)
+    fwd = median_ms(torch, lambda: ssd.ssd_forward(*args, chunk))
+    bwd = median_ms(torch, lambda: ssd.ssd_backward(*args, chunk, states, dy))
+    plain_fwd = median_ms(torch, lambda: ssd.ssd_chunked_ref(*args, chunk), reps=3, warmup=1)
+    leaves = [t.detach().requires_grad_() for t in args]
+
+    def plain_fwd_bwd():
+        yr, _ = ssd.ssd_chunked_ref(*leaves, chunk)
+        torch.autograd.grad(yr, leaves, dy)
+
+    plain_bwd = median_ms(torch, plain_fwd_bwd, reps=3, warmup=1) - plain_fwd
+    cell = spec.Cell("zamba2_train_4k")
+    assert (cell.traffic["batch"], cell.traffic["seq"]) == (b, s)
+    bound_f, bound_b = (1e3 * t for t in spec.metric_reader("ssd_roofline.zamba2")
+                        .call_bounds_s(cell.config, b, s))
+    flops_ms = 1e3 * counts_zamba2.ssd_flops_per_token(cell.config) * b * s \
+        / counts.PEAK_FLOPS_BF16
+    info = {k: (v["registers"], v["ctas_per_sm"], v["smem_bytes"], v["local_bytes"])
+            for k, v in ssd.kernel_info(n, chunk).items()}
+    line = {"forward_ms": fwd, "backward_ms": bwd, "bound_forward_ms": bound_f,
+            "bound_backward_ms": bound_b, "plain_forward_ms": plain_fwd,
+            "plain_backward_ms": plain_bwd, "library_ms": None,
+            "kernels (registers, ctas_per_sm, smem_bytes, local_bytes)": info}
+    log(f"[s1] zamba2-7b's SSD, B {b}, S {s}, H {h}, P {p}, G {g}, N {n}, chunk {chunk}, bf16: "
+        f"{json.dumps(line)}; {CARD}")
+    del x, bm, cm, dt, dy, y, fin, states, leaves, args
+    return {name: {"ms": ms, "plain_ms": plain, "bound_ms": bound, "library_ms": None,
+                   "bound_by": "operations" if ops_ms >= bound else "bytes"}
+            for name, ms, plain, bound, ops_ms in (
+                ("ssd_forward", fwd, plain_fwd, bound_f, flops_ms),
+                ("ssd_backward", bwd, plain_bwd, bound_b, 2 * flops_ms))}
 
 
 def longctx_path(torch, dev, par):
@@ -4569,8 +4735,12 @@ def main() -> int:
         paths.update(longctx_paths)
         torch.cuda.empty_cache()
         lap("longctx")
+        s1_times = s1_line(torch, dev, par)
+        torch.cuda.empty_cache()
+        lap("s1")
         times = timing(torch, dev, leaf_sizes)
         times.update(a1_times)
+        times.update(s1_times)
         paths["two_pass"], two_pass_times = two_pass_pipeline(torch, dev, leaf_sizes, par)
         times.update(two_pass_times)
         torch.cuda.empty_cache()
@@ -4596,7 +4766,9 @@ def main() -> int:
                "fpisa_decode": "src/repro_torch/csrc/fpisa_fused.cu",
                "fpisa_accum": "src/repro_torch/csrc/fpisa_accum.cu",
                "chunked_attention_fwd": "src/repro_torch/csrc/chunked_attention.cu",
-               "chunked_attention_bwd": "src/repro_torch/csrc/chunked_attention.cu"}
+               "chunked_attention_bwd": "src/repro_torch/csrc/chunked_attention.cu",
+               "ssd_forward": "src/repro_torch/csrc/ssd_chunked.cu",
+               "ssd_backward": "src/repro_torch/csrc/ssd_chunked.cu"}
     replaces = {"fused_encode_align": "src/repro/kernels/fpisa_fused.py:66",
                 "fused_decode": "src/repro/kernels/fpisa_fused.py:96",
                 "fpisa_extract": "src/repro/kernels/fpisa_encode.py:47",
@@ -4606,7 +4778,10 @@ def main() -> int:
                 # A1 replaces a jnp function (no Pallas kernel): its forward and
                 # the autodiff of its remat'd pair step
                 "chunked_attention_fwd": "src/repro/models/attention.py:67",
-                "chunked_attention_bwd": "src/repro/models/attention.py:142"}
+                "chunked_attention_bwd": "src/repro/models/attention.py:142",
+                # S1 likewise: Mamba2's plain-jnp SSD scan and its autodiff
+                "ssd_forward": "src/repro/models/mamba2.py:72",
+                "ssd_backward": "src/repro/models/mamba2.py:72"}
     a1_routes = check_a1_routes(paths)
     # launches: the sum over every path that ran the kernel; launches_by_path:
     # each path's count, zeroed just before the path and read just after

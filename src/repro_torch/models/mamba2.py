@@ -6,10 +6,11 @@ Discrete SSD (Dao & Gu, 2024):
     y_t = C_t . h_t + D * x_t
 Training and prefill use the chunked decomposition: the exact quadratic
 term within a chunk, the chunk-final states, the recurrence over chunks
-(the reference's ``lax.scan``; a Python loop over the chunks here) and the
-inter-chunk term. All state math is float32 (dt * A <= 0, so every exp is
-at most 1). ``_segsum`` masks with -inf BEFORE the exp, so the backward
-never sees inf * 0.
+(the reference's ``lax.scan``) and the inter-chunk term, in S1 on the card
+and in its plain version ``kernels/ssd.py::ssd_chunked_ref`` on the CPU.
+All state math is float32 (dt * A <= 0, so every exp is at most 1).
+``_segsum`` masks with -inf BEFORE the exp, so the backward never sees
+inf * 0.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import math
 
 import torch
 
+from repro_torch.kernels.ssd import SSDChunked, _segsum, chunk_len, ssd_chunked_ref  # noqa: F401
 from repro_torch.models.layers import dtype_of, param, rms_norm, silu, unread_product
 
 
@@ -61,75 +63,17 @@ def _causal_conv_train(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> t
     return silu(out + b)
 
 
-def _segsum(da: torch.Tensor) -> torch.Tensor:
-    """da: (..., Q) -> (..., Q, Q), out[q, k] = sum_{i=k+1..q} da_i for
-    q >= k, -inf above the diagonal."""
-    css = torch.cumsum(da, dim=-1)
-    diff = css[..., :, None] - css[..., None, :]
-    q = da.shape[-1]
-    mask = torch.ones((q, q), dtype=torch.bool, device=da.device).tril()
-    return torch.where(mask, diff, -math.inf)
-
-
-def chunk_len(s: int, chunk: int) -> int:
-    """``min(chunk, s)``, halved until it divides ``s``."""
-    q = min(chunk, s)
-    while s % q:
-        q //= 2
-    return q
-
-
 def ssd_chunked(x, dt, a, bmat, cmat, d_skip, chunk: int):
-    """SSD forward.
+    """SSD forward (the reference's ``ssd_chunked``).
 
     x: (B, S, H, P); dt: (B, S, H) float32 (> 0, after softplus); a: (H,)
-    float32 (< 0); bmat/cmat: (B, S, G, N); d_skip: (H,). Returns y (B, S,
-    H, P) in x's dtype and the final state (B, H, P, N) float32."""
-    bsz, s, h, p = x.shape
-    g, n = bmat.shape[2], bmat.shape[3]
-    hg = h // g
-    q = chunk_len(s, chunk)
-    nc = s // q
-    f32 = torch.float32
-
-    xf = x.to(f32)
-    da = dt * a                       # (B, S, H), <= 0
-    xb = xf * dt[..., None]           # dt-weighted input
-
-    dac = da.reshape(bsz, nc, q, h)
-    xbc = xb.reshape(bsz, nc, q, h, p)
-    bc = bmat.reshape(bsz, nc, q, g, n).to(f32)
-    cc = cmat.reshape(bsz, nc, q, g, n).to(f32)
-
-    # intra-chunk (quadratic within a chunk)
-    lmat = torch.exp(_segsum(dac.transpose(2, 3)))                  # (B, nc, H, Q, Q)
-    scores = torch.einsum("bnqgs,bnkgs->bngqk", cc, bc)             # (B, nc, G, Q, Q)
-    scores = scores.repeat_interleave(hg, dim=2)                    # (B, nc, H, Q, Q)
-    y_diag = torch.einsum("bnhqk,bnkhp->bnqhp", lmat * scores, xbc)
-
-    # chunk-final states
-    css = torch.cumsum(dac, dim=2)                                  # (B, nc, Q, H)
-    decay_to_end = torch.exp(css[:, :, -1:, :] - css)
-    bfull = bc.repeat_interleave(hg, dim=3)                         # (B, nc, Q, H, N)
-    states = torch.einsum("bnqhs,bnqh,bnqhp->bnhps", bfull, decay_to_end, xbc)
-
-    # inter-chunk recurrence: the state entering each chunk
-    chunk_decay = torch.exp(css[:, :, -1, :])                       # (B, nc, H)
-    carry = torch.zeros((bsz, h, p, n), dtype=f32, device=x.device)
-    entering = []
-    for c in range(nc):
-        entering.append(carry)
-        carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
-    entering = torch.stack(entering, dim=1)                         # (B, nc, H, P, N)
-
-    # inter-chunk contribution
-    in_decay = torch.exp(css)
-    cfull = cc.repeat_interleave(hg, dim=3)
-    y_off = torch.einsum("bnqhs,bnqh,bnhps->bnqhp", cfull, in_decay, entering)
-
-    y = (y_diag + y_off).reshape(bsz, s, h, p)
-    y = y + xf * d_skip[None, None, :, None]
-    return y.to(x.dtype), carry
+    (< 0); bmat/cmat: (B, S, G, N); d_skip: (H,). Returns y (B, S, H, P) in
+    x's dtype and the final state (B, H, P, N) float32. CUDA tensors run S1
+    (``kernels/ssd.py``, or raise); CPU tensors the plain version
+    ``ssd_chunked_ref``."""
+    if x.is_cuda:
+        return SSDChunked.apply(x, dt, a, bmat, cmat, d_skip, chunk)
+    return ssd_chunked_ref(x, dt, a, bmat, cmat, d_skip, chunk)
 
 
 def apply_mamba2(p: dict, x: torch.Tensor, cfg, ssm_state=None, conv_state=None,

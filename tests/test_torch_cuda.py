@@ -28,6 +28,8 @@ need an NVIDIA GPU and nvcc;
 elsewhere they skip. They import nothing of JAX, so the GPU machine runs them with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -1050,6 +1052,123 @@ def test_encoder_decoder_on_the_card_matches_cpu(dev):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=2e-5)
     for a, b in zip(out["cuda"][2], out["cpu"][2]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-6)
+
+
+# --- S1: Mamba2's chunked SSD scan ------------------------------------------
+
+# (B, S, H, P, G, N, chunk, dtype): zamba2-7b's training shape (the cell
+# zamba2_train_4k), mamba2-780m's ([models] (a): 8 x 512, N 128), a chunk
+# that is not a multiple of the kernels' 64-row tiles (100: a full and a
+# masked tile) in float32, and a batch-1 prefill whose chunk halves to 8
+S1_CASES = {"zamba2": (4, 4096, 112, 64, 2, 64, 256, torch.bfloat16),
+            "mamba2_780m": (8, 512, 48, 64, 1, 128, 256, torch.bfloat16),
+            "ragged": (2, 300, 8, 64, 2, 64, 100, torch.float32),
+            "prefill": (1, 1000, 48, 64, 1, 128, 256, torch.bfloat16)}
+# dt's two regimes: "init", log-uniform over Mamba2's initial range [1e-3,
+# 0.1], where the state a chunk carries and the tiles far from the diagonal
+# weigh in the result at 256-row chunks; "softplus", softplus of a normal
+# (about 0.8), where most of a chunk's decay underflows to 0 in float32
+S1_DT = ("init", "softplus")
+
+
+def _s1_inputs(case, dev, seed=0, dt_regime="init"):
+    """x, B and C as views of one (B, S, H P + 2 G N) row, as the block's
+    projection split hands them; dt in ``dt_regime`` (``S1_DT``), A the
+    model's -[1 .. 16]; dy and the final state's gradient."""
+    b, s, h, p, g, n, _, dtype = S1_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    wide = torch.randn(b, s, h * p + 2 * g * n, device=dev, generator=gen).to(dtype)
+    x = wide[..., :h * p].unflatten(-1, (h, p))
+    bm = wide[..., h * p:h * p + g * n].unflatten(-1, (g, n))
+    cm = wide[..., h * p + g * n:].unflatten(-1, (g, n))
+    if dt_regime == "init":
+        u = torch.rand(b, s, h, device=dev, generator=gen)
+        dt = torch.exp(math.log(1e-3) + u * (math.log(0.1) - math.log(1e-3)))
+    else:
+        dt = torch.nn.functional.softplus(torch.randn(b, s, h, device=dev, generator=gen))
+    a = -torch.linspace(1.0, 16.0, h, device=dev)
+    d = torch.randn(h, device=dev, generator=gen)
+    dy = torch.randn(b, s, h, p, device=dev, generator=gen).to(dtype)
+    dfin = torch.randn(b, h, p, n, device=dev, generator=gen)
+    return (x, dt, a, bm, cm, d), dy, dfin
+
+
+@pytest.mark.parametrize("case", list(S1_CASES))
+def test_s1_matches_the_plain_version(dev, case):
+    """S1 (``kernels/ssd.py`` through ``models.mamba2.ssd_chunked``) against
+    the plain version in float64 on the same inputs (``ssd_float64_ref``),
+    in both of dt's regimes: the final state, ddt, dA and dD within 1e-5 of
+    their largest |entry|; y, dx, dB and dC within one rounding to the
+    inputs' dtype (2^-8 of the largest |entry| for bfloat16, 1e-5 for
+    float32). The gradients are those of sum(y dy) + sum(final dfinal). The
+    launch counters move by one each a call."""
+    from repro_torch.kernels import ssd
+    from repro_torch.models import mamba2
+
+    chunk, dtype = S1_CASES[case][6], S1_CASES[case][7]
+    loose = 2.0 ** -8 if dtype == torch.bfloat16 else 1e-5
+    names = ("y", "final", "dx", "ddt", "dA", "dB", "dC", "dD")
+    tols = (loose, 1e-5, loose, 1e-5, 1e-5, loose, loose, 1e-5)
+    for regime in S1_DT:
+        args, dy, dfin = _s1_inputs(case, dev, dt_regime=regime)
+        want_y, want_fin, want_grads = ssd.ssd_float64_ref(*args, chunk, dy, dfin)
+        leaves = [t.detach().requires_grad_() for t in args]
+        f0, b0 = ssd.ssd_forward.launches, ssd.ssd_backward.launches
+        y, fin = mamba2.ssd_chunked(*leaves, chunk)
+        got_grads = torch.autograd.grad((y.float() * dy.float()).sum() + (fin * dfin).sum(),
+                                        leaves)
+        torch.cuda.synchronize()
+        assert (ssd.ssd_forward.launches - f0, ssd.ssd_backward.launches - b0) == (1, 1)
+        assert y.dtype == dtype and fin.dtype == torch.float32
+        for name, tol, got, want in zip(names, tols, (y, fin, *got_grads),
+                                        (want_y, want_fin, *want_grads)):
+            err = float((got.detach().double() - want).abs().max() / want.abs().max())
+            assert err <= tol, (f"{case}, dt {regime}, {name}: {err:.3e} of the largest "
+                                f"|entry| (limit {tol:.1e})")
+        del args, dy, dfin, want_y, want_fin, want_grads, leaves, y, fin, got_grads
+        torch.cuda.empty_cache()
+
+
+def test_s1_takes_bf16_a_and_d_skip(dev):
+    """A model whose leaves are all bfloat16 hands S1 a and d_skip in
+    bfloat16: the result is the float32 call's on the same values, bit for
+    bit, and their gradients are the float32 call's cast to bfloat16 (the
+    plain version's type promotion)."""
+    from repro_torch.models import mamba2
+
+    args, dy, _ = _s1_inputs("prefill", dev, seed=3)
+    x, dt, a, bm, cm, d = args
+    a16, d16 = a.to(torch.bfloat16), d.to(torch.bfloat16)
+    outs = []
+    for aa, dd in ((a16, d16), (a16.float(), d16.float())):
+        leaves = [t.detach().requires_grad_() for t in (x, dt, aa, bm, cm, dd)]
+        y, fin = mamba2.ssd_chunked(*leaves, S1_CASES["prefill"][6])
+        outs.append((y, fin, torch.autograd.grad((y.float() * dy.float()).sum(), leaves)))
+    (y16, f16, g16), (y32, f32, g32) = outs
+    assert torch.equal(y16, y32) and torch.equal(f16, f32)
+    assert g16[2].dtype == g16[5].dtype == torch.bfloat16
+    for got, want in zip(g16, g32):
+        assert torch.equal(got, want.to(got.dtype))
+
+
+def test_s1_refuses_what_it_does_not_take(dev):
+    """A CUDA call the kernels do not take raises ValueError: head_dim past
+    64, a chunk past 256, float16, a CPU operand beside CUDA ones."""
+    from repro_torch.models import mamba2
+
+    def call(p=64, chunk=256, s=512, dtype=torch.bfloat16, dt_dev=dev):
+        x = torch.zeros(1, s, 4, p, device=dev, dtype=dtype)
+        bm = torch.zeros(1, s, 1, 64, device=dev, dtype=dtype)
+        dt = torch.ones(1, s, 4, device=dt_dev)
+        a, d = -torch.ones(4, device=dev), torch.ones(4, device=dev)
+        return mamba2.ssd_chunked(x, dt, a, bm, bm, d, chunk)
+
+    call()
+    for kwargs, match in (({"p": 128}, "head_dim"), ({"chunk": 512}, "chunks of at most"),
+                          ({"dtype": torch.float16}, "x must be"),
+                          ({"dt_dev": torch.device("cpu")}, "CUDA tensor")):
+        with pytest.raises(ValueError, match=match):
+            call(**kwargs)
 
 
 # --- A1: the chunked (online-softmax) attention kernel ---------------------

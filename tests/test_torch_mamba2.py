@@ -6,6 +6,16 @@ weights and inputs (numpy seeds).
   ``ssd_chunked`` at 1, 2 and 4 chunks and at a chunk that does not divide
   the sequence (halved until it does: 24 -> 1 at 64 tokens): y and the
   final state within 1e-5 of their largest |entry|.
+* ``kernels/ssd.py::ssd_backward_ref`` (S1's backward algebra written in
+  torch) against autograd of ``ssd_chunked_ref``: dx, ddt, dA, dB, dC and
+  dD within 1e-5 of each gradient's largest |entry|, at 1, 2 and 4 chunks
+  and at a chunk that halves to 1, in float64 and float32.
+* S1's CUDA source (``csrc/ssd_chunked.cu``) built with the host's C++
+  compiler against ``tests/ssd_host_emu.h`` and run on CPU memory: y, the
+  final state and every gradient against the float64 plain version, within
+  1e-5 of their largest |entry| (y, dx, dB, dC in bf16: 2^-8), at a full
+  and a masked 64-row tile, two chunks, N 128, grouped heads and strided
+  views.
 * ``apply_mamba2``: train mode (output, final SSM state, conv state) and
   the one-step decode recurrence with its conv state, within 1e-5; and the
   recurrence continues a prefill: prefill of S tokens then one decode step
@@ -19,7 +29,11 @@ weights and inputs (numpy seeds).
 * The continuous engine, the paged KV cache and paged decode refuse both
   families with the reference's errors.
 """
+import ctypes
+import shutil
+import subprocess
 import warnings
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -32,6 +46,7 @@ from repro.models import mamba2 as jm2  # noqa: E402
 from repro.models.layers import AxesRecorder  # noqa: E402
 from repro.serve import engine as jax_engine  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.kernels import ssd as tssd  # noqa: E402
 from repro_torch.models import mamba2 as tm2  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.kvcache import PagedKVCache  # noqa: E402
@@ -83,6 +98,109 @@ def test_ssd_chunked_matches_the_reference(chunk):
     _close(ty, y)
     _close(tstate, state)
     assert tm2.chunk_len(64, chunk) == {64: 64, 32: 32, 16: 16, 24: 1}[chunk]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("chunk", [64, 32, 16, 24])
+def test_ssd_backward_ref_is_the_gradient(chunk, dtype):
+    args = [torch.from_numpy(t).to(dtype).requires_grad_() for t in _ssd_inputs(4)]
+    y, fin = tssd.ssd_chunked_ref(*args, chunk)
+    rng = np.random.default_rng(5)
+    dy = torch.from_numpy(rng.standard_normal(y.shape)).to(dtype)
+    dfin = torch.from_numpy(rng.standard_normal(fin.shape)).to(dtype)
+    want = torch.autograd.grad((y * dy).sum() + (fin * dfin).sum(), args)
+    got = tssd.ssd_backward_ref(*[t.detach() for t in args], chunk, dy, dfin)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        _close(g.detach(), w.detach().numpy())
+
+
+# --- S1's CUDA source on the host ----------------------------------------
+
+CSRC = Path(tssd.__file__).resolve().parent.parent / "csrc" / "ssd_chunked.cu"
+_L, _P = ctypes.c_longlong, ctypes.c_void_p
+
+
+@pytest.fixture(scope="module")
+def s1_host(tmp_path_factory):
+    """csrc/ssd_chunked.cu built with the host's C++ compiler over the
+    emulation header."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    assert cxx, "a host C++ compiler builds S1's source"
+    out = tmp_path_factory.mktemp("s1") / "libssd_host.so"
+    subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-DSSD_HOST_EMU",
+                    "-include", str(Path(__file__).with_name("ssd_host_emu.h")), "-x", "c++",
+                    str(CSRC), "-o", str(out), "-lpthread"], check=True, capture_output=True,
+                   timeout=300)
+    lib = ctypes.CDLL(str(out))
+    lib.ssd_chunked_fwd.argtypes = [ctypes.c_int, _P, _L, _L, _P, _P, _P, _L, _L, _P, _L, _L,
+                                    _P, _P, _P, _P] + [ctypes.c_int] * 8 + [_P]
+    lib.ssd_chunked_bwd.argtypes = [ctypes.c_int, _P, _L, _L, _P, _P, _P, _L, _L, _P, _L, _L,
+                                    _P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P] + \
+        [ctypes.c_int] * 8 + [_P]
+    lib.ssd_chunked_workspace.argtypes = [ctypes.c_int] * 8
+    lib.ssd_chunked_workspace.restype = _L
+    return lib
+
+
+def _host_s1(lib, x, dt, a, bm, cm, d, chunk, dy, dfin):
+    """S1's forward and backward through the host build, as
+    ``kernels/ssd.py`` launches them: -> (y, final, (dx, ddt, da, dB, dC, dD))."""
+    b, s, h, p = x.shape
+    g, n = bm.shape[2:]
+    q, hb = tssd.chunk_len(s, chunk), tssd.heads_per_cta(h // g)
+    code = tssd.DTYPE_CODES[x.dtype]
+    y, fin = torch.empty(b, s, h, p, dtype=x.dtype), torch.empty(b, h, p, n)
+    ent = torch.empty(b, s // q, h, p, n)
+    dims = (b, s, h, p, g, n, q, hb)
+    ins = (x.data_ptr(), x.stride(0), x.stride(1), dt.data_ptr(), a.data_ptr(), bm.data_ptr(),
+           bm.stride(0), bm.stride(1), cm.data_ptr(), cm.stride(0), cm.stride(1), d.data_ptr())
+    assert lib.ssd_chunked_fwd(code, *ins, y.data_ptr(), fin.data_ptr(), ent.data_ptr(), *dims,
+                               None) == 0
+    grads = (torch.empty_like(y), torch.empty(b, s, h), torch.empty(h),
+             torch.empty(b, s, g, n, dtype=x.dtype), torch.empty(b, s, g, n, dtype=x.dtype),
+             torch.empty(h))
+    work = torch.full((lib.ssd_chunked_workspace(*dims),), float("nan"))
+    dx, ddt, da, db, dc, dd = grads
+    assert lib.ssd_chunked_bwd(code, *ins, dy.data_ptr(), dy.stride(0), dy.stride(1),
+                               dfin.data_ptr(), ent.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+                               da.data_ptr(), db.data_ptr(), dc.data_ptr(), dd.data_ptr(),
+                               work.data_ptr(), *dims, None) == 0
+    return y, fin, grads
+
+
+# (B, S, H, P, G, N, chunk, dtype): two chunks of two full 64-row tiles with
+# grouped heads; one chunk of a full and a masked tile at N 128; 16-row
+# chunks of 3 heads; a whole 256-row chunk in bf16
+S1_HOST_CASES = [(2, 256, 4, 16, 2, 16, 128, torch.float32),
+                 (1, 96, 2, 16, 1, 128, 96, torch.float32),
+                 (1, 48, 3, 8, 1, 16, 16, torch.float32),
+                 (1, 256, 2, 64, 1, 32, 256, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("case", S1_HOST_CASES, ids=lambda c: "x".join(map(str, c[:7])))
+def test_s1_source_on_the_host(s1_host, case):
+    b, s, h, p, g, n, chunk, dtype = case
+    gen = torch.Generator().manual_seed(sum(case[:7]))
+    wide = torch.randn(b, s, h * p + 2 * g * n + 8, generator=gen).to(dtype)
+    x = wide[..., :h * p].unflatten(-1, (h, p))
+    bm = wide[..., h * p:h * p + g * n].unflatten(-1, (g, n))
+    cm = wide[..., h * p + g * n:h * p + 2 * g * n].unflatten(-1, (g, n))
+    dt = torch.nn.functional.softplus(torch.randn(b, s, h, generator=gen))
+    a = -torch.exp(torch.randn(h, generator=gen))
+    d = torch.randn(h, generator=gen)
+    dy = torch.randn(b, s, h, p, generator=gen).to(dtype)
+    dfin = torch.randn(b, h, p, n, generator=gen)
+    y, fin, got = _host_s1(s1_host, x, dt, a, bm, cm, d, chunk, dy, dfin)
+    ref = [t.double().requires_grad_() for t in (x, dt, a, bm, cm, d)]
+    yr, fr = tssd.ssd_chunked_ref(*ref, chunk)
+    want = torch.autograd.grad((yr * dy.double()).sum() + (fr * dfin.double()).sum(), ref)
+    loose = 2.0 ** -8 if dtype == torch.bfloat16 else TOL
+    for name, tol, g_, w in zip(("y", "final", "dx", "ddt", "dA", "dB", "dC", "dD"),
+                                (loose, TOL, loose, TOL, TOL, loose, loose, TOL),
+                                (y, fin, *got), (yr, fr, *want)):
+        err = float((g_.double() - w.detach()).abs().max() / w.detach().abs().max())
+        assert err <= tol, f"{name}: {err:.3e} of the largest |entry| (limit {tol:.1e})"
 
 
 def _block(arch, seed):
