@@ -289,6 +289,19 @@ version and ``kernel_info()``. The training paths check S1's launches
 (``check_s1_launches``: in a Mamba2 model the forward twice and the
 backward once per layer per step under remat, none elsewhere).
 
+Then O1, the port's CUDA kernels for the reference's plain-jnp AdamW
+(``o1_line``, ``[o1]`` lines): at each training cell's tree (qwen1.5-0.5b's
+14 leaves, Zamba2-7B's first 12 layers' 22, bf16, seeded values) one step
+of ``optimizers.update`` against the eager route ``update_eager`` with the
+clip inactive, p, m, v and lr bit for bit, and with the clip active the
+grad_norms within 1e-6; then O1's time, its norm and update kernels' each,
+against the bound (24 bytes a parameter at 3.35 TB/s), the eager route's
+time and each route's host issue time, and ``kernel_info()``. The
+training paths check O1's launches (``check_o1_launches``: its norm and
+update kernel once a step, on plain tensors and on the DeviceMesh's
+DTensors, whose local shards O1 updates; the mesh check (a) holds the two
+runs' bits equal with the clip active).
+
 Then the switch dataplane (``switchsim_path``, ``[switchsim]`` lines; the
 dataplane runs as torch ops on the card, as the reference runs it as jitted
 ``jnp``): (a) the card's ``BatchedDataplane`` equals the port's numpy
@@ -383,10 +396,12 @@ OPS_PER_ELEM = {"fused_encode_align": 16, "fused_decode": 34, "fpisa_extract": 1
                 "decode_leaf": 39}
 KERNELS = ("fused_encode_align", "fused_decode", "fpisa_extract", "fpisa_align",
            "fpisa_decode", "fpisa_accum", "chunked_attention_fwd", "chunked_attention_bwd",
-           "ssd_forward", "ssd_backward")
-# the port's kernels for jnp functions: A1 (the chunked attention), S1 (Mamba2's SSD)
+           "ssd_forward", "ssd_backward", "adamw_norm", "adamw_update")
+# the port's kernels for jnp functions: A1 (the chunked attention), S1 (Mamba2's
+# SSD), O1 (AdamW's clip and update)
 A1 = ("chunked_attention_fwd", "chunked_attention_bwd")
 S1 = ("ssd_forward", "ssd_backward")
+O1 = ("adamw_norm", "adamw_update")
 
 SWEEP = [(1, 256), (8, 128), (256, 256), (300, 512), (513, 128), (64, 512)]
 EMBED_ROWS = 607744           # the embedding gradient: 151936 x 1024 / 256
@@ -401,7 +416,8 @@ KERNEL_WRAPPER = {"fused_encode_align": "encode_align", "fused_decode": "decode_
                   "fpisa_extract": "extract", "fpisa_align": "align", "fpisa_decode": "decode",
                   "fpisa_accum": "accum", "chunked_attention_fwd": "attention_forward",
                   "chunked_attention_bwd": "attention_backward", "ssd_forward": "ssd_forward",
-                  "ssd_backward": "ssd_backward"}
+                  "ssd_backward": "ssd_backward", "adamw_norm": "adamw_norm",
+                  "adamw_update": "adamw_update"}
 # K1's modes, each its own wrapper in kernels/ops.py with its own count: the
 # local mode (the TPU kernel's function) and the aggregation's exponent and
 # wire modes. K2 counts its launches by mode in ``ops.decode_fused.modes``:
@@ -1098,6 +1114,7 @@ def train_main_path(torch, dev):
     if not all(torch.isfinite(p).all() for p in model.parameters()):
         raise AssertionError("non-finite parameter after training")
     launches.update(check_a1_launches(counts, cfg, STEPS, "main"))
+    launches.update(check_o1_launches(counts, STEPS, "main path", leaves))
     return launches, model, opt_state
 
 
@@ -1116,8 +1133,10 @@ def train_seq_path(torch, dev):
         cfg, steps=STEPS, global_batch=GLOBAL_BATCH, seq_len=SEQ_LEN,
         agg=AggConfig(strategy="fpisa_seq", backend="auto"), device=dev, log_every=1)
     torch.cuda.synchronize()
-    launches = k6_subset(read_launches())
+    counts = read_launches()
+    launches = k6_subset(counts)
     leaves = len(list(model.parameters()))
+    launches.update(check_o1_launches(counts, STEPS, "fpisa_seq path", leaves))
     log(f"[train] fpisa_seq: {STEPS} steps of {cfg.name} in {time.perf_counter() - t0:.2f} s "
         f"(init included); peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(json.dumps({"fpisa_seq_launches_per_step": {k: v / STEPS for k, v in launches.items()},
@@ -1389,6 +1408,7 @@ def train_stacked(torch, dev, strategy):
                              leaf=sum(p.dtype != torch.float32 for p in params) * STEPS)
     else:
         check_seq_launches(counts, leaves * STEPS, f"stacked {strategy}")
+    launches.update(check_o1_launches(counts, STEPS, f"stacked {strategy}", leaves))
     if not all(torch.isfinite(p).all() for p in model.parameters()):
         raise AssertionError(f"non-finite parameter after stacked {strategy} training")
     return launches, model, opt_state, losses, peak
@@ -1951,13 +1971,13 @@ def fig9_path(torch, dev):
 
 def wrapper(name):
     """The launch function that counts kernel ``name``'s launches: A1's in
-    ``kernels/attention.py``, S1's in ``kernels/ssd.py``, K1-K6's in
-    ``kernels/ops.py`` (K1's local mode; ``k1_mode_wrappers`` has all
-    three)."""
-    from repro_torch.kernels import attention, ops, ssd
+    ``kernels/attention.py``, S1's in ``kernels/ssd.py``, O1's in
+    ``kernels/adamw.py``, K1-K6's in ``kernels/ops.py`` (K1's local mode;
+    ``k1_mode_wrappers`` has all three)."""
+    from repro_torch.kernels import adamw, attention, ops, ssd
 
-    return getattr(attention if name in A1 else ssd if name in S1 else ops,
-                   KERNEL_WRAPPER[name])
+    module = attention if name in A1 else ssd if name in S1 else adamw if name in O1 else ops
+    return getattr(module, KERNEL_WRAPPER[name])
 
 
 def k1_mode_wrappers():
@@ -2051,6 +2071,24 @@ def check_s1_launches(counts, cfg, steps, what):
             "ssd_backward": layers * steps}
     if s1_subset(counts) != want:
         raise AssertionError(f"{what}: S1 launched {s1_subset(counts)}, expected {want}")
+
+
+def o1_subset(counts):
+    """O1's counts out of ``read_launches()``'s."""
+    return {k: counts[k] for k in O1}
+
+
+def check_o1_launches(counts, steps, what, leaves):
+    """O1's launches over ``steps`` AdamW steps of a tree of ``leaves``
+    leaves: its norm and its update kernel once a step for each
+    ``MAX_LEAVES`` of them. Returns O1's counts."""
+    from repro_torch.kernels.adamw import MAX_LEAVES
+
+    n = -(-leaves // MAX_LEAVES) * steps
+    want = dict.fromkeys(O1, n)
+    if o1_subset(counts) != want:
+        raise AssertionError(f"{what}: O1 launched {o1_subset(counts)}, expected {want}")
+    return o1_subset(counts)
 
 
 def check_paged_equals_dense(torch, dev, model, tag="[serve] check (a)"):
@@ -2354,6 +2392,7 @@ def family_train(torch, dev, cfg, strategy, seq_len=SEQ_LEN, tag="[models]"):
     else:
         check_seq_launches(launches, leaves * STEPS, f"{cfg.name} {strategy}")
     check_s1_launches(launches, cfg, STEPS, f"{cfg.name} {strategy}")
+    check_o1_launches(launches, STEPS, f"{cfg.name} {strategy}", leaves)
     if not all(torch.isfinite(p).all() for p in model.parameters()):
         raise AssertionError(f"{cfg.name}: non-finite parameter after training")
     log(f"{tag} {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}): {STEPS} steps "
@@ -2833,7 +2872,7 @@ def sharding_plain_and_mesh(torch, dev):
     """(a): the same 3 full-width qwen steps twice, plain tensors and on the
     card's (data, model) = (1, 1) DeviceMesh (``sharding.rules.distribute``,
     the mesh step), under deterministic algorithms (both runs repeat their
-    bits). K1/K2 counted from zero over the mesh run. Returns (launches,
+    bits). K1/K2 and O1 counted from zero over the mesh run. Returns (launches,
     the two models and optimizer states, their losses)."""
     from repro_torch.configs import get_config
     from repro_torch.core.agg import AggConfig
@@ -2866,13 +2905,60 @@ def equal_bits(torch, got, want, what):
         raise AssertionError(f"{what}: the bits differ")
 
 
+def pipeline_witness(torch, dev, model, batch, states):
+    """Of (b)'s gradients at each of ``states`` ({name: the parameters}),
+    which is at fault where they part: the pipeline or (b)'s tolerance. A
+    float32 copy of the model (the witness) gives the gradients without
+    bf16 rounding; each of the pipeline's (one stage, 4 microbatches) and
+    ``model.loss``'s bf16 gradients is measured against it as (b) measures
+    the two against each other, the largest |a - w| - 2e-2 |w| of a leaf.
+    Where ``model.loss`` is as far from the witness as the pipeline, bf16's
+    rounding parts them, not the pipeline. Logs one ``[sharding] (b)
+    witness`` line a state; leaves ``model`` at the last state."""
+    from repro_torch.models.registry import build
+    from repro_torch.train.pipeline import make_pp_loss, param_tree, split_stages
+
+    cfg = model.cfg
+    witness = build(cfg.with_(param_dtype="float32", activation_dtype="float32"), device=dev,
+                    seed=0)
+    names = [n for n, _ in model.named_parameters()]
+    if names != [n for n, _ in witness.named_parameters()]:
+        raise AssertionError("[sharding] (b) witness: the float32 model's leaves differ")
+    params, w_params = list(model.parameters()), list(witness.parameters())
+    pp_loss = make_pp_loss(cfg, None, n_micro=4)
+
+    def excess(a, b):
+        return float(((a.float() - b.float()).abs() - 2e-2 * b.float().abs()).max())
+
+    for state, values in states.items():
+        with torch.no_grad():
+            for p, w, x in zip(params, w_params, values):
+                p.copy_(x)
+                w.copy_(x.float())
+        ref_g = torch.autograd.grad(model.loss(batch), params)
+        pp_g = torch.autograd.grad(pp_loss(split_stages(param_tree(model), 1), batch), params)
+        w_g = torch.autograd.grad(witness.loss(batch), w_params)
+        rows = {n: (excess(a, b), excess(a, w), excess(b, w))
+                for n, a, b, w in zip(names, pp_g, ref_g, w_g)}
+        worst = max(rows, key=lambda n: rows[n][0])
+        log(f"[sharding] (b) witness, model {state}: pipeline vs model.loss "
+            f"{rows[worst][0]:.3e} at {worst} (atol 2e-4), where pipeline vs float32 "
+            f"{rows[worst][1]:.3e} and model.loss vs float32 {rows[worst][2]:.3e}; over all "
+            f"leaves pipeline vs float32 {max(r[1] for r in rows.values()):.3e}, model.loss vs "
+            f"float32 {max(r[2] for r in rows.values()):.3e}; {CARD}")
+        del ref_g, pp_g, w_g
+    del witness, w_params
+    torch.cuda.empty_cache()
+
+
 def sharding_path(torch, dev):
     """The ninth slice's path (``[sharding]`` lines): (a) full-width
     qwen1.5-0.5b trained through a (1, 1) DeviceMesh with K1/K2 (path
     ``sharded``) held to the plain-tensor run's losses, parameters and
     aggregated gradient bits, step times beside each other; (b) the GPipe
     loss (``train/pipeline.py``) at full width, one stage, 4
-    microbatches, against ``model.loss`` and its gradients; (c) ``opscan``
+    microbatches, against ``model.loss`` and its gradients, and both
+    against a float32 witness (``pipeline_witness``); (c) ``opscan``
     of the mesh step against its measured time, and the dry run's
     per-device bytes of qwen1.5-0.5b and kimi-k2 (multi-pod) against the
     card's memory. Returns {"sharded": launches}."""
@@ -2906,6 +2992,7 @@ def sharding_path(torch, dev):
             f"losses {m_losses}, plain {p_losses}; K1/K2 launches "
             f"{json.dumps(k1k2_subset(launches))} ({leaves} leaves); {CARD}")
         check_fpisa_launches(launches, leaves * STEPS, "[sharding] mesh run")
+        check_o1_launches(launches, STEPS, "[sharding] mesh run", leaves)
         if m_losses != p_losses:
             raise AssertionError(f"[sharding] mesh losses {m_losses} != plain {p_losses}")
         for (name, a), b in zip(meshed.named_parameters(), plain.parameters()):
@@ -2943,6 +3030,9 @@ def sharding_path(torch, dev):
         def fwd_bwd_plain():
             torch.autograd.grad(plain.loss(batch), list(plain.parameters()))
 
+        # (b) reads the plain model after the timed steps train it; the
+        # float32 witness also reads it as the three steps left it
+        untimed = [p.detach().clone() for p in plain.parameters()]
         times = {"step_plain": median_ms(torch, lambda: p_step(p_opt, batch), reps=3, warmup=1),
                  "step_mesh": median_ms(torch, lambda: m_step(m_opt, batch), reps=3, warmup=1),
                  "fwd_bwd_plain": median_ms(torch, fwd_bwd_plain, reps=3, warmup=1),
@@ -2985,12 +3075,15 @@ def sharding_path(torch, dev):
             f"vs model.loss {float(ref.detach()):.6f} (|diff| {dl:.3e}, tolerance 2e-3); "
             f"gradients: largest |diff| - 2e-2 |ref| = {worst:.3e} (tolerance atol 2e-4); "
             f"forward+backward {pp_ms:.2f} ms; {CARD}")
+        pipeline_witness(torch, dev, model, batch, {"timed": [p.detach().clone() for p in params],
+                                                    "untimed": untimed})
         if dl > 2e-3:
             raise AssertionError(f"[sharding] pipeline loss off by {dl}")
         for (name, _), a, b in zip(model.named_parameters(), pp_g, ref_g):
             torch.testing.assert_close(a, b, rtol=2e-2, atol=2e-4,
                                        msg=lambda m, name=name: f"[sharding] (b) {name}: {m}")
-        del model, plain, params, ref_g, pp_g, runs
+        del ref_g, pp_g, untimed
+        del model, plain, params, runs
         torch.cuda.empty_cache()
     finally:
         outs = {}
@@ -3013,7 +3106,7 @@ def sharding_path(torch, dev):
             f"traced in {rec['trace_s']} s")
     log(f"[sharding] the group took {time.perf_counter() - t0:.1f} s; {CARD}")
     return {"sharded": {**k1k2_subset(launches), **a1_subset(launches),
-                        **s1_subset(launches)}}
+                        **s1_subset(launches), **o1_subset(launches)}}
 
 
 # ---------------------------------------------------------------------------
@@ -3299,6 +3392,7 @@ def longctx_train(torch, dev):
     launches = k1k2_subset(counts)
     check_fpisa_launches(counts, leaves * STEPS, "longctx")
     launches.update(check_a1_launches(counts, cfg, STEPS, "longctx"))
+    launches.update(check_o1_launches(counts, STEPS, "longctx", leaves))
     if not (all(math.isfinite(v) for v in losses)
             and all(torch.isfinite(p).all() for p in model.parameters())):
         raise AssertionError(f"longctx: non-finite loss or parameter ({losses})")
@@ -3648,6 +3742,138 @@ def s1_line(torch, dev, par):
             for name, ms, plain, bound, ops_ms in (
                 ("ssd_forward", fwd, plain_fwd, bound_f, flops_ms),
                 ("ssd_backward", bwd, plain_bwd, bound_b, 2 * flops_ms))}
+
+
+# O1 at the training cells' trees: their leaves' shapes from the benchmark's
+# configurations, bf16 as the cells train them
+O1_CELLS = ("qwen_train_4k", "zamba2_train_4k")
+# the clip inactive: no gradient's norm reaches it, the scale is 1 on both routes
+O1_NO_CLIP = 1e9
+
+
+def o1_tree(torch, dev, cell_name, seed):
+    """(params, grads, state, optimizer settings) at ``cell_name``'s tree:
+    bf16 params and gradients, float32 moments, from ``seed`` on the card."""
+    from fpisa_bench import spec
+    from repro_torch.optim import optimizers
+
+    cell = spec.Cell(cell_name)
+    shapes = [tuple(s) for _, s, _ in spec.reference(cell.config_name).param_spec(cell.config)]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(shape, std, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype).mul_(std)
+
+    params = [normal(s, 0.02, torch.bfloat16) for s in shapes]
+    grads = [normal(s, 1e-4, torch.bfloat16) for s in shapes]
+    state = optimizers.OptState(step=0, m=[normal(s, 1e-5) for s in shapes],
+                                v=[normal(s, 1e-5).square_() for s in shapes])
+    return params, grads, state, cell.traffic["optimizer"]
+
+
+def o1_line(torch, dev, par):
+    """The ``[o1]`` lines, one a training cell's tree (``O1_CELLS``): one
+    step of ``optimizers.update`` (O1, two launches) against the eager
+    route (``update_eager``) on copies of the same tensors with the clip
+    inactive: p, m, v and lr bit for bit, failing on a miss; with the clip
+    active, the two grad_norms' relative difference. Then O1's time (CUDA
+    events, median of 10; its norm and update kernels each, median of 25)
+    beside its bound (24 bytes a bf16 parameter at 3.35 TB/s: the norm
+    reads g, the update reads g, p, m, v and writes p, m, v), the eager
+    route's (median of 3; its clip alone, ``_clip``, and its update alone,
+    ``_apply`` on the clipped gradients, the plain times of the kernels
+    line's norm and update) and the host's time to
+    issue each (host clock, no synchronize, median of 5: the eager route
+    waits on its scalars' copies); the kernels' registers and CTAs an SM.
+    Returns the kernels line's numbers at qwen's tree (the main path's)."""
+    from repro_torch.kernels import adamw
+    from repro_torch.optim import optimizers
+
+    out = {}
+    for cell_name in O1_CELLS:
+        params, grads, state, opt = o1_tree(torch, dev, cell_name, seed=34)
+        cfg = optimizers.OptConfig(name="adamw", **{**opt, "grad_clip": O1_NO_CLIP})
+        o1_p = [p.clone() for p in params]
+        o1_s = state._replace(m=[t.clone() for t in state.m], v=[t.clone() for t in state.v])
+        zero_launches()
+        o1_s, o1_met = optimizers.update(o1_p, grads, o1_s, cfg)
+        launches = o1_subset(read_launches())
+        eager_s, eager_met = optimizers.update_eager(params, grads, state, cfg)
+        torch.cuda.synchronize()
+        if launches != {"adamw_norm": 1, "adamw_update": 1}:
+            raise AssertionError(f"[o1] {cell_name}: O1 launched {launches}, expected 1 and 1")
+        ints = {2: torch.int16, 4: torch.int32}
+        for i, (a, b) in enumerate(zip(o1_p + o1_s.m + o1_s.v + [o1_met["lr"]],
+                                       params + eager_s.m + eager_s.v + [eager_met["lr"]])):
+            if torch.equal(a.view(ints[a.element_size()]), b.view(ints[b.element_size()])):
+                par.cases["adamw_update"] += 1
+            else:
+                par.check("adamw_update", a, b, f"{cell_name} tensor {i}")  # raises
+        del o1_p, o1_s
+        torch.cuda.empty_cache()
+        clip = optimizers.OptConfig(name="adamw", **opt)
+        state = eager_s
+        _, got = optimizers.update(params, grads, state, clip)
+        _, want = optimizers.update_eager(params, grads, state, clip)
+        rel = abs(float(got["grad_norm"]) - float(want["grad_norm"])) / float(want["grad_norm"])
+        par.err["adamw_norm"] = max(par.err["adamw_norm"], rel)
+        par.cases["adamw_norm"] += 1
+        if not rel <= 1e-6:
+            raise AssertionError(f"[o1] {cell_name}: grad_norm {float(got['grad_norm'])} vs the "
+                                 f"eager route's {float(want['grad_norm'])}, {rel:.3g} apart")
+
+        n = sum(p.numel() for p in params)
+        tables = adamw._tables(params, grads, state.m, state.v)
+        partials = torch.empty(len(tables) * adamw.NORM_CTAS, dtype=torch.float64, device=dev)
+        gnorm, lr = torch.empty((), device=dev), torch.empty((), device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        # the eager update's own inputs: the clipped float32 gradients and the step's scalars
+        clipped, _ = optimizers._clip(grads, clip.grad_clip)
+        step_f = optimizers._f32(1, grads[0])
+        lr_f = optimizers._schedule(clip, step_f)
+        t = {"o1": median_ms(torch, lambda: optimizers.update(params, grads, state, clip), reps=10),
+             "norm": median_ms(torch, lambda: adamw.adamw_norm(tables, partials, stream)),
+             "update": median_ms(torch, lambda: adamw.adamw_update(tables, partials, gnorm, lr,
+                                                                   1, clip, stream)),
+             "eager": median_ms(torch, lambda: optimizers.update_eager(params, grads, state,
+                                                                       clip), reps=3, warmup=1),
+             "eager_clip": median_ms(torch, lambda: optimizers._clip(grads, clip.grad_clip),
+                                     reps=3, warmup=1),
+             "eager_update": median_ms(torch, lambda: optimizers._apply(
+                 params, clipped, state, clip, step_f, lr_f), reps=3, warmup=1)}
+        host = {}
+        for route in ("update", "update_eager"):
+            issue = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                getattr(optimizers, route)(params, grads, state, clip)
+                issue.append(1e3 * (time.perf_counter() - t0))
+            host[route] = statistics.median(issue)
+        torch.cuda.synchronize()
+        bound = {"norm": 2 * n / HBM_BYTES_PER_S * 1e3, "update": 22 * n / HBM_BYTES_PER_S * 1e3}
+        line = {"parameters": n, "leaves": len(params), "o1_ms": t["o1"], "norm_ms": t["norm"],
+                "update_ms": t["update"], "bound_ms": bound["norm"] + bound["update"],
+                "bound_norm_ms": bound["norm"], "bound_update_ms": bound["update"],
+                "eager_ms": t["eager"], "eager_clip_ms": t["eager_clip"],
+                "eager_update_ms": t["eager_update"],
+                "host_issue_ms": {"o1": host["update"], "eager": host["update_eager"]},
+                "grad_norm_rel_diff": rel, "launches": launches,
+                "kernels (registers, ctas_per_sm, local_bytes)": {
+                    k: (v["registers"], v["ctas_per_sm"], v["local_bytes"])
+                    for k, v in adamw.kernel_info().items()}}
+        log(f"[o1] {cell_name}'s tree, clip inactive: O1 == the eager route bit for bit (p, m, "
+            f"v, lr); {json.dumps(line)}; {CARD}")
+        if cell_name == O1_CELLS[0]:
+            out = {"adamw_norm": {"ms": t["norm"], "plain_ms": t["eager_clip"],
+                                  "bound_ms": bound["norm"], "bound_by": "bytes",
+                                  "library_ms": None},
+                   "adamw_update": {"ms": t["update"], "plain_ms": t["eager_update"],
+                                    "bound_ms": bound["update"], "bound_by": "bytes",
+                                    "library_ms": None}}
+        del params, grads, state, eager_s, tables, partials, clipped
+        torch.cuda.empty_cache()
+    return out
 
 
 def longctx_path(torch, dev, par):
@@ -4738,9 +4964,13 @@ def main() -> int:
         s1_times = s1_line(torch, dev, par)
         torch.cuda.empty_cache()
         lap("s1")
+        o1_times = o1_line(torch, dev, par)
+        torch.cuda.empty_cache()
+        lap("o1")
         times = timing(torch, dev, leaf_sizes)
         times.update(a1_times)
         times.update(s1_times)
+        times.update(o1_times)
         paths["two_pass"], two_pass_times = two_pass_pipeline(torch, dev, leaf_sizes, par)
         times.update(two_pass_times)
         torch.cuda.empty_cache()
@@ -4768,7 +4998,9 @@ def main() -> int:
                "chunked_attention_fwd": "src/repro_torch/csrc/chunked_attention.cu",
                "chunked_attention_bwd": "src/repro_torch/csrc/chunked_attention.cu",
                "ssd_forward": "src/repro_torch/csrc/ssd_chunked.cu",
-               "ssd_backward": "src/repro_torch/csrc/ssd_chunked.cu"}
+               "ssd_backward": "src/repro_torch/csrc/ssd_chunked.cu",
+               "adamw_norm": "src/repro_torch/csrc/adamw.cu",
+               "adamw_update": "src/repro_torch/csrc/adamw.cu"}
     replaces = {"fused_encode_align": "src/repro/kernels/fpisa_fused.py:66",
                 "fused_decode": "src/repro/kernels/fpisa_fused.py:96",
                 "fpisa_extract": "src/repro/kernels/fpisa_encode.py:47",
@@ -4781,7 +5013,10 @@ def main() -> int:
                 "chunked_attention_bwd": "src/repro/models/attention.py:142",
                 # S1 likewise: Mamba2's plain-jnp SSD scan and its autodiff
                 "ssd_forward": "src/repro/models/mamba2.py:72",
-                "ssd_backward": "src/repro/models/mamba2.py:72"}
+                "ssd_backward": "src/repro/models/mamba2.py:72",
+                # O1 likewise: the plain-jnp clip and AdamW update
+                "adamw_norm": "src/repro/optim/optimizers.py:49",
+                "adamw_update": "src/repro/optim/optimizers.py:57"}
     a1_routes = check_a1_routes(paths)
     # launches: the sum over every path that ran the kernel; launches_by_path:
     # each path's count, zeroed just before the path and read just after

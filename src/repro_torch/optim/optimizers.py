@@ -8,6 +8,16 @@ clip and under a linear warmup, in the reference's order of operations.
 State and parameters are updated in place (under ``torch.no_grad``), which
 saves a full copy of m, v and the parameters per step; the arithmetic is the
 reference's, operation for operation.
+
+``update`` takes one of two routes by what it is given. AdamW on the card
+runs O1, the two CUDA kernels of ``kernels/adamw.py``: the clip and the
+whole update fused over every leaf, the step's scalars derived on the card,
+with the eager route's float32 operations (its bits, but for the norm's
+order of summation). It takes plain CUDA tensors and the local shards of
+DTensors (a step on a ``DeviceMesh``), and refuses, by name, a leaf it
+cannot take (``kernels.adamw.local_tree``) rather than run it eagerly.
+CPU tensors and ``sgdm`` run the eager route, ``update_eager``, the plain
+version.
 """
 from __future__ import annotations
 
@@ -15,6 +25,8 @@ import dataclasses
 from typing import NamedTuple, Sequence
 
 import torch
+
+from repro_torch.kernels import adamw
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,12 +77,33 @@ def _clip(grads: Sequence[torch.Tensor], max_norm: float):
 def update(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
            state: OptState, cfg: OptConfig):
     """Updates ``params`` and the state tensors in place; returns
-    (new_state, metrics)."""
+    (new_state, metrics). AdamW on the card runs O1 (module doc), without a
+    host copy or a synchronize; CPU tensors and ``sgdm`` ``update_eager``."""
+    if cfg.name == "adamw" and adamw.on_card(params):
+        step = state.step + 1
+        gnorm, lr = adamw.adamw_step(params, grads, state.m, state.v, step, cfg)
+        return OptState(step=step, m=state.m, v=state.v), {"grad_norm": gnorm, "lr": lr}
+    return update_eager(params, grads, state, cfg)
+
+
+@torch.no_grad()
+def update_eager(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+                 state: OptState, cfg: OptConfig):
+    """``update``'s eager route, on any device: the plain version that O1
+    is held to."""
     step = state.step + 1
     step_f = _f32(step, grads[0])
     lr = _schedule(cfg, step_f)
     grads, gnorm = _clip(grads, cfg.grad_clip)
+    _apply(params, grads, state, cfg, step_f, lr)
+    return OptState(step=step, m=state.m, v=state.v), {"grad_norm": gnorm, "lr": lr}
 
+
+@torch.no_grad()
+def _apply(params, grads, state: OptState, cfg: OptConfig, step_f: torch.Tensor,
+           lr: torch.Tensor) -> None:
+    """``update_eager``'s update of ``params`` and the moments, in place,
+    from the clipped float32 ``grads``."""
     if cfg.name == "adamw":
         b1, b2 = cfg.b1, cfg.b2
         c1 = 1 - _f32(b1, step_f) ** step_f
@@ -85,4 +118,3 @@ def update(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
         for p, m, g in zip(params, state.m, grads):
             m.mul_(cfg.momentum).add_(g)
             p.copy_(p.to(torch.float32) - lr * m)
-    return OptState(step=step, m=state.m, v=state.v), {"grad_norm": gnorm, "lr": lr}

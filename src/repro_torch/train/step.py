@@ -72,12 +72,15 @@ their shards. Of arctic's (pod boundary, FSDP over 'data'), ``embed.tok``
 bf16 gradient, 954 GB at full size: its full-width training needs the
 in-place path extended to such shards (ROADMAP).
 
-The optimizer update runs on the whole mesh's DTensors, so ZeRO-1 (AdamW's
-moments sharded over 'data', ``rules.opt_pspecs``) resolves through
-DTensor's redistribution, as the reference's runs outside the
-``shard_map`` under automatic sharding. On a mesh whose compute axes all
-have size 1 (model = 1), stacked logical workers, buckets and chunks keep
-the bits they have without a mesh.
+The optimizer update runs on the whole mesh's DTensors. On the CPU ZeRO-1
+(AdamW's moments sharded over 'data', ``rules.opt_pspecs``) resolves
+through DTensor's redistribution, as the reference's runs outside the
+``shard_map`` under automatic sharding. On the card AdamW is O1 over the
+DTensors' local shards (``kernels/adamw.py``), which refuses ZeRO-1's
+moments where 'data' has more than one rank: they lie apart from their
+parameters. On a mesh whose compute axes all have size 1 (model = 1),
+stacked logical workers, buckets and chunks keep the bits they have
+without a mesh.
 
 Every step opens the tracer's ``train.step`` span (``repro_torch.trace``)
 with the phases as children: ``train.forward_backward`` (the losses and
